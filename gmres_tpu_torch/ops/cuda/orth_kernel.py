@@ -1,0 +1,132 @@
+"""K2/K3 wrappers: the basis sweeps of one CGS or CGSR step
+(``csrc/basis_sweep.cu``), each beside its plain PyTorch version.
+
+Replaces ``gmres_tpu/ops/pallas/orth_kernel.py``'s ``_gram``,
+``_update_gram``, ``_update_sumsq`` and their chain ``cgsr2_pallas``:
+
+    gram:          u = V w
+    update_gram:   w1 = w - u^T V,  u2 = V w1
+    update_sumsq:  w2 = w - u^T V,  ||w2||^2
+
+``V`` is the (m+1, n) row-stored Krylov basis.  Only its first ``rows``
+rows are read: inside the Arnoldi loop rows k+1..m are still zero, so the
+solver passes ``rows = k + 1`` (the host loop index) and the result is the
+same as a sweep over all m+1 rows.  Outputs keep the full (m+1,) length
+with zeros past ``rows``.  Sums are taken in the basis dtype (fp32 or
+fp64), as in the TPU kernels for fp32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gmres_tpu_torch.ops.cuda._build import check, kernel_dtype, library
+
+
+def _rows_ok(V: torch.Tensor, rows: int) -> None:
+    if V.dim() != 2 or not 1 <= rows <= V.shape[0]:
+        raise ValueError(f"rows={rows} outside 1..{V.shape[0]} for V of shape "
+                         f"{tuple(V.shape)}")
+
+
+def _sweep_args(name: str, V: torch.Tensor, rows: int, **vecs):
+    """Validate the sweep's arguments (before anything is built); return
+    (library, suffix, m+1, n, number of blocks)."""
+    _rows_ok(V, rows)
+    sfx = kernel_dtype(name, V)
+    m1, n = V.shape
+    check("V", V, V.dtype, (m1, n), V.device)
+    for vname, (t, length) in vecs.items():
+        check(vname, t, V.dtype, (length,), V.device)
+    lib = library()
+    if m1 > lib.max_rows:
+        raise ValueError(f"{name}: basis height {m1} > {lib.max_rows}")
+    return lib, sfx, m1, n, -(-n // lib.tile)
+
+
+def gram_plain(V: torch.Tensor, w: torch.Tensor, rows: int) -> torch.Tensor:
+    _rows_ok(V, rows)
+    u = torch.zeros(V.shape[0], dtype=V.dtype, device=V.device)
+    u[:rows] = torch.mv(V[:rows], w)
+    return u
+
+
+def gram_cuda(V: torch.Tensor, w: torch.Tensor, rows: int) -> torch.Tensor:
+    """K2: u = V w from per-block partials."""
+    lib, sfx, m1, n, nb = _sweep_args("gram", V, rows, w=(w, V.shape[1]))
+    partials = torch.empty((nb, m1), dtype=V.dtype, device=V.device)
+    lib.call(f"gmres_basis_gram_{sfx}", V.data_ptr(), w.data_ptr(), partials.data_ptr(),
+             n, rows, m1)
+    gram_cuda.launches += 1
+    return partials.sum(dim=0)
+
+
+gram_cuda.launches = 0
+
+
+def update_gram_plain(V, w, u, rows: int):
+    _rows_ok(V, rows)
+    w1 = w - torch.mv(V[:rows].t(), u[:rows])
+    return w1, gram_plain(V, w1, rows)
+
+
+def update_gram_cuda(V, w, u, rows: int):
+    """K3 with GRAM: (w - u^T V, V (w - u^T V)) in one sweep."""
+    lib, sfx, m1, n, nb = _sweep_args("update_gram", V, rows, w=(w, V.shape[1]),
+                                      u=(u, V.shape[0]))
+    w1 = torch.empty_like(w)
+    partials = torch.empty((nb, m1), dtype=V.dtype, device=V.device)
+    lib.call(f"gmres_basis_update_gram_{sfx}", V.data_ptr(), w.data_ptr(), u.data_ptr(),
+             w1.data_ptr(), partials.data_ptr(), n, rows, m1)
+    update_gram_cuda.launches += 1
+    return w1, partials.sum(dim=0)
+
+
+update_gram_cuda.launches = 0
+
+
+def update_sumsq_plain(V, w, u, rows: int):
+    _rows_ok(V, rows)
+    w2 = w - torch.mv(V[:rows].t(), u[:rows])
+    return w2, torch.dot(w2, w2)
+
+
+def update_sumsq_cuda(V, w, u, rows: int):
+    """K3 with SUMSQ: (w - u^T V, ||w - u^T V||^2) in one sweep."""
+    lib, sfx, m1, n, nb = _sweep_args("update_sumsq", V, rows, w=(w, V.shape[1]),
+                                      u=(u, V.shape[0]))
+    w2 = torch.empty_like(w)
+    partials = torch.empty(nb, dtype=V.dtype, device=V.device)
+    lib.call(f"gmres_basis_update_sumsq_{sfx}", V.data_ptr(), w.data_ptr(), u.data_ptr(),
+             w2.data_ptr(), partials.data_ptr(), n, rows, m1)
+    update_sumsq_cuda.launches += 1
+    return w2, partials.sum()
+
+
+update_sumsq_cuda.launches = 0
+
+
+def gram(V, w, rows: int):
+    return gram_cuda(V, w, rows) if V.is_cuda else gram_plain(V, w, rows)
+
+
+def update_gram(V, w, u, rows: int):
+    return update_gram_cuda(V, w, u, rows) if V.is_cuda else update_gram_plain(V, w, u, rows)
+
+
+def update_sumsq(V, w, u, rows: int):
+    return (update_sumsq_cuda(V, w, u, rows) if V.is_cuda
+            else update_sumsq_plain(V, w, u, rows))
+
+
+def cgsr2(V, w, rows: int):
+    """One CGSR step (two CGS passes) in three basis sweeps:
+
+        u1 = V w;  (w1, u2) = update_gram;  (w2, ss) = update_sumsq
+
+    Returns (h = u1 + u2, w2, ||w2||), the norm exact for the returned
+    vector (``orth_kernel.py:cgsr2_pallas``)."""
+    u1 = gram(V, w, rows)
+    w1, u2 = update_gram(V, w, u1, rows)
+    w2, ss = update_sumsq(V, w1, u2, rows)
+    return u1 + u2, w2, torch.sqrt(ss)

@@ -1,5 +1,5 @@
 // Shared launch geometry and deterministic reductions for the port's
-// hand-written Hopper kernels (dia_spmv.cu, basis_sweep.cu).
+// hand-written Hopper kernels (dia_spmv.cu, basis_sweep.cu, sell_spmv.cu).
 //
 // Every cross-thread sum is a fixed tree (warp shuffles, then one warp over
 // the per-warp values), and every cross-block sum is written as per-block

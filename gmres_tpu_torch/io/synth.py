@@ -1,7 +1,9 @@
 """Synthetic test matrices, built on the host in numpy: the stencil
 Laplacian and the nonsymmetric convection-diffusion operator that the
-benchmark solves.  Each returns a `CSRMatrix` with a guaranteed diagonal
-and sorted rows, entry for entry the arrays ``gmres_tpu.io.synth`` builds.
+benchmark solves, the jittered-stencil unstructured mesh that DIA refuses,
+and a random diagonally dominant pattern for tests.  Each returns a
+`CSRMatrix` with a guaranteed diagonal and sorted rows, entry for entry the
+arrays ``gmres_tpu.io.synth`` builds.
 """
 
 from __future__ import annotations
@@ -74,3 +76,60 @@ def convection_diffusion_2d(
         np.concatenate(vals).astype(dtype),
         n_rows=n,
     )
+
+
+def random_sparse(
+    n: int,
+    row_nnz: int = 8,
+    seed: int = 0,
+    diag_dominance: float = 1.5,
+    dtype=np.float64,
+) -> CSRMatrix:
+    """Random sparse matrix with guaranteed diagonal dominance (safe GMRES
+    convergence for unit tests)."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n, dtype=np.int64), row_nnz)
+    cols = rng.integers(0, n, size=n * row_nnz)
+    vals = rng.standard_normal(n * row_nnz)
+    # drop diagonal hits, add dominant diagonal explicitly
+    off = rows != cols
+    rows, cols, vals = rows[off], cols[off], vals[off]
+    d_rows = np.arange(n, dtype=np.int64)
+    row_abs = np.zeros(n)
+    np.add.at(row_abs, rows, np.abs(vals))
+    d_vals = diag_dominance * (row_abs + 1.0)
+    return csr_from_coo(
+        np.concatenate([rows, d_rows]),
+        np.concatenate([cols, d_rows]),
+        np.concatenate([vals, d_vals]).astype(dtype),
+        n_rows=n,
+    )
+
+
+def unstructured_mesh(
+    n: int, nx: int | None = None, jitter: int = 16, run: int = 3,
+    seed: int = 0, dtype=np.float64,
+) -> CSRMatrix:
+    """Jittered-stencil 'unstructured mesh': row i couples to runs of
+    ``run`` consecutive columns at i-1 and at i +- (nx + j(i)) with
+    per-row random jitter, the shape of an RCM-ordered FEM/mesh matrix:
+    smooth per-row offsets but thousands of distinct diagonals, so
+    ``dia.from_csr`` refuses and the SELL format (``ops/sell.py``) is
+    exercised.  ``run=3`` gives ~10 nnz/row (2D-FEM density), ``run=8``
+    ~25 (3D FEM / cage-class)."""
+    if nx is None:
+        nx = max(4, int(round(n ** 0.5)))
+    rng = np.random.default_rng(seed)
+    i = np.arange(n, dtype=np.int64)
+    j_up = rng.integers(-jitter, jitter + 1, size=n)
+    j_dn = rng.integers(-jitter, jitter + 1, size=n)
+    base = [i - 1 + k for k in range(run)]
+    up = [i - nx + j_up + k for k in range(run)]
+    dn = [i + nx + j_dn + k for k in range(run)]
+    cols = np.clip(np.concatenate(base + up + dn), 0, n - 1)
+    rows = np.tile(i, 3 * run)
+    vals = rng.standard_normal(rows.shape[0])
+    rows = np.concatenate([rows, i])
+    cols = np.concatenate([cols, i])
+    vals = np.concatenate([vals, np.full(n, 3.0 * run + 1.0)])
+    return csr_from_coo(rows, cols, vals.astype(dtype), n_rows=n)

@@ -1,7 +1,8 @@
 """Build, load and launch the port's CUDA kernels.
 
 The sources under ``gmres_tpu_torch/csrc`` have a plain C interface.  At
-first use they are compiled with ``nvcc`` for Hopper (``sm_90a``) into
+first use each is compiled for Hopper (``sm_90a``) by its own ``nvcc``, all
+started together, and the objects are linked into
 ``build/gmres_tpu_torch/<hash>/libgmres_kernels.so`` at the root of the
 checkout, keyed by a hash of the sources and flags, and loaded with
 ``ctypes``.  A build takes seconds, against minutes for a source that
@@ -28,10 +29,10 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "gmres_tpu_torch"
-SOURCES = ("dia_spmv.cu", "basis_sweep.cu")
+SOURCES = ("dia_spmv.cu", "basis_sweep.cu", "sell_spmv.cu")
 HEADERS = ("common.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +43,10 @@ _SIGNATURES = {
     "gmres_dia_spmv_f64": (_P, _P, _P, _I, _I, _I, _P, _P),
     "gmres_dia_residual_f32": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P),
     "gmres_dia_residual_f64": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P),
+    "gmres_sell_spmv_f32": (_P, _P, _P, _P, _P, _I, _P),
+    "gmres_sell_spmv_f64": (_P, _P, _P, _P, _P, _I, _P),
+    "gmres_sell_residual_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "gmres_sell_residual_f64": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "gmres_basis_gram_f32": (_P, _P, _P, _I, _I, _I, _P),
     "gmres_basis_gram_f64": (_P, _P, _P, _I, _I, _I, _P),
     "gmres_basis_update_gram_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -116,19 +121,29 @@ def source_hash() -> str:
 def _build(out: Path) -> str:
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a private name and rename, so that a concurrent builder
-    # never loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    log = f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    (out.parent / "build.log").write_text(log)
-    os.replace(tmp, out)
+    # compile and link in a private directory and rename the library into
+    # place, so that a concurrent builder never loads a half-written one
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, f"{src}.o") for src in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)]
+                for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for cmd in cmds]
+        results = []
+        for cmd, proc in zip(cmds, procs):
+            stdout, stderr = proc.communicate()
+            results.append((cmd, proc.returncode, stdout, stderr))
+        lib = os.path.join(tmp, out.name)
+        link = [nvcc, *ARCH, "-shared", "-o", lib, *objs]
+        if all(code == 0 for _, code, _, _ in results):
+            proc = subprocess.run(link, capture_output=True, text=True)
+            results.append((link, proc.returncode, proc.stdout, proc.stderr))
+        log = "".join(f"{' '.join(cmd)}\n{so}{se}" for cmd, _, so, se in results)
+        failed = [(cmd, code) for cmd, code, _, _ in results if code != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0][1]}): {' '.join(failed[0][0])}\n{log}")
+        (out.parent / "build.log").write_text(log)
+        os.replace(lib, out)
     return log
 
 

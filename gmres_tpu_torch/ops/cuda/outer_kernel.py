@@ -1,13 +1,14 @@
 """The fp64 outer phase of a restart cycle: the true residual with its two
-norms (K1 in residual mode) and the solution update (K4), each beside its
-plain PyTorch version.
+norms (K1 or K5 in residual mode) and the solution update (K4), each beside
+its plain PyTorch version.
 
 Replaces ``gmres_tpu/ops/pallas/df64_kernel.py``'s ``residual_df64`` and
-``axpy_df64``.  On the TPU these carried every fp64 value as a double-float
-pair of fp32s (hi + lo, about 2^-48 relative), because the TPU has no fp64
-units and XLA emulates fp64 in software.  The H100 has fp64 units, so the
-pair disappears: x, b and r are plain fp64 tensors and the kernels compute
-in native fp64.  That is also what the JAX package computes on the CPU, so
+``axpy_df64``, and ``gmres_tpu/ops/pallas/sell_kernel.py``'s
+``sell_spmv_df64`` where it computes the outer residual.  On the TPU these
+carried every fp64 value as a double-float pair of fp32s (hi + lo, about
+2^-48 relative), because the TPU has no fp64 units and XLA emulates fp64
+in software.  The H100 has fp64 units, so the pair disappears: x, b and r
+are plain fp64 tensors and the kernels compute in native fp64.  That is also what the JAX package computes on the CPU, so
 the port's outer phase matches the reference's CPU branch.
 """
 
@@ -16,18 +17,24 @@ from __future__ import annotations
 import torch
 
 from gmres_tpu_torch.ops.cuda._build import check, kernel_dtype, library
+from gmres_tpu_torch.ops.cuda.sell_kernel import sell_residual_cuda, sell_residual_plain
 from gmres_tpu_torch.ops.cuda.spmv_kernel import dia_residual_cuda, dia_residual_plain
 from gmres_tpu_torch.ops.dia import DIAMatrix
+from gmres_tpu_torch.ops.sell import SELLMatrix
 from gmres_tpu_torch.ops.spmv import spmv
 
 
 def outer_residual(A, b: torch.Tensor, x: torch.Tensor, inner_dtype: torch.dtype):
     """(r, ||r'||^2, ||x||^2) for r = b - A x in the outer dtype, r' = r
-    rounded to the inner dtype (sums as fp64 0-d tensors).  A DIA operator
-    on the card takes K1's residual mode; otherwise the plain version."""
+    rounded to the inner dtype (sums as fp64 0-d tensors).  On the card a
+    DIA operator takes K1's residual mode and a SELL operator K5's; a CPU
+    operator, or a CSR one, the plain version."""
     if isinstance(A, DIAMatrix):
         fn = dia_residual_cuda if A.data.is_cuda else dia_residual_plain
         return fn(A.data, A.offsets, b, x, inner_dtype)
+    if isinstance(A, SELLMatrix):
+        fn = sell_residual_cuda if A.vals.is_cuda else sell_residual_plain
+        return fn(A.vals, A.cols, A.slice_ptr, b, x, inner_dtype)
     r = b - spmv(A, x)
     ri = r.to(inner_dtype)
     return r, torch.dot(ri, ri).to(torch.float64), torch.dot(x, x).to(torch.float64)

@@ -1,10 +1,10 @@
 """Sparse matrix-vector product dispatch.
 
-DIA operators go to ``dia_spmv`` (kernel K1 on the card).  CSR is the
-fallback for unstructured matrices: a plain torch gather plus
-``index_add_`` over the precomputed row ids, as the JAX package leaves its
-CSR path to XLA.  The SELL and double-float operator formats are not
-ported yet.
+DIA operators go to ``dia_spmv`` (kernel K1 on the card) and sliced-ELL
+operators to ``sell_spmv`` (kernel K5 on the card).  CSR is the fallback
+for a matrix both formats refuse: a plain torch gather plus ``index_add_``
+over the precomputed row ids, as the JAX package leaves its CSR path to
+XLA.  The double-float operator formats are not ported yet.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from gmres_tpu_torch.ops.dia import DIAMatrix, dia_spmv
+from gmres_tpu_torch.ops.sell import SELLMatrix, sell_spmv
 from gmres_tpu_torch.sparse import CSRMatrix
 
 
@@ -26,9 +27,10 @@ def spmv(A, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x in A's dtype; x is cast to A's dtype first."""
     if isinstance(A, DIAMatrix):
         return dia_spmv(A, x)
+    if isinstance(A, SELLMatrix):
+        return sell_spmv(A, x)
     if isinstance(A, CSRMatrix):
         return csr_spmv(A, x)
     raise NotImplementedError(
-        f"spmv on {type(A).__name__}: the port takes DIA and CSR operators; "
-        "SELL packs come with slice 2 and double-float (df64) operators with "
-        "slice 5")
+        f"spmv on {type(A).__name__}: the port takes DIA, SELL and CSR "
+        "operators; double-float (df64) operators are slice 5")

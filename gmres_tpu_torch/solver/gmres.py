@@ -19,13 +19,18 @@ Python ``for k in range(m)`` that never reads a value back to the host: no
 ``torch.where`` and the triangular solve is bounded by the device-side
 ``kdim``.  So the loop only enqueues work, and the host reads the cycle's
 scalars once, at the start of the next cycle.  The hot operations run on
-hand-written kernels: the SpMV (K1), the CGSR basis sweeps (K2, K3), the
-outer residual (K1 residual mode) and the solution update (K4).  x is
-updated in place.
+hand-written kernels: the SpMV (K1 on DIA operators, K5 on sliced-ELL
+ones), the CGSR basis sweeps (K2, K3), the outer residual (K1 or K5 in
+residual mode) and the solution update (K4).  x is updated in place.
+
+Operators are staged as in the JAX package: DIA when the pattern is banded
+enough, else SELL, else CSR.  The JAX package packs SELL only on the TPU
+and from n = 128K rows; those gates were the TPU's, and the port packs SELL
+at every size on both devices.
 
 Not ported, because they exist for the TPU only: the padding of n to the
-Pallas block size, the double-float outer staging, SELL staging, the
-staging cache, the bf16 escalation and the NaN fallback.
+Pallas block size, the double-float outer staging, the staging cache, the
+bf16 escalation and the NaN fallback.
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ from gmres_tpu_torch.ops.cuda.outer_kernel import basis_axpy, outer_residual
 from gmres_tpu_torch.ops.dia import from_csr
 from gmres_tpu_torch.ops.givens import accumulate_rotation, rotg
 from gmres_tpu_torch.ops.orth import orthonormalize_step
+from gmres_tpu_torch.ops.reorder import permute_symmetric, rcm_permutation
+from gmres_tpu_torch.ops.sell import sell_from_csr
 from gmres_tpu_torch.ops.spmv import spmv
 from gmres_tpu_torch.ops.tri import trsv_upper_padded
 from gmres_tpu_torch.precond.apply import typesafe_apply
@@ -234,22 +241,27 @@ def _require_supported(cfg: GmresConfig) -> None:
     if cfg.orth.value == "mgs":
         raise NotImplementedError("orth='mgs' is slice 4 of the port")
     require_supported(cfg.policy)
-    if cfg.auto_reorder:
-        raise NotImplementedError("auto_reorder (RCM) is slice 2 of the port")
     if cfg.axis_name is not None:
         raise NotImplementedError("distributed solves (axis_name) are slice 7 of the port")
 
 
+def _format(A, cfg: GmresConfig):
+    """With ``cfg.auto_format`` a CSR matrix is repacked on the host: to DIA
+    when it is banded enough, else to SELL unless the padding is too large
+    (``gmres_tpu/solver/gmres.py:862-915``); anything else is kept."""
+    if not (cfg.auto_format and isinstance(A, CSRMatrix)):
+        return A
+    packed = from_csr(A)
+    if packed is None:
+        packed = sell_from_csr(A)
+    return A if packed is None else packed
+
+
 def prepare_operators(A, cfg: GmresConfig, device):
-    """Stage the matrix into (outer, inner) dtypes on ``device``.  With
-    ``cfg.auto_format`` a banded CSR matrix is repacked to DIA first.  When
-    the dtypes match one operator serves both roles (``gmres.cpp:136-141``)."""
-    A_fmt = A
-    if cfg.auto_format and isinstance(A, CSRMatrix):
-        dia = from_csr(A)
-        if dia is not None:
-            A_fmt = dia
-    A_fmt = A_fmt.to(device)
+    """Stage the matrix into (outer, inner) dtypes on ``device``, repacked
+    by ``_format``.  When the dtypes match one operator serves both roles
+    (``gmres.cpp:136-141``)."""
+    A_fmt = _format(A, cfg).to(device)
     A_in = A_fmt.astype(cfg.precision.inner_dtype)
     same = cfg.precision.outer_dtype == cfg.precision.inner_dtype
     A_out = A_in if same else A_fmt.astype(cfg.precision.outer_dtype)
@@ -257,31 +269,57 @@ def prepare_operators(A, cfg: GmresConfig, device):
 
 
 def stage(A, cfg: GmresConfig | None = None, device="cuda"):
-    """Pre-stage an operator for repeated solves: the CSR -> DIA repack (for
-    banded matrices) and the upload happen once here instead of inside
-    every ``solve`` (the reference's pre-timed deep_copy,
-    ``gmres_perf_test.cpp:218-221``)."""
+    """Pre-stage an operator for repeated solves: the repack (CSR -> DIA or
+    SELL) and the upload happen once here instead of inside every
+    ``solve`` (the reference's pre-timed deep_copy,
+    ``gmres_perf_test.cpp:218-221``).  Returns the staged operator, so a
+    caller sees which format it got."""
     cfg = cfg or GmresConfig()
     dev = resolve_device(device)
-    if cfg.auto_format and isinstance(A, CSRMatrix):
-        dia = from_csr(A)
-        if dia is not None:
-            A = dia
-    return A.to(dev)
+    return _format(A, cfg).to(dev)
+
+
+def _permuted(v, perm: np.ndarray):
+    """v[perm] for a numpy array or a tensor (on the tensor's device)."""
+    if isinstance(v, torch.Tensor):
+        return v[torch.as_tensor(perm, device=v.device)]
+    return np.asarray(v)[perm]
 
 
 def solve(A, b, cfg: GmresConfig | None = None, x0=None, M=None,
-          record_history: bool = False, progress=None, device="cuda") -> GmresResult:
+          record_history: bool = False, progress=None, device="cuda",
+          reorder: str | None = None) -> GmresResult:
     """Solve A x = b with restarted GMRES(m) under the configured precision
     staging, orthogonalization, preconditioner and restart policy, on
     ``device`` (CUDA by default; the CPU only when asked for).
 
     ``A`` is the assembled (typically fp64) CSR matrix or a staged operator
     from ``stage``; ``b`` and ``x0`` are numpy arrays or tensors.  The
-    returned ``x`` lies on ``device``."""
+    returned ``x`` lies on ``device``.
+
+    ``reorder="rcm"`` (or ``cfg.auto_reorder`` on a CSR matrix that DIA
+    refuses, with neither ``M`` nor ``x0`` given) permutes A symmetrically
+    by reverse Cuthill-McKee on the host, solves the permuted system and
+    returns the un-permuted solution (``gmres_tpu/solver/gmres.py:1038-1062``)."""
     cfg = cfg or GmresConfig()
     dev = resolve_device(device)
     _require_supported(cfg)
+    if (reorder is None and cfg.auto_reorder and isinstance(A, CSRMatrix)
+            and M is None and x0 is None and from_csr(A) is None):
+        reorder = "rcm"
+    perm = None
+    if reorder is not None:
+        if reorder != "rcm":
+            raise ValueError(f"unknown reorder {reorder!r}")
+        if M is not None:
+            raise ValueError("reorder with a prebuilt preconditioner is unsupported")
+        if not isinstance(A, CSRMatrix):
+            raise TypeError(f"reorder needs the assembled CSR matrix, got {type(A).__name__}")
+        perm = rcm_permutation(A)
+        A = permute_symmetric(A, perm)
+        b = _permuted(b, perm)
+        if x0 is not None:
+            x0 = _permuted(x0, perm)
     out_dt = cfg.precision.outer_dtype
     in_dt = cfg.precision.inner_dtype
 
@@ -314,4 +352,8 @@ def solve(A, b, cfg: GmresConfig | None = None, x0=None, M=None,
     result.prec_seconds = prec_seconds
     result.setup_seconds = setup_seconds
     result.solve_seconds = time.perf_counter() - t1
+    if perm is not None:
+        x = torch.empty_like(result.x)
+        x[torch.as_tensor(perm, device=dev)] = result.x
+        result.x = x
     return result

@@ -60,6 +60,13 @@ class CSRMatrix:
         return (self.row_ptr.cpu().numpy(), self.col_idx.cpu().numpy(),
                 self.vals.cpu().numpy())
 
+    def to_scipy(self):
+        """The matrix as a ``scipy.sparse.csr_matrix`` on the host."""
+        import scipy.sparse as sp
+
+        row_ptr, col_idx, vals = self.numpy_arrays()
+        return sp.csr_matrix((vals, col_idx, row_ptr), shape=self.shape)
+
 
 def csr_from_arrays(row_ptr, col_idx, vals, n_cols: int | None = None) -> CSRMatrix:
     """Build a CSRMatrix from raw CSR arrays (host numpy).  Entries past

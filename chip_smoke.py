@@ -5,23 +5,32 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from the sources in the checkout and
-drives two paths, each through ``gmres_tpu_torch.stage`` and ``solve`` in
-the ``baseline`` and ``mixed`` modes (x_true = rand_vect(n, 42), b = A x_true
-in fp64 numpy, CGSR, identity preconditioner, restart length 30, tol 1e-8):
+It builds the port's CUDA kernels (and the host helper of the ILU
+preconditioners) from the sources in the checkout and drives three paths,
+each through ``gmres_tpu_torch.stage`` and ``solve`` in the ``baseline`` and
+``mixed`` modes (x_true = rand_vect(n, 42), b = A x_true in fp64 numpy,
+CGSR, restart length 30, tol 1e-8):
 
 1. the banded path: ``convection_diffusion_2d(1024, beta=2.0)`` (n =
-   1,048,576, 5 DIA bands), kernels K1-K4, the reference's 26/780 history;
+   1,048,576, 5 DIA bands), identity preconditioner, kernels K1-K4, the
+   reference's 26/780 history;
 2. the unstructured path: ``unstructured_mesh(1024*1024, run=8)`` (mesh3d,
-   25,151,458 nonzeros, which DIA refuses), staged as SELL, kernels K5 and
-   K2-K4, the reference's 1/30 history.
+   25,151,458 nonzeros, which DIA refuses), staged as SELL, identity
+   preconditioner, kernels K5 and K2-K4, the reference's 1/30 history;
+3. the ILU path (convdiff-ilu): the same convdiff@1M operator with M built
+   on the host from the CSR matrix and passed as ``M=``: ILU-Jacobi(3) (DIA
+   factors, K1 per sweep; the reference's 54/1620 baseline and 63/1890
+   mixed), exact ILU (K6; converges, backward error <= 1e-8), and exact ILU
+   on ``convection_diffusion_2d(512, beta=2.0)`` (the reference's 8/240 in
+   mixed).  The fused K6 form serves 262K and the segmented one 1M fp64.
 
 Before each path's solves it holds each of the path's kernels against its
 plain PyTorch version at the path's shapes (fp32 and fp64; a 31-row Krylov
 basis) and times both.  Each path's launch counts are reset just before its
 solves and read just after: the path's own kernels must launch, the other
-path's SpMV kernels must not.  Any failed check raises and the script exits
-non-zero; without a CUDA device it exits non-zero at once.
+paths' SpMV kernels and (without ILU) K6 must not.  Any failed check raises
+and the script exits non-zero; without a CUDA device it exits non-zero at
+once.  Each phase prints its seconds.
 
 Output: the card's name and power limit, versions, build time, per-kernel
 error and timing lines, per-path build/stage and per-mode solve lines; then
@@ -50,9 +59,26 @@ TPU_ITERS = 780    # the reference's history on convdiff (BENCH_r05.json)
 MESH_TPU_HISTORY = (1, 30)
 REPS = 20          # timed launches per kernel and per plain version
 # the kernels each path's SpMV runs; K2-K4 (the basis sweeps and the update)
-# serve both paths
+# serve every path, K6 only the ILU path
 PATH_KERNELS = {"convdiff": ("dia_spmv", "dia_residual"),
                 "mesh3d": ("sell_spmv", "sell_residual")}
+ILU_KERNELS = ("ilu_trisolve_fused", "ilu_trisolve_segmented")
+# the reference's ILU histories (restarts, iterations): ILU-Jacobi(3) at
+# convdiff@1M (results/round4/bench_ilujacobi.txt), exact ILU in mixed at
+# convection_diffusion_2d(512, beta=2.0) (results/round5/bench_ilu_exact.txt)
+ILU_JACOBI_HISTORY = {"baseline": (54, 1620), "mixed": (63, 1890)}
+EXACT_262K_HISTORY = (8, 240)
+# Restart bounds for ILU-Jacobi(3) at convdiff@1M.  Baseline: within one of
+# the reference.  Mixed, widened (PERF.md, section 6): from 3 below the fp64
+# baseline's 54 to 1 above the reference's 63.  Once the residual nears
+# 1e-7 the restarted fp32 iteration turns non-monotone and rounding order
+# picks the count: on the CPU the JAX package and the port, identical in
+# baseline, differ in mixed by 1 restart at convection_diffusion_2d(128) and
+# by 3 at (256), the port lower.
+ILU_JACOBI_RESTARTS = {"baseline": (53, 55), "mixed": (51, 64)}
+NX_262K = 512
+TRISOLVE_REPS = 5        # timed K6 launches (one apply is ~4000 dependent sweeps)
+TRISOLVE_PLAIN_REPS = 2  # the plain version is thousands of torch launches
 # Kernel vs plain tolerance, relative to the same computation on absolute
 # values (the scale of the standard summation error bound): the two sum in
 # different orders (per-block partials, FMA contraction) over up to n terms.
@@ -292,59 +318,74 @@ def csr_residual(A_csr, x, b):
     return b - np.bincount(rows, weights=v * x[ci], minlength=A_csr.n_rows)
 
 
-def run_main_path(torch, label, A_csr, A_dev, expect):
-    """Solve the path's problem in both modes on the staged operator; hold
-    each mode to its expected history (`expect(restarts, iters)` returns the
-    failure text or None) and to a backward error <= 1e-8 recomputed here
-    in fp64; return the launch counts of the path's solves."""
-    from gmres_tpu_torch import GmresConfig, PrecisionSpec, rand_vect, solve
-    from gmres_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+def solve_timed(torch, label, mode, A_csr, A_dev, cfg, timed, M=None, history=False):
+    """One warm-up and `timed` timed solves of A x = b (x_true = rand_vect(n,
+    42)) on the staged operator; hold the last to convergence, a backward
+    error <= 1e-8 recomputed here in fp64 and a finite x of shape (n,).
+    Returns (result, median wall)."""
+    from gmres_tpu_torch import rand_vect, solve
 
     n = A_csr.n_rows
     x_true = rand_vect(n, 42)
     b = -csr_residual(A_csr, x_true, np.zeros(n))
-    a_fro = float(np.linalg.norm(A_csr.vals.numpy()))
-    b_norm = float(np.linalg.norm(b))
     b_dev = torch.tensor(b, device="cuda")
-    other = {k for path, ks in PATH_KERNELS.items() if path != label for k in ks}
+    res = solve(A_dev, b_dev, cfg, M=M)  # warm-up
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        res = solve(A_dev, b_dev, cfg, M=M, record_history=history)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    x = res.x.cpu().numpy()
+    a_fro = float(np.linalg.norm(A_csr.vals.numpy()))
+    backward = float(np.linalg.norm(csr_residual(A_csr, x, b))
+                     / (np.linalg.norm(b) + a_fro * np.linalg.norm(x)))
+    err = float(np.linalg.norm(x - x_true) / np.linalg.norm(x_true))
+    wall = statistics.median(times)
+    log(f"solve {label} {mode}: converged={res.converged} restarts={res.restarts} "
+        f"total_iters={res.total_iters} wall median={wall:.4f} s "
+        f"walls={[round(t, 4) for t in times]} backward_err={backward:.3e} "
+        f"rel_fwd_err={err:.3e}")
+    if history:
+        log(f"  history {label} {mode} (relative residual per cycle): "
+            + ", ".join(f"{h['rel_initial']:.3e}" for h in res.history))
+    require(res.converged, f"{label} {mode} converged")
+    require(backward <= 1e-8, f"{label} {mode} backward error {backward:.3e} <= 1e-8")
+    require(np.all(np.isfinite(x)) and x.shape == (n,), f"{label} {mode} x finite, shape ({n},)")
+    return res, wall
 
+
+def config(mode, precond, **kw):
+    from gmres_tpu_torch import GmresConfig, PrecisionSpec
+
+    return GmresConfig(precision=PrecisionSpec.from_mode(mode), orth="cgsr", precond=precond,
+                       restart_length=RLEN, tol=TOL, max_restarts=MAX_RESTARTS, **kw)
+
+
+def run_main_path(torch, label, A_csr, A_dev, expect):
+    """Solve the path's problem in both modes on the staged operator, with no
+    preconditioner; hold each mode to its expected history
+    (`expect(restarts, iters)` returns the failure text or None); return
+    the launch counts of the path's solves."""
+    from gmres_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    other = {k for path, ks in PATH_KERNELS.items() if path != label for k in ks}
+    other |= set(ILU_KERNELS)
     walls = {}
     reset_launch_counts()
     for mode in ("baseline", "mixed"):
-        cfg = GmresConfig(precision=PrecisionSpec.from_mode(mode), orth="cgsr",
-                          precond="identity", restart_length=RLEN, tol=TOL,
-                          max_restarts=MAX_RESTARTS)
         before = launch_counts()
-        res = solve(A_dev, b_dev, cfg)  # warm-up
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            res = solve(A_dev, b_dev, cfg)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+        res, walls[mode] = solve_timed(torch, label, mode, A_csr, A_dev,
+                                       config(mode, "identity"), 3)
         after = launch_counts()
         counts = {k: after[k] - before[k] for k in after}
-        x = res.x.cpu().numpy()
-        r = csr_residual(A_csr, x, b)
-        backward = float(np.linalg.norm(r) / (b_norm + a_fro * np.linalg.norm(x)))
-        err = float(np.linalg.norm(x - x_true) / np.linalg.norm(x_true))
-        wall = statistics.median(times)
-        walls[mode] = wall
-        log(f"solve {label} {mode}: converged={res.converged} restarts={res.restarts} "
-            f"total_iters={res.total_iters} wall median={wall:.4f} s "
-            f"walls={[round(t, 4) for t in times]} backward_err={backward:.3e} "
-            f"rel_fwd_err={err:.3e}")
         log(f"  launches {label} {mode}: {counts}")
-        require(res.converged, f"{label} {mode} converged")
-        require(backward <= 1e-8, f"{label} {mode} backward error {backward:.3e} <= 1e-8")
         bad = expect(res.restarts, res.total_iters)
         require(bad is None, f"{label} {mode}: {bad}")
         require(all(v > 0 for k, v in counts.items() if k not in other),
                 f"{label} {mode}: every kernel of the path launched ({counts})")
         require(all(counts[k] == 0 for k in other),
-                f"{label} {mode}: no other path's SpMV kernel launched ({counts})")
-        require(np.all(np.isfinite(x)) and x.shape == (n,),
-                f"{label} {mode} x finite, shape ({n},)")
+                f"{label} {mode}: no other path's SpMV kernel nor K6 launched ({counts})")
     log(f"{label} mixed/baseline wall ratio: {walls['mixed'] / walls['baseline']:.4f} "
         f"(baseline/mixed speedup {walls['baseline'] / walls['mixed']:.4f})")
     return launch_counts()
@@ -359,14 +400,9 @@ def stage_timed(torch, A_csr):
     return A_dev, time.perf_counter() - t0
 
 
-def convdiff_path(torch, record):
-    from gmres_tpu_torch.io.synth import convection_diffusion_2d
+def convdiff_path(torch, record, A):
     from gmres_tpu_torch.ops.dia import DIAMatrix
 
-    t0 = time.perf_counter()
-    A = convection_diffusion_2d(NX, beta=2.0)
-    log(f"matrix: convection_diffusion_2d({NX}, beta=2.0) n={A.n_rows:,} "
-        f"nnz={A.nnz:,} built in {time.perf_counter() - t0:.2f} s")
     check_kernels(torch, A, record)
     A_dev, secs = stage_timed(torch, A)
     require(isinstance(A_dev, DIAMatrix), f"convdiff stages as DIA, got {type(A_dev).__name__}")
@@ -379,7 +415,7 @@ def convdiff_path(torch, record):
             return f"total_iters {iters} not within {RLEN} of {TPU_ITERS}"
         return None
 
-    return run_main_path(torch, "convdiff", A, A_dev, expect)
+    return run_main_path(torch, "convdiff", A, A_dev, expect), A_dev
 
 
 def mesh3d_path(torch, record):
@@ -404,6 +440,147 @@ def mesh3d_path(torch, record):
         return None
 
     return run_main_path(torch, "mesh3d", A, A_dev, expect)
+
+
+def exact_ilu(A_csr, dt, n_seg=None):
+    """ExactILUDIAPrec of A in dt: fused, or split into n_seg segments (the
+    budget set to an n_seg-th of the working set)."""
+    from gmres_tpu_torch.precond import build as pb
+
+    ws = (2 + 2 + 5) * dt.itemsize * A_csr.n_rows  # convdiff: 2 bands per triangle
+    old = pb._TRISOLVE_L2_BYTES
+    pb._TRISOLVE_L2_BYTES = 1 << 62 if n_seg is None else -(-ws // n_seg)
+    try:
+        M = pb.build_ilu_exact(A_csr, dt)
+    finally:
+        pb._TRISOLVE_L2_BYTES = old
+    require(isinstance(M, pb.ExactILUDIAPrec) and (M.seg > 0) == (n_seg is not None),
+            f"exact ILU of convdiff in {dt} is the {'segmented' if n_seg else 'fused'} K6 form")
+    return M
+
+
+def check_trisolve_kernels(torch, A_csr, record):
+    """K6 fused and segmented (2 segments, as the fp64 solve at 1M) against
+    their plain versions at convdiff@1M's factor shapes, fp32 and fp64.  The
+    tolerance scale is the same recurrence on absolute values: -|bands|,
+    |D^-1| and |w| (every term added)."""
+    from gmres_tpu_torch.ops.cuda import trisolve_kernel as tk
+
+    n = A_csr.n_rows
+    w_np = np.random.default_rng(2).standard_normal(n)
+    timer = Timer(torch)
+    for dt_name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        w = torch.tensor(w_np, dtype=dt, device="cuda")
+        for kname, M in (("ilu_trisolve_fused", exact_ilu(A_csr, dt)),
+                         ("ilu_trisolve_segmented", exact_ilu(A_csr, dt, n_seg=2))):
+            M = M.to("cuda")
+            fn_cuda = getattr(tk, kname + "_cuda")
+            fn_plain = getattr(tk, kname + "_plain")
+            steps = ((M.steps_l_segs, M.steps_u_segs, M.seg) if M.seg
+                     else (M.steps_l, M.steps_u))
+            args = (M.lower_bands, M.upper_bands, M.inv_diag, w, M.offs_l, M.offs_u, *steps)
+            abs_args = (-M.lower_bands.abs(), -M.upper_bands.abs(), M.inv_diag.abs(), w.abs(),
+                        M.offs_l, M.offs_u, *steps)
+            got, want = fn_cuda(*args), fn_plain(*args)
+            scale = fn_plain(*abs_args)
+            ms = timer(lambda: fn_cuda(*args), TRISOLVE_REPS)
+            sweeps = (sum(M.steps_l_segs) + sum(M.steps_u_segs) if M.seg
+                      else M.steps_l + M.steps_u)
+            log(f"  {kname} {dt_name}: {sweeps} sweeps in one launch of {fn_cuda.grid} blocks, "
+                f"{1e3 * ms / sweeps:.2f} us a sweep" + (f", segments of {M.seg}" if M.seg else ""))
+            # bytes: the bands, w, x, b' and D^-1 once (each sweep re-reads them from L2)
+            nbytes = (len(M.offs_l) + len(M.offs_u) + 4) * n * dt.itemsize
+            record(kname, dt_name, *compare(dt_name, [got], [want], [scale]), ms,
+                   timer(lambda: fn_plain(*args), TRISOLVE_PLAIN_REPS), nbytes)
+            torch.cuda.synchronize()
+            del M, got, want, scale
+    record.require_ok()
+
+
+def convdiff_ilu_path(torch, record, A, A_dev):
+    """ILU-Jacobi(3) and exact ILU at convdiff@1M and exact ILU at 262K, M
+    built on the host from the CSR matrix and passed as M=; returns the
+    launch counts of the path's solves."""
+    from gmres_tpu_torch.io.synth import convection_diffusion_2d
+    from gmres_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gmres_tpu_torch.ops.dia import DIAMatrix
+    from gmres_tpu_torch.precond.build import (
+        ExactILUDIAPrec,
+        build_preconditioner,
+        optimize_precond_format,
+    )
+    from gmres_tpu_torch.precond.ilu0 import ilu0_factorize, triangular_level_counts
+
+    rp, ci, v = A.numpy_arrays()
+    t0 = time.perf_counter()
+    _, diag = ilu0_factorize(rp, ci, v)
+    t1 = time.perf_counter()
+    levels = triangular_level_counts(rp, ci, diag)
+    log(f"host ILU(0) of convdiff@1M (C++ helper, built at first use): "
+        f"{t1 - t0:.3f} s; dependency levels (L, U) {levels} in "
+        f"{time.perf_counter() - t1:.3f} s")
+    check_trisolve_kernels(torch, A, record)
+
+    def build_m(label, A_csr, cfg):
+        t0 = time.perf_counter()
+        M = optimize_precond_format(build_preconditioner(A_csr, cfg)).to("cuda")
+        torch.cuda.synchronize()
+        if not isinstance(M, ExactILUDIAPrec):
+            form = f"{type(M.lower).__name__} factors, {M.steps} sweeps"
+        elif M.seg:
+            form = f"segmented: {M.seg}-row segments, sweeps {M.steps_l_segs}"
+        else:
+            form = f"fused: sweeps {(M.steps_l, M.steps_u)}"
+        log(f"M {label} {cfg.precision.precond}: {type(M).__name__} ({form}) "
+            f"built and uploaded in {time.perf_counter() - t0:.3f} s")
+        return M
+
+    t0 = time.perf_counter()
+    A262 = convection_diffusion_2d(NX_262K, beta=2.0)
+    A262_dev, secs = stage_timed(torch, A262)
+    require(isinstance(A262_dev, DIAMatrix), "convdiff@262K stages as DIA")
+    log(f"matrix: convection_diffusion_2d({NX_262K}, beta=2.0) n={A262.n_rows:,} built and "
+        f"staged in {time.perf_counter() - t0:.2f} s")
+
+    reset_launch_counts()
+    for mode in ("baseline", "mixed"):
+        t0 = time.perf_counter()
+        cfg = config(mode, "ilu_jacobi", jacobi_steps=3)
+        M = build_m("convdiff@1M ilu_jacobi(3)", A, cfg)
+        require(isinstance(M.lower, DIAMatrix), "ILU-Jacobi factors repack to DIA")
+        res, _ = solve_timed(torch, "convdiff@1M ilu_jacobi(3)", mode, A, A_dev, cfg, 3,
+                             M=M)
+        want = ILU_JACOBI_HISTORY[mode]
+        lo, hi = ILU_JACOBI_RESTARTS[mode]
+        log(f"  vs the reference's {want[0]}/{want[1]}: restarts {res.restarts - want[0]:+d} "
+            f"(held to {lo}..{hi}); phase {time.perf_counter() - t0:.1f} s")
+        require(lo <= res.restarts <= hi,
+                f"ilu_jacobi {mode}: {res.restarts}/{res.total_iters} restarts not in "
+                f"{lo}..{hi} (the reference's {want[0]}/{want[1]})")
+    for label, A_csr, A_staged in (("convdiff@262K ilu", A262, A262_dev),
+                                   ("convdiff@1M ilu", A, A_dev)):
+        for mode in ("baseline", "mixed"):
+            t0 = time.perf_counter()
+            cfg = config(mode, "ilu")
+            M = build_m(label, A_csr, cfg)
+            require(isinstance(M, ExactILUDIAPrec), f"{label} {mode}: exact ILU on K6")
+            res, _ = solve_timed(torch, label, mode, A_csr, A_staged, cfg, 1, M=M,
+                                 history=True)
+            if A_csr is A262 and mode == "mixed":
+                want = EXACT_262K_HISTORY
+                log(f"  vs the reference's {want[0]}/{want[1]}: restarts "
+                    f"{res.restarts - want[0]:+d}")
+                require(abs(res.restarts - want[0]) <= 1,
+                        f"{label} mixed: {res.restarts}/{res.total_iters} not within one "
+                        f"restart of {want[0]}/{want[1]}")
+            log(f"  phase {time.perf_counter() - t0:.1f} s")
+    counts = launch_counts()
+    log(f"  launches convdiff-ilu: {counts}")
+    require(all(counts[k] > 0 for k in ILU_KERNELS + PATH_KERNELS["convdiff"]),
+            f"convdiff-ilu: K1 and both K6 forms launched ({counts})")
+    require(all(counts[k] == 0 for k in PATH_KERNELS["mesh3d"]),
+            f"convdiff-ilu: K5 did not launch ({counts})")
+    return counts
 
 
 def main() -> int:
@@ -435,7 +612,21 @@ def main() -> int:
     copy_ms, copy_gbs = copy_bandwidth(torch)
     log(f"yardstick: torch device copy of 256 MB: {copy_ms:.4f} ms, {copy_gbs:.1f} GB/s")
     record = Records(copy_gbs)
-    path_counts = [convdiff_path(torch, record), mesh3d_path(torch, record)]
+    from gmres_tpu_torch.io.synth import convection_diffusion_2d
+
+    t0 = time.perf_counter()
+    A = convection_diffusion_2d(NX, beta=2.0)
+    log(f"matrix: convection_diffusion_2d({NX}, beta=2.0) n={A.n_rows:,} "
+        f"nnz={A.nnz:,} built in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    convdiff_counts, A_dev = convdiff_path(torch, record, A)
+    t1 = time.perf_counter()
+    mesh3d_counts = mesh3d_path(torch, record)
+    t2 = time.perf_counter()
+    ilu_counts = convdiff_ilu_path(torch, record, A, A_dev)
+    log(f"path seconds: convdiff {t1 - t0:.1f}, mesh3d {t2 - t1:.1f}, "
+        f"convdiff-ilu {time.perf_counter() - t2:.1f}")
+    path_counts = (convdiff_counts, mesh3d_counts, ilu_counts)
     counts = {k: sum(c[k] for c in path_counts) for k in kernel_wrappers()}
     require(all(v > 0 for v in counts.values()), f"every kernel launched on some path ({counts})")
     records = record.records
@@ -443,7 +634,7 @@ def main() -> int:
     # kernel -> (source, the TPU kernels' pallas_calls it replaces); the
     # JSON numbers are the fp32 variant (the mixed inner loop; for the
     # residual modes the fp64 residual with its fp32-demoted norm), fp64
-    # alongside; launches are summed over the two paths' solves
+    # alongside; launches are summed over the three paths' solves
     sources = {
         "dia_spmv": ("gmres_tpu_torch/csrc/dia_spmv.cu",
                      "gmres_tpu/ops/pallas/spmv_kernel.py:88"),
@@ -461,6 +652,10 @@ def main() -> int:
                                "gmres_tpu/ops/pallas/orth_kernel.py:216"),
         "basis_axpy": ("gmres_tpu_torch/csrc/basis_sweep.cu",
                        "gmres_tpu/ops/pallas/df64_kernel.py:295"),
+        "ilu_trisolve_fused": ("gmres_tpu_torch/csrc/ilu_trisolve.cu",
+                               "gmres_tpu/ops/pallas/trisolve_kernel.py:213"),
+        "ilu_trisolve_segmented": ("gmres_tpu_torch/csrc/ilu_trisolve.cu",
+                                   "gmres_tpu/ops/pallas/trisolve_kernel.py:155"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

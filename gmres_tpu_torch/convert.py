@@ -12,8 +12,13 @@ import numpy as np
 import torch
 
 from gmres_tpu_torch.ops.dia import DIAMatrix
-from gmres_tpu_torch.precond.build import JacobiPrec
+from gmres_tpu_torch.precond.build import ExactILUDIAPrec, ILUJacobiPrec, JacobiPrec
+from gmres_tpu_torch.precond.level_ilu import LevelILUPrec
 from gmres_tpu_torch.sparse import CSRMatrix, csr_from_arrays
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(device)  # a writable copy
 
 
 def dia_from_numpy(data, offsets, n_rows: int, n_cols: int, nnz: int,
@@ -36,5 +41,41 @@ def csr_from_numpy(row_ptr, col_idx, vals, n_cols: int | None = None,
 
 
 def jacobi_from_numpy(inv_diag, device="cpu") -> JacobiPrec:
-    return JacobiPrec(inv_diag=torch.from_numpy(
-        np.ascontiguousarray(np.asarray(inv_diag))).to(device))
+    return JacobiPrec(inv_diag=_tensor(inv_diag, device))
+
+
+def ilu_jacobi_from_numpy(lower, upper, inv_diag, steps: int, device="cpu") -> ILUJacobiPrec:
+    """From the CSR factors of a JAX ``ILUJacobiPrec``: ``lower`` and
+    ``upper`` are (row_ptr, col_idx, vals) triples."""
+    n = np.asarray(inv_diag).shape[0]
+    lo, up = (csr_from_numpy(*tri, n_cols=n, device=device) for tri in (lower, upper))
+    return ILUJacobiPrec(lower=lo, upper=up, inv_diag=_tensor(inv_diag, device),
+                         steps=int(steps))
+
+
+def exact_ilu_from_numpy(lower_bands, upper_bands, inv_diag, offs_l, offs_u,
+                         steps_l: int, steps_u: int, seg: int = 0, steps_l_segs=(),
+                         steps_u_segs=(), device="cpu") -> ExactILUDIAPrec:
+    """From the arrays of a JAX ``ExactILUDIAPrec``, lane-padded bands
+    (and, when segmented, their ``steps_*_segs``) as they are."""
+    return ExactILUDIAPrec(
+        lower_bands=_tensor(lower_bands, device), upper_bands=_tensor(upper_bands, device),
+        inv_diag=_tensor(inv_diag, device), offs_l=tuple(int(o) for o in offs_l),
+        offs_u=tuple(int(o) for o in offs_u), steps_l=int(steps_l), steps_u=int(steps_u),
+        seg=int(seg), steps_l_segs=tuple(int(s) for s in steps_l_segs),
+        steps_u_segs=tuple(int(s) for s in steps_u_segs))
+
+
+def level_ilu_from_numpy(l_rows_max: int, u_rows_max: int, n: int, device="cpu",
+                         **arrays) -> LevelILUPrec:
+    """From the fields of a JAX ``LevelILUPrec`` (index arrays become
+    int64, the sweep counts host ints)."""
+    fields = {}
+    for name, a in arrays.items():
+        a = np.asarray(a)
+        if name.endswith("_sweeps"):
+            fields[name] = tuple(int(s) for s in a)
+        else:
+            fields[name] = _tensor(a.astype(np.int64) if a.dtype.kind == "i" else a, device)
+    return LevelILUPrec(l_rows_max=int(l_rows_max), u_rows_max=int(u_rows_max), n=int(n),
+                        **fields)

@@ -13,6 +13,10 @@ def kernel_wrappers() -> dict:
     from gmres_tpu_torch.ops.cuda.outer_kernel import basis_axpy_cuda
     from gmres_tpu_torch.ops.cuda.sell_kernel import sell_residual_cuda, sell_spmv_cuda
     from gmres_tpu_torch.ops.cuda.spmv_kernel import dia_residual_cuda, dia_spmv_cuda
+    from gmres_tpu_torch.ops.cuda.trisolve_kernel import (
+        ilu_trisolve_fused_cuda,
+        ilu_trisolve_segmented_cuda,
+    )
 
     return {
         "dia_spmv": dia_spmv_cuda,
@@ -23,6 +27,8 @@ def kernel_wrappers() -> dict:
         "basis_update_gram": update_gram_cuda,
         "basis_update_sumsq": update_sumsq_cuda,
         "basis_axpy": basis_axpy_cuda,
+        "ilu_trisolve_fused": ilu_trisolve_fused_cuda,
+        "ilu_trisolve_segmented": ilu_trisolve_segmented_cuda,
     }
 
 

@@ -1,4 +1,4 @@
-"""Build, load and launch the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels, and build its host helper.
 
 The sources under ``gmres_tpu_torch/csrc`` have a plain C interface.  At
 first use each is compiled for Hopper (``sm_90a``) by its own ``nvcc``, all
@@ -6,8 +6,11 @@ started together, and the objects are linked into
 ``build/gmres_tpu_torch/<hash>/libgmres_kernels.so`` at the root of the
 checkout, keyed by a hash of the sources and flags, and loaded with
 ``ctypes``.  A build takes seconds, against minutes for a source that
-includes PyTorch's headers.  Nothing here runs at import: the CPU tests
-import every module on a machine without ``nvcc``.
+includes PyTorch's headers.  The host helper of the ILU preconditioners
+(``csrc/ilu_host.cpp``) is built the same way by the system C++ compiler
+into ``build/gmres_tpu_torch/host-<hash>/libilu_host.so`` (``host_library``).
+Nothing here runs at import: the CPU tests import every module on a machine
+without ``nvcc``.
 
 A failed build raises; nothing falls back.
 """
@@ -29,7 +32,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "gmres_tpu_torch"
-SOURCES = ("dia_spmv.cu", "basis_sweep.cu", "sell_spmv.cu")
+SOURCES = ("dia_spmv.cu", "basis_sweep.cu", "sell_spmv.cu", "ilu_trisolve.cu")
 HEADERS = ("common.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -56,6 +59,10 @@ _SIGNATURES = {
     "gmres_basis_axpy_f32_f64": (_P, _P, _P, _I, _I, _P),
     "gmres_basis_axpy_f64_f64": (_P, _P, _P, _I, _I, _P),
     "gmres_basis_axpy_f32_f32": (_P, _P, _P, _I, _I, _P),
+    "gmres_ilu_trisolve_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P,
+                               _P),
+    "gmres_ilu_trisolve_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P,
+                               _P),
 }
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -161,6 +168,52 @@ def library() -> KernelLibrary:
                 log = _build(out)
             _LIB = KernelLibrary(out, log, time.perf_counter() - t0)
         return _LIB
+
+
+HOST_SOURCE = "ilu_host.cpp"
+# -ffp-contract=off: the factorization must round as the numpy twin does
+CXX_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-shared", "-ffp-contract=off")
+_HOST: ctypes.CDLL | None = None
+
+
+def _cxx() -> str:
+    for name in ("g++", "c++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no C++ compiler (g++ or c++) on PATH; the ILU host helper "
+                       "of gmres_tpu_torch is built at first use")
+
+
+def host_library() -> ctypes.CDLL:
+    """The ILU host helper, built on the first call after a source change
+    (compiled into a private directory and renamed into place)."""
+    global _HOST
+    with _LOCK:
+        if _HOST is None:
+            h = hashlib.sha256((CSRC / HOST_SOURCE).read_bytes())
+            h.update(" ".join(CXX_FLAGS).encode())
+            out = BUILD_ROOT / f"host-{h.hexdigest()[:16]}" / "libilu_host.so"
+            if not out.is_file():
+                out.parent.mkdir(parents=True, exist_ok=True)
+                with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+                    lib = os.path.join(tmp, out.name)
+                    cmd = [_cxx(), *CXX_FLAGS, "-o", lib, str(CSRC / HOST_SOURCE)]
+                    proc = subprocess.run(cmd, capture_output=True, text=True)
+                    if proc.returncode != 0:
+                        raise RuntimeError(f"C++ build failed ({proc.returncode}): "
+                                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+                    os.replace(lib, out)
+            lib = ctypes.CDLL(str(out))
+            i64 = ctypes.c_int64
+            lib.ilu_host_factorize.argtypes = (i64, _P, _P, _P, _P, ctypes.c_double)
+            lib.ilu_host_factorize.restype = ctypes.c_int
+            lib.ilu_host_levels.argtypes = (i64, _P, _P, _P, _P, _P)
+            lib.ilu_host_levels.restype = None
+            lib.ilu_host_trisolve.argtypes = (i64, _P, _P, _P, _P, _P)
+            lib.ilu_host_trisolve.restype = None
+            _HOST = lib
+        return _HOST
 
 
 def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,

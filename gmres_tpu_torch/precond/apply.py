@@ -3,13 +3,51 @@
 ``typesafe_apply`` parity: when the preconditioner dtype differs from the
 vector dtype, the reference round-trips through a cast
 (``gmres.cpp:12-17``).
+
+The ILU-Jacobi apply has the portable kernel's semantics
+(``kernels.hpp:223-248``), with U including the diagonal:
+
+    L phase (unit diagonal):  x <- b  - L_s x,            x_0 = b
+    U phase:                  x <- x + D^-1 (b' - U x),   x_0 = b' (the L result)
+
+Each sweep is one SpMV (K1 on DIA factors, K5 on sliced-ELL ones) and
+elementwise torch ops.  The exact-ILU DIA form goes to kernel K6 (its
+simplified U sweep x <- D^-1 (b' - U_s x), ``trisolve_kernel.py:32-36``) on
+a CUDA tensor and to K6's plain versions on a CPU one.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gmres_tpu_torch.precond.build import IdentityPrec, JacobiPrec
+from gmres_tpu_torch.ops.cuda import trisolve_kernel as tk
+from gmres_tpu_torch.ops.spmv import spmv
+from gmres_tpu_torch.precond.build import (
+    ExactILUDIAPrec,
+    IdentityPrec,
+    ILUJacobiPrec,
+    JacobiPrec,
+)
+from gmres_tpu_torch.precond.level_ilu import LevelILUPrec, level_ilu_apply
+
+
+def _ilu_jacobi_apply(M: ILUJacobiPrec, w: torch.Tensor) -> torch.Tensor:
+    x = w
+    for _ in range(M.steps):
+        x = w - spmv(M.lower, x)
+    b2 = x
+    for _ in range(M.steps):
+        x = x + M.inv_diag * (b2 - spmv(M.upper, x))
+    return x
+
+
+def _exact_ilu_apply(M: ExactILUDIAPrec, w: torch.Tensor) -> torch.Tensor:
+    args = (M.lower_bands, M.upper_bands, M.inv_diag, w, M.offs_l, M.offs_u)
+    if M.seg:
+        fn = tk.ilu_trisolve_segmented_cuda if w.is_cuda else tk.ilu_trisolve_segmented_plain
+        return fn(*args, M.steps_l_segs, M.steps_u_segs, M.seg)
+    fn = tk.ilu_trisolve_fused_cuda if w.is_cuda else tk.ilu_trisolve_fused_plain
+    return fn(*args, M.steps_l, M.steps_u)
 
 
 def apply_preconditioner(M, w: torch.Tensor) -> torch.Tensor:
@@ -18,6 +56,12 @@ def apply_preconditioner(M, w: torch.Tensor) -> torch.Tensor:
         return w
     if isinstance(M, JacobiPrec):
         return M.inv_diag * w
+    if isinstance(M, ILUJacobiPrec):
+        return _ilu_jacobi_apply(M, w)
+    if isinstance(M, ExactILUDIAPrec):
+        return _exact_ilu_apply(M, w)
+    if isinstance(M, LevelILUPrec):
+        return level_ilu_apply(M, w)
     raise TypeError(f"unknown preconditioner {type(M).__name__}")
 
 

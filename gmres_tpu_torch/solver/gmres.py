@@ -28,9 +28,15 @@ enough, else SELL, else CSR.  The JAX package packs SELL only on the TPU
 and from n = 128K rows; those gates were the TPU's, and the port packs SELL
 at every size on both devices.
 
+Preconditioners are built on the host from the CSR matrix
+(``precond/build.py``).  The ILU family needs the CSR structure: for a
+staged DIA or SELL operator, build M with ``build_preconditioner(csr, cfg)``
+and pass it as ``M=``; without it ``solve`` raises ``TypeError``, as the
+JAX package does.
+
 Not ported, because they exist for the TPU only: the padding of n to the
-Pallas block size, the double-float outer staging, the staging cache, the
-bf16 escalation and the NaN fallback.
+Pallas block size (and of the preconditioner with it), the double-float
+outer staging, the staging cache, the bf16 escalation and the NaN fallback.
 """
 
 from __future__ import annotations
@@ -52,7 +58,11 @@ from gmres_tpu_torch.ops.sell import sell_from_csr
 from gmres_tpu_torch.ops.spmv import spmv
 from gmres_tpu_torch.ops.tri import trsv_upper_padded
 from gmres_tpu_torch.precond.apply import typesafe_apply
-from gmres_tpu_torch.precond.build import build_preconditioner
+from gmres_tpu_torch.precond.build import (
+    build_preconditioner,
+    optimize_precond_format,
+    sell_pack_factors,
+)
 from gmres_tpu_torch.solver.policies import (
     PolicyState,
     initial_policy_state,
@@ -294,8 +304,9 @@ def solve(A, b, cfg: GmresConfig | None = None, x0=None, M=None,
     ``device`` (CUDA by default; the CPU only when asked for).
 
     ``A`` is the assembled (typically fp64) CSR matrix or a staged operator
-    from ``stage``; ``b`` and ``x0`` are numpy arrays or tensors.  The
-    returned ``x`` lies on ``device``.
+    from ``stage``; ``b`` and ``x0`` are numpy arrays or tensors.  ``M`` is
+    a preconditioner from ``build_preconditioner``, built from the CSR
+    matrix when none is given.  The returned ``x`` lies on ``device``.
 
     ``reorder="rcm"`` (or ``cfg.auto_reorder`` on a CSR matrix that DIA
     refuses, with neither ``M`` nor ``x0`` given) permutes A symmetrically
@@ -326,6 +337,9 @@ def solve(A, b, cfg: GmresConfig | None = None, x0=None, M=None,
     t0 = time.perf_counter()
     if M is None:
         M = build_preconditioner(A, cfg)
+    if cfg.auto_format:
+        # ILU-Jacobi factors: DIA when banded, else sliced ELL
+        M = sell_pack_factors(optimize_precond_format(M))
     A_out, A_in = prepare_operators(A, cfg, dev)
     M = M.to(dev)
     prec_seconds = time.perf_counter() - t0

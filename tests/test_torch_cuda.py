@@ -1,13 +1,16 @@
-"""Kernels K1-K5 on the card against their plain PyTorch versions, at small
-and ragged sizes (n not a multiple of the block, tile or slice; empty rows;
-a long row; n_cols != n_rows), and small DIA and SELL solves on the card
-against the same solves on the CPU.
+"""Kernels K1-K6 on the card against their plain PyTorch versions, at small
+and ragged sizes (n not a multiple of the block, tile, slice or segment;
+empty rows; a long row; n_cols != n_rows; one-sided factors; identity tail
+segments), and small DIA, SELL and ILU solves on the card against the same
+solves on the CPU.
 
 These need an NVIDIA GPU with the CUDA toolkit: they carry the ``cuda``
 marker and skip elsewhere.  On the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -20,8 +23,12 @@ from gmres_tpu_torch.ops.cuda import orth_kernel as ok
 from gmres_tpu_torch.ops.cuda import outer_kernel as ou
 from gmres_tpu_torch.ops.cuda import sell_kernel as sl
 from gmres_tpu_torch.ops.cuda import spmv_kernel as sk
+from gmres_tpu_torch.ops.cuda import trisolve_kernel as tk
 from gmres_tpu_torch.ops.dia import from_csr
+from gmres_tpu_torch.ops.reorder import permute_symmetric
 from gmres_tpu_torch.ops.sell import SELLMatrix, sell_from_csr
+from gmres_tpu_torch.precond import build as pbuild
+from gmres_tpu_torch.precond.apply import apply_preconditioner
 from gmres_tpu_torch.sparse import csr_from_coo
 
 pytestmark = pytest.mark.cuda
@@ -149,13 +156,14 @@ def test_sell_wrappers_refuse_what_the_kernel_does_not_take():
 
 
 PATH_KERNELS = {"dia": {"dia_spmv", "dia_residual"}, "sell": {"sell_spmv", "sell_residual"}}
+ILU_KERNELS = {"ilu_trisolve_fused", "ilu_trisolve_segmented"}
 
 
 @pytest.mark.parametrize("fmt", ["dia", "sell"])
 @pytest.mark.parametrize("mode", ["baseline", "mixed"])
 def test_solve_on_card_matches_cpu(mode, fmt):
     # each path launches its own SpMV kernels and the shared sweeps, and
-    # not the other path's SpMV kernels
+    # not the other path's SpMV kernels nor, with no preconditioner, K6
     A = convection_diffusion_2d(32, beta=2.0) if fmt == "dia" else unstructured_mesh(4096, run=8)
     x_true = gmres_tpu_torch.rand_vect(A.n_rows, 42)
     b = A.to_scipy() @ x_true
@@ -166,7 +174,7 @@ def test_solve_on_card_matches_cpu(mode, fmt):
     reset_launch_counts()
     res = gmres_tpu_torch.solve(A, b, cfg)
     counts = launch_counts()
-    other = PATH_KERNELS["sell" if fmt == "dia" else "dia"]
+    other = PATH_KERNELS["sell" if fmt == "dia" else "dia"] | ILU_KERNELS
     assert all(counts[k] > 0 for k in counts if k not in other), counts
     assert all(counts[k] == 0 for k in other), counts
     ref = gmres_tpu_torch.solve(A, b, cfg, device="cpu")
@@ -175,3 +183,132 @@ def test_solve_on_card_matches_cpu(mode, fmt):
     xr = ref.x.numpy()
     tol = 1e-9 if mode == "baseline" else 1e-5
     assert np.linalg.norm(res.x.cpu().numpy() - xr) / np.linalg.norm(xr) <= tol
+
+
+def _exact(nx, dt, n_seg=None, monkeypatch=None):
+    """ExactILUDIAPrec of convdiff(nx) in dt on the card: fused, or split
+    into n_seg segments in multiples of 1024 rows (budget: an n_seg-th of
+    the working set of 4 bands and 5 vectors)."""
+    if n_seg is not None:
+        monkeypatch.setattr(pbuild, "_TRISOLVE_L2_BYTES", -(-9 * dt.itemsize * nx * nx // n_seg))
+    M = pbuild.build_ilu_exact(convection_diffusion_2d(nx, beta=2.0), dt)
+    assert isinstance(M, pbuild.ExactILUDIAPrec) and (M.seg > 0) == (n_seg is not None)
+    return M.to("cuda")
+
+
+def _k6(M, w):
+    """K6 and its plain version on the same CUDA tensors."""
+    args = (M.lower_bands, M.upper_bands, M.inv_diag, w, M.offs_l, M.offs_u)
+    if M.seg:
+        steps = (M.steps_l_segs, M.steps_u_segs, M.seg)
+        return tk.ilu_trisolve_segmented_cuda(*args, *steps), \
+            tk.ilu_trisolve_segmented_plain(*args, *steps)
+    return tk.ilu_trisolve_fused_cuda(*args, M.steps_l, M.steps_u), \
+        tk.ilu_trisolve_fused_plain(*args, M.steps_l, M.steps_u)
+
+
+@DTYPES
+@pytest.mark.parametrize("nx,n_seg", [(7, None), (45, None), (45, 2), (60, 4), (60, 2)])
+def test_ilu_trisolve(dt, nx, n_seg, monkeypatch):
+    # n = 49, 2025, 3600: no multiple of the block; several segments with a
+    # partial last one; the result repeats bit for bit
+    M = _exact(nx, dt, n_seg, monkeypatch)
+    w = torch.tensor(np.random.default_rng(nx).standard_normal(nx * nx), dtype=dt, device="cuda")
+    got, want = _k6(M, w)
+    _close(got, want, dt)
+    assert torch.equal(_k6(M, w)[0], got)
+
+
+@DTYPES
+@pytest.mark.parametrize("upper", [True, False], ids=["no_lower_bands", "no_upper_bands"])
+def test_ilu_trisolve_one_sided(dt, upper):
+    n, rng = 1000, np.random.default_rng(5)
+    offs = (1, 7) if upper else (-7, -1)
+    bands = torch.zeros((2, n), dtype=dt)
+    for d, off in enumerate(offs):
+        lo, hi = max(0, -off), min(n, n - off)
+        bands[d, lo:hi] = torch.tensor(0.5 * rng.standard_normal(hi - lo), dtype=dt)
+    invd = torch.tensor(1.0 / (2.0 + rng.random(n)), dtype=dt, device="cuda")
+    w = torch.tensor(rng.standard_normal(n), dtype=dt, device="cuda")
+    empty = torch.zeros((0, n), dtype=dt, device="cuda")
+    ld, ud = (empty, bands.cuda()) if upper else (bands.cuda(), empty)
+    args = (ld, ud, invd, w, () if upper else offs, offs if upper else (), n, n)
+    _close(tk.ilu_trisolve_fused_cuda(*args), tk.ilu_trisolve_fused_plain(*args), dt)
+
+
+@DTYPES
+def test_ilu_trisolve_identity_tail_segments(dt, monkeypatch):
+    # the factors widened by two zero-band segments of inverse diagonal 1,
+    # one sweep each; w keeps its length (the wrapper pads it)
+    M = _exact(45, dt, 2, monkeypatch)
+    assert M.seg == 1024
+    width = 4 * M.seg
+    pad = width - M.inv_diag.shape[0]
+    Mp = dataclasses.replace(
+        M, lower_bands=torch.nn.functional.pad(M.lower_bands, (0, pad)),
+        upper_bands=torch.nn.functional.pad(M.upper_bands, (0, pad)),
+        inv_diag=torch.nn.functional.pad(M.inv_diag, (0, pad), value=1.0),
+        steps_l_segs=M.steps_l_segs + (1, 1), steps_u_segs=M.steps_u_segs + (1, 1))
+    w = torch.tensor(np.random.default_rng(3).standard_normal(45 * 45), dtype=dt, device="cuda")
+    got, _ = _k6(Mp, w)
+    assert got.shape == w.shape
+    _close(got, _k6(M, w)[1], dt)
+
+
+def test_red_black_factor_routes_to_sweeps():
+    # 2 dependency levels per triangle: ILU-Jacobi sweeps, not K6
+    nx = 32
+    A = convection_diffusion_2d(nx, beta=2.0)
+    ii, jj = np.divmod(np.arange(nx * nx), nx)
+    perm = np.concatenate([np.flatnonzero((ii + jj) % 2 == 0), np.flatnonzero((ii + jj) % 2)])
+    M = pbuild.build_ilu_exact(permute_symmetric(A, perm), torch.float32)
+    assert isinstance(M, pbuild.ILUJacobiPrec) and M.steps == 2
+    M = pbuild.sell_pack_factors(pbuild.optimize_precond_format(M))
+    w = torch.tensor(np.random.default_rng(9).standard_normal(nx * nx), dtype=torch.float32)
+    reset_launch_counts()
+    got = apply_preconditioner(M.to("cuda"), w.cuda())
+    assert all(launch_counts()[k] == 0 for k in ILU_KERNELS)
+    _close(got.cpu(), apply_preconditioner(M, w), torch.float32)
+
+
+def test_cuda_tensor_reaches_k6_or_raises(monkeypatch):
+    M = _exact(20, torch.float32)
+    w = torch.ones(400, device="cuda")
+    reset_launch_counts()
+    apply_preconditioner(M, w)
+    assert launch_counts()["ilu_trisolve_fused"] == 1
+    with pytest.raises(ValueError):  # factors on the CPU, w on the card
+        apply_preconditioner(M.to("cpu"), w)
+    with pytest.raises(TypeError):
+        tk.ilu_trisolve_fused_cuda(M.lower_bands.half(), M.upper_bands.half(),
+                                   M.inv_diag.half(), w.half(), M.offs_l, M.offs_u, 1, 1)
+    with pytest.raises(ValueError):  # more segments than the kernel takes
+        tk.ilu_trisolve_segmented_cuda(M.lower_bands, M.upper_bands, M.inv_diag, w,
+                                       M.offs_l, M.offs_u, (1,) * 400, (1,) * 400, 1)
+    Ms = _exact(45, torch.float32, 2, monkeypatch)
+    apply_preconditioner(Ms, torch.ones(2025, device="cuda"))
+    assert launch_counts()["ilu_trisolve_segmented"] == 1
+
+
+@pytest.mark.parametrize("precond", ["ilu", "ilu_jacobi"])
+@pytest.mark.parametrize("mode", ["baseline", "mixed"])
+def test_ilu_solve_on_card_matches_cpu(mode, precond):
+    # exact ILU through K6 (no K5); ILU-Jacobi through K1 on DIA factors
+    A = convection_diffusion_2d(32, beta=2.0)
+    x_true = gmres_tpu_torch.rand_vect(A.n_rows, 42)
+    b = A.to_scipy() @ x_true
+    cfg = gmres_tpu_torch.GmresConfig(
+        precision=gmres_tpu_torch.PrecisionSpec.from_mode(mode), orth="cgsr",
+        precond=precond, jacobi_steps=3, restart_length=30, tol=1e-8, max_restarts=80)
+    reset_launch_counts()
+    res = gmres_tpu_torch.solve(A, b, cfg)
+    counts = launch_counts()
+    assert counts["ilu_trisolve_fused"] > 0 if precond == "ilu" else counts["ilu_trisolve_fused"] == 0
+    assert counts["dia_spmv"] > 0 and counts["sell_spmv"] == 0, counts
+    ref = gmres_tpu_torch.solve(A, b, cfg, device="cpu")
+    assert res.x.is_cuda and res.converged and ref.converged
+    assert abs(res.restarts - ref.restarts) <= 1
+    x = res.x.cpu().numpy()
+    backward = np.linalg.norm(b - A.to_scipy() @ x) / (
+        np.linalg.norm(b) + np.linalg.norm(A.vals.numpy()) * np.linalg.norm(x))
+    assert backward <= 1e-8

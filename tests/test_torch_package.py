@@ -171,8 +171,8 @@ def test_solve_on_cuda_never_falls_back_to_cpu():
 
 @pytest.mark.parametrize("cfg", [
     dict(orth="mgs", precond="identity"),
-    dict(orth="cgsr", precond="ilu"),
-    dict(orth="cgsr", precond="ilu_jacobi"),
+    dict(orth="cgsr", precond="bilu_jacobi"),
+    dict(orth="cgsr", precond="identity", policy="orthloss"),
     dict(orth="cgsr", precond="identity", policy="relres"),
     dict(orth="cgsr", precond="identity",
          precision=gmres_tpu_torch.PrecisionSpec.from_mode("df64")),
@@ -188,16 +188,20 @@ def test_unported_options_raise(cfg):
 
 def test_importing_never_runs_nvcc(tmp_path):
     """In a fresh process with a fake nvcc (first on PATH and under
-    CUDA_HOME) that records each call: import every module and solve on the
-    CPU, and nvcc is not called; then, as a control, ask for the kernel
-    library, which calls it once per source (all started together, so each
-    fails) and raises."""
+    CUDA_HOME) and a fake C++ compiler (g++ and c++ first on PATH) that
+    record each call: import every module and solve on the CPU, and neither
+    is called; then, as controls, ask for the kernel library, which calls
+    nvcc once per source (all started together, so each fails) and raises,
+    and for the ILU host helper, which calls the C++ compiler once and
+    raises."""
     marker = tmp_path / "nvcc_called"
+    cxx_marker = tmp_path / "cxx_called"
     bindir = tmp_path / "bin"
     bindir.mkdir()
-    nvcc = bindir / "nvcc"
-    nvcc.write_text(f"#!/bin/sh\necho called >> {marker}\nexit 1\n")
-    nvcc.chmod(0o755)
+    for name, mark in (("nvcc", marker), ("g++", cxx_marker), ("c++", cxx_marker)):
+        fake = bindir / name
+        fake.write_text(f"#!/bin/sh\necho called >> {mark}\nexit 1\n")
+        fake.chmod(0o755)
     script = textwrap.dedent(f"""
         import importlib, os, pkgutil
         import numpy as np
@@ -210,6 +214,7 @@ def test_importing_never_runs_nvcc(tmp_path):
         assert gmres_tpu_torch.solve(A, np.ones(A.n_rows), cfg, device="cpu").converged
         from gmres_tpu_torch.ops.cuda import _build
         assert _build._LIB is None and not os.path.exists({str(marker)!r})
+        assert _build._HOST is None and not os.path.exists({str(cxx_marker)!r})
         try:
             _build.library()
         except RuntimeError as e:
@@ -217,6 +222,14 @@ def test_importing_never_runs_nvcc(tmp_path):
         else:
             raise AssertionError("the fake nvcc built a library")
         assert open({str(marker)!r}).read().count("called") == len(_build.SOURCES)
+        _build.BUILD_ROOT = _build.Path({str(tmp_path)!r}) / "build"
+        try:
+            _build.host_library()
+        except RuntimeError as e:
+            assert "C++ build failed" in str(e)
+        else:
+            raise AssertionError("the fake C++ compiler built a library")
+        assert open({str(cxx_marker)!r}).read().count("called") == 1
         print("ok")
     """)
     env = dict(os.environ, PATH=f"{bindir}{os.pathsep}{os.environ.get('PATH', '')}",

@@ -6,10 +6,10 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels (and the host helper of the ILU
-preconditioners) from the sources in the checkout and drives three paths,
+preconditioners) from the sources in the checkout and drives four paths,
 each through ``gmres_tpu_torch.stage`` and ``solve`` in the ``baseline`` and
 ``mixed`` modes (x_true = rand_vect(n, 42), b = A x_true in fp64 numpy,
-CGSR, restart length 30, tol 1e-8):
+CGSR unless said otherwise, restart length 30, tol 1e-8):
 
 1. the banded path: ``convection_diffusion_2d(1024, beta=2.0)`` (n =
    1,048,576, 5 DIA bands), identity preconditioner, kernels K1-K4, the
@@ -22,20 +22,33 @@ CGSR, restart length 30, tol 1e-8):
    factors, K1 per sweep; the reference's 54/1620 baseline and 63/1890
    mixed), exact ILU (K6; converges, backward error <= 1e-8), and exact ILU
    on ``convection_diffusion_2d(512, beta=2.0)`` (the reference's 8/240 in
-   mixed).  The fused K6 form serves 262K and the segmented one 1M fp64.
+   mixed).  The fused K6 form serves 262K and the segmented one 1M fp64;
+4. the MGS and policy path (convdiff-mgs): the same convdiff@1M operator,
+   identity preconditioner, with ``orth="mgs"`` sequential (K7) and ICWY
+   (K2x2 and K3 SUMSQ) in both modes (the reference's 26/780), and in mixed
+   CGSR under the relres (787), orthloss (780, K2 in the loss recurrence)
+   and repeat policies (the reference aborts at 80 restarts of 7
+   iterations) and CGSR with ``orth_steps=3`` (K3 plain mode).
 
 Before each path's solves it holds each of the path's kernels against its
 plain PyTorch version at the path's shapes (fp32 and fp64; a 31-row Krylov
-basis) and times both.  Each path's launch counts are reset just before its
-solves and read just after: the path's own kernels must launch, the other
-paths' SpMV kernels and (without ILU) K6 must not.  Any failed check raises
+basis) and times both, beside the kernel's bound (the larger of its bytes
+over the copy yardstick, its operations over the card's peak, and for the
+cooperative kernels K6 and K7 its grid barriers times one measured empty
+barrier of the same grid) and, where one PyTorch call computes the same
+function, that call's time.  Each path's launch counts are reset just
+before its solves and read just after: the path's own kernels must launch,
+the other paths' SpMV kernels, (without ILU) K6 and (without MGS, a policy
+or orth_steps != 2) the MGS kernels must not.  Any failed check raises
 and the script exits non-zero; without a CUDA device it exits non-zero at
 once.  Each phase prints its seconds.
 
 Output: the card's name and power limit, versions, build time, per-kernel
-error and timing lines, per-path build/stage and per-mode solve lines; then
-one JSON line with the kernels (launch counts from the solves, measured
-errors and times); then the last line ``{"ok": true, "device": {...}}``.
+error, timing and bound lines, per-path build/stage and per-mode solve
+lines, K7's grid-size table and the sequential-vs-ICWY MGS walls; then one
+JSON line with the 13 kernels (launch counts from the solves, measured
+errors and times, bounds, one-call times); then the last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -79,6 +92,19 @@ ILU_JACOBI_RESTARTS = {"baseline": (53, 55), "mixed": (51, 64)}
 NX_262K = 512
 TRISOLVE_REPS = 5        # timed K6 launches (one apply is ~4000 dependent sweeps)
 TRISOLVE_PLAIN_REPS = 2  # the plain version is thousands of torch launches
+# the reference's histories on the MGS/policy path (restarts, iterations):
+# sequential and ICWY MGS (results/round5/bench_mgs_seq.txt,
+# results/round4/bench_mgs_lowsync.txt), relres(1e-2) and orthloss(1e-2)
+# (BASELINE.md:132-133); repeat(1e-2) aborts at 80 restarts of 7 iterations
+# each (BASELINE.md:136-146)
+MGS_HISTORY = (26, 780)
+POLICY_ITERS = {"relres": 787, "orthloss": 780}
+REPEAT_HISTORY = (80, 560, 7)
+MGS_KERNELS = ("basis_mgs", "basis_gram2", "basis_update")
+# published peaks of one H100 SXM outside the tensor cores (NVIDIA's data
+# sheet, 700 W): the operations term of a kernel's bound
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+SYNC_PROBE = 2000      # barriers per timed empty cooperative launch
 # Kernel vs plain tolerance, relative to the same computation on absolute
 # values (the scale of the standard summation error bound): the two sum in
 # different orders (per-block partials, FMA contraction) over up to n terms.
@@ -143,6 +169,20 @@ def copy_bandwidth(torch):
     return ms, 2 * nbytes / (ms * 1e-3) / 1e9
 
 
+def compare_each(dtype, got, want, scale):
+    """As compare, each output held to its own scale; reports the output
+    nearest its tolerance."""
+    worst = None
+    for g, w_, sc in zip(got, want, scale):
+        err, bound, ok = compare(dtype, [g], [w_], [sc])
+        if worst is None or err / max(bound, 1e-300) > worst[0] / max(worst[1], 1e-300):
+            worst = (err, bound, ok)
+        if not ok:
+            worst = (err, bound, False)
+            break
+    return worst
+
+
 def compare(dtype, got, want, scale):
     """Max abs error of `got` against `want`, and whether it is within the
     tolerance relative to `scale`."""
@@ -153,30 +193,63 @@ def compare(dtype, got, want, scale):
 
 
 class Records:
-    """Per-kernel, per-dtype error and timing records for the JSON line."""
+    """Per-kernel, per-dtype error, timing and bound records for the JSON
+    line.  A kernel's bound is the larger of its bytes over the copy
+    yardstick, its operations over the card's peak for their type and (K6,
+    K7) its grid barriers times one empty barrier of the same grid; it is
+    bound by bytes when the bytes term is the largest, else by operations
+    (arithmetic or barriers)."""
 
     def __init__(self, copy_gbs):
         self.copy_gbs = copy_gbs
         self.records = {}
         self.failures = []
 
-    def __call__(self, kname, dtype, err, bound, ok, ms, plain_ms, nbytes):
+    def __call__(self, kname, dtype, err, bound, ok, ms, plain_ms, nbytes, flops=0,
+                 library_ms=None, barrier_ms=0.0, key=None):
         gbs = nbytes / (ms * 1e-3) / 1e9
-        log(f"kernel {kname:<18} {dtype:<8} max_abs_err={err:.3e} (tol {bound:.3e}) "
+        bytes_ms = nbytes / (self.copy_gbs * 1e9) * 1e3
+        ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+        bound_ms = max(bytes_ms, ops_ms, barrier_ms)
+        bound_by = "bytes" if bound_ms == bytes_ms else "operations"
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        log(f"kernel {kname:<22} {dtype:<8} max_abs_err={err:.3e} (tol {bound:.3e}) "
             f"{'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms ({gbs:.1f} GB/s, "
-            f"{gbs / self.copy_gbs:.2f} of copy)  plain {plain_ms:.4f} ms")
+            f"{gbs / self.copy_gbs:.2f} of copy)  bound {bound_ms:.4f} ms [{bound_by}: bytes "
+            f"{bytes_ms:.4f}, flops {ops_ms:.4f}, barriers {barrier_ms:.4f}]  "
+            f"plain {plain_ms:.4f} ms  one call {lib}")
         if not ok:
             self.failures.append(f"{kname} {dtype}")
-        self.records.setdefault(kname, {})[dtype] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, gb_per_s=gbs)
+        self.records.setdefault(kname, {})[key or dtype] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, gb_per_s=gbs, bound_ms=bound_ms,
+            bound_by=bound_by, bytes_ms=bytes_ms, flops_ms=ops_ms, barrier_ms=barrier_ms,
+            library_ms=library_ms)
 
     def require_ok(self):
         require(not self.failures,
                 f"kernels disagree with their plain versions: {self.failures}")
 
 
+def barrier_ms(torch, timer, blocks):
+    """Device time of one empty grid.sync() of a cooperative grid of
+    `blocks` blocks (SYNC_PROBE barriers in one launch)."""
+    from gmres_tpu_torch.ops.cuda.mgs_kernel import grid_sync_probe
+
+    return timer(lambda: grid_sync_probe(blocks, SYNC_PROBE), 5) / SYNC_PROBE
+
+
+def csr_tensor(torch, A_csr, dt):
+    """The operator as a torch.sparse_csr_tensor on the card (for the
+    one-call time of an SpMV; the port never calls it)."""
+    rp, ci, v = A_csr.numpy_arrays()
+    return torch.sparse_csr_tensor(torch.tensor(rp.astype(np.int32), device="cuda"),
+                                   torch.tensor(ci.astype(np.int32), device="cuda"),
+                                   torch.tensor(v, dtype=dt, device="cuda"),
+                                   size=(A_csr.n_rows, A_csr.n_cols))
+
+
 def check_residual(torch, record, kname, dt, dt_name, timer, fn_cuda, fn_plain, scale_r,
-                   nbytes):
+                   nbytes, flops):
     """A residual mode (fp64 operator, norm of r demoted to dt) against its
     plain version: r within the fp64 tolerance of |b| + |A||x|, the sums of
     squares (fp64 accumulation against the plain version's accumulation in
@@ -187,11 +260,13 @@ def check_residual(torch, record, kname, dt, dt_name, timer, fn_cuda, fn_plain, 
     ss_tol = 1e-5 if dt == torch.float32 else 1e-12
     log(f"  {kname}[{dt_name} norm] sums of squares rel err {ss_err:.3e} (tol {ss_tol:.0e})")
     record(kname, dt_name, err_r, bound_r, ok_r and ss_err <= ss_tol,
-           timer(fn_cuda), timer(fn_plain), nbytes)
+           timer(fn_cuda), timer(fn_plain), nbytes, flops)
 
 
 def check_kernels(torch, A_csr, record):
-    """K1-K4 against their plain versions at the banded path's shapes."""
+    """K1-K4 against their plain versions at the banded path's shapes, with
+    the one PyTorch call that computes the same function where there is
+    one (a CSR torch.mv for K1, torch.mv for K2, addmv for K4 into fp64)."""
     from gmres_tpu_torch.ops.cuda import orth_kernel as ok_, outer_kernel as ou, spmv_kernel as sk
     from gmres_tpu_torch.ops.dia import from_csr
 
@@ -222,9 +297,12 @@ def check_kernels(torch, A_csr, record):
         got = sk.dia_spmv_cuda(data, offs, x)
         want = sk.dia_spmv_plain(data, offs, x)
         scale = sk.dia_spmv_plain(data.abs(), offs, x.abs())
+        Acsr = csr_tensor(torch, A_csr, dt)
         record("dia_spmv", dt_name, *compare(dt_name, [got], [want], [scale]),
                timer(lambda: sk.dia_spmv_cuda(data, offs, x)),
-               timer(lambda: sk.dia_spmv_plain(data, offs, x)), (D + 2) * n * s)
+               timer(lambda: sk.dia_spmv_plain(data, offs, x)), (D + 2) * n * s,
+               2 * D * n, timer(lambda: torch.mv(Acsr, x)))
+        del Acsr
 
         # K1 residual mode: outer dtype fp64; the norm of r demoted to the
         # inner dtype dt (mixed: fp32, baseline: fp64)
@@ -234,7 +312,8 @@ def check_kernels(torch, A_csr, record):
         check_residual(torch, record, "dia_residual", dt, dt_name, timer,
                        lambda: sk.dia_residual_cuda(d64, offs, b64, x64, dt),
                        lambda: sk.dia_residual_plain(d64, offs, b64, x64, dt),
-                       b64.abs() + sk.dia_spmv_plain(d64.abs(), offs, x64), (D + 3) * n * 8)
+                       b64.abs() + sk.dia_spmv_plain(d64.abs(), offs, x64), (D + 3) * n * 8,
+                       (2 * D + 5) * n)
 
         # K2 gram over all m+1 rows (the last Arnoldi step)
         got = ok_.gram_cuda(V, w, m1)
@@ -242,7 +321,8 @@ def check_kernels(torch, A_csr, record):
         scale = ok_.gram_plain(V.abs(), w.abs(), m1)
         record("basis_gram", dt_name, *compare(dt_name, [got], [want], [scale]),
                timer(lambda: ok_.gram_cuda(V, w, m1)),
-               timer(lambda: ok_.gram_plain(V, w, m1)), (m1 + 1) * n * s)
+               timer(lambda: ok_.gram_plain(V, w, m1)), (m1 + 1) * n * s, 2 * m1 * n,
+               timer(lambda: torch.mv(V[:m1], w)))
 
         # K3 update + gram
         got = ok_.update_gram_cuda(V, w, u, m1)
@@ -252,7 +332,8 @@ def check_kernels(torch, A_csr, record):
         record("basis_update_gram", dt_name,
                *compare(dt_name, got, want, scale),
                timer(lambda: ok_.update_gram_cuda(V, w, u, m1)),
-               timer(lambda: ok_.update_gram_plain(V, w, u, m1)), (m1 + 2) * n * s)
+               timer(lambda: ok_.update_gram_plain(V, w, u, m1)), (m1 + 2) * n * s,
+               4 * m1 * n)
 
         # K3 update + sum of squares
         got = ok_.update_sumsq_cuda(V, w, u, m1)
@@ -261,25 +342,30 @@ def check_kernels(torch, A_csr, record):
         record("basis_update_sumsq", dt_name,
                *compare(dt_name, got, want, scale),
                timer(lambda: ok_.update_sumsq_cuda(V, w, u, m1)),
-               timer(lambda: ok_.update_sumsq_plain(V, w, u, m1)), (m1 + 2) * n * s)
+               timer(lambda: ok_.update_sumsq_plain(V, w, u, m1)), (m1 + 2) * n * s,
+               (2 * m1 + 2) * n)
 
-        # K4: x (fp64) += y^T V[:m]
+        # K4: x (fp64) += y^T V[:m]; one call computes it only on an fp64 basis
         y = u[:RLEN].contiguous()
         got = ou.basis_axpy_cuda(x64.clone(), V, y)
         want = ou.basis_axpy_plain(x64.clone(), V, y)
         scale = ou.basis_axpy_plain(x64.abs(), V.abs(), y.abs())
-        xk, xp = x64.clone(), x64.clone()
+        xk, xp, xl = x64.clone(), x64.clone(), x64.clone()
+        one_call = (timer(lambda: xl.addmv_(V[:RLEN].t(), y)) if dt == torch.float64
+                    else None)
         record("basis_axpy", dt_name, *compare(dt_name, [got], [want], [scale]),
                timer(lambda: ou.basis_axpy_cuda(xk, V, y)),
-               timer(lambda: ou.basis_axpy_plain(xp, V, y)), RLEN * n * s + 2 * n * 8)
+               timer(lambda: ou.basis_axpy_plain(xp, V, y)), RLEN * n * s + 2 * n * 8,
+               2 * RLEN * n + n, one_call)
         torch.cuda.synchronize()
         del data, x, V, w, u, d64, x64, b64
     record.require_ok()
 
 
-def check_sell_kernels(torch, S, record):
-    """K5 in plain mode (fp32, fp64) and residual mode (fp64 operator, fp32
-    and fp64 norm) against its plain versions on the staged operator."""
+def check_sell_kernels(torch, S, A_csr, record):
+    """K5 in plain mode (fp32, fp64; one call: a CSR torch.mv) and residual
+    mode (fp64 operator, fp32 and fp64 norm) against its plain versions on
+    the staged operator."""
     from gmres_tpu_torch.ops.cuda import sell_kernel as sl
 
     n, n_slots = S.n_rows, S.n_slots
@@ -296,16 +382,18 @@ def check_sell_kernels(torch, S, record):
         got = sl.sell_spmv_cuda(vals, cols, sp, x, n)
         want = sl.sell_spmv_plain(vals, cols, sp, x, n)
         scale = sl.sell_spmv_plain(vals.abs(), cols, sp, x.abs(), n)
+        Acsr = csr_tensor(torch, A_csr, dt)
         # bytes: each slot's value and int32 column, x once, y
         record("sell_spmv", dt_name, *compare(dt_name, [got], [want], [scale]),
                timer(lambda: sl.sell_spmv_cuda(vals, cols, sp, x, n)),
                timer(lambda: sl.sell_spmv_plain(vals, cols, sp, x, n)),
-               n_slots * (s + 4) + 2 * n * s)
+               n_slots * (s + 4) + 2 * n * s, 2 * n_slots, timer(lambda: torch.mv(Acsr, x)))
+        del Acsr
         check_residual(torch, record, "sell_residual", dt, dt_name, timer,
                        lambda: sl.sell_residual_cuda(v64, cols, sp, b64, x64, dt),
                        lambda: sl.sell_residual_plain(v64, cols, sp, b64, x64, dt),
                        b64.abs() + sl.sell_spmv_plain(v64.abs(), cols, sp, x64, n),
-                       n_slots * 12 + 3 * n * 8)
+                       n_slots * 12 + 3 * n * 8, 2 * n_slots + 5 * n)
         torch.cuda.synchronize()
         del vals, x, got, want, scale
     record.require_ok()
@@ -318,11 +406,12 @@ def csr_residual(A_csr, x, b):
     return b - np.bincount(rows, weights=v * x[ci], minlength=A_csr.n_rows)
 
 
-def solve_timed(torch, label, mode, A_csr, A_dev, cfg, timed, M=None, history=False):
+def solve_timed(torch, label, mode, A_csr, A_dev, cfg, timed, M=None, history=False,
+                converges=True):
     """One warm-up and `timed` timed solves of A x = b (x_true = rand_vect(n,
-    42)) on the staged operator; hold the last to convergence, a backward
-    error <= 1e-8 recomputed here in fp64 and a finite x of shape (n,).
-    Returns (result, median wall)."""
+    42)) on the staged operator; hold the last to a finite x of shape (n,)
+    and, if it `converges`, to convergence and a backward error <= 1e-8
+    recomputed here in fp64.  Returns (result, median wall)."""
     from gmres_tpu_torch import rand_vect, solve
 
     n = A_csr.n_rows
@@ -349,16 +438,17 @@ def solve_timed(torch, label, mode, A_csr, A_dev, cfg, timed, M=None, history=Fa
     if history:
         log(f"  history {label} {mode} (relative residual per cycle): "
             + ", ".join(f"{h['rel_initial']:.3e}" for h in res.history))
-    require(res.converged, f"{label} {mode} converged")
-    require(backward <= 1e-8, f"{label} {mode} backward error {backward:.3e} <= 1e-8")
+    if converges:
+        require(res.converged, f"{label} {mode} converged")
+        require(backward <= 1e-8, f"{label} {mode} backward error {backward:.3e} <= 1e-8")
     require(np.all(np.isfinite(x)) and x.shape == (n,), f"{label} {mode} x finite, shape ({n},)")
     return res, wall
 
 
-def config(mode, precond, **kw):
+def config(mode, precond, orth="cgsr", **kw):
     from gmres_tpu_torch import GmresConfig, PrecisionSpec
 
-    return GmresConfig(precision=PrecisionSpec.from_mode(mode), orth="cgsr", precond=precond,
+    return GmresConfig(precision=PrecisionSpec.from_mode(mode), orth=orth, precond=precond,
                        restart_length=RLEN, tol=TOL, max_restarts=MAX_RESTARTS, **kw)
 
 
@@ -370,7 +460,7 @@ def run_main_path(torch, label, A_csr, A_dev, expect):
     from gmres_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     other = {k for path, ks in PATH_KERNELS.items() if path != label for k in ks}
-    other |= set(ILU_KERNELS)
+    other |= set(ILU_KERNELS) | set(MGS_KERNELS)
     walls = {}
     reset_launch_counts()
     for mode in ("baseline", "mixed"):
@@ -385,7 +475,8 @@ def run_main_path(torch, label, A_csr, A_dev, expect):
         require(all(v > 0 for k, v in counts.items() if k not in other),
                 f"{label} {mode}: every kernel of the path launched ({counts})")
         require(all(counts[k] == 0 for k in other),
-                f"{label} {mode}: no other path's SpMV kernel nor K6 launched ({counts})")
+                f"{label} {mode}: no other path's SpMV kernel, K6 nor MGS kernel launched "
+                f"({counts})")
     log(f"{label} mixed/baseline wall ratio: {walls['mixed'] / walls['baseline']:.4f} "
         f"(baseline/mixed speedup {walls['baseline'] / walls['mixed']:.4f})")
     return launch_counts()
@@ -432,7 +523,7 @@ def mesh3d_path(torch, record):
     log(f"stage: {type(A_dev).__name__} (pack + upload) in {secs:.3f} s: "
         f"{A_dev.n_slots:,} slots for {A_dev.nnz:,} nonzeros, padding ratio "
         f"{A_dev.padding:.6f}, slice widths {int(widths.min())}..{int(widths.max())}")
-    check_sell_kernels(torch, A_dev, record)
+    check_sell_kernels(torch, A_dev, A, record)
 
     def expect(restarts, iters):
         if (restarts, iters) != MESH_TPU_HISTORY:
@@ -484,14 +575,28 @@ def check_trisolve_kernels(torch, A_csr, record):
             got, want = fn_cuda(*args), fn_plain(*args)
             scale = fn_plain(*abs_args)
             ms = timer(lambda: fn_cuda(*args), TRISOLVE_REPS)
-            sweeps = (sum(M.steps_l_segs) + sum(M.steps_u_segs) if M.seg
-                      else M.steps_l + M.steps_u)
+            steps_l, steps_u = ((M.steps_l_segs, M.steps_u_segs) if M.seg
+                                else ((M.steps_l,), (M.steps_u,)))
+            seg = M.seg or n
+            segs = [min(seg, n - a) for a in range(0, n, seg)]
+            d_l, d_u = len(M.offs_l), len(M.offs_u)
+            sweeps = sum(steps_l) + sum(steps_u)
+            # the kernel's grid barriers (csrc/ilu_trisolve.cu): one per L
+            # sweep, one between the phases, one per U sweep
+            barriers = sum(steps_l) * (d_l > 0) + 1 + sum(steps_u) * (d_u > 0)
+            sync_ms = barrier_ms(torch, timer, fn_cuda.grid)
             log(f"  {kname} {dt_name}: {sweeps} sweeps in one launch of {fn_cuda.grid} blocks, "
-                f"{1e3 * ms / sweeps:.2f} us a sweep" + (f", segments of {M.seg}" if M.seg else ""))
-            # bytes: the bands, w, x, b' and D^-1 once (each sweep re-reads them from L2)
-            nbytes = (len(M.offs_l) + len(M.offs_u) + 4) * n * dt.itemsize
+                f"{1e3 * ms / sweeps:.2f} us a sweep, {barriers} barriers of "
+                f"{1e3 * sync_ms:.3f} us each" + (f", segments of {M.seg}" if M.seg else ""))
+            # bytes: the bands, D^-1 and w read once and x written once (b'
+            # is scratch; each sweep re-reads them from L2); operations: each
+            # sweep's multiply-adds over its rows
+            nbytes = (d_l + d_u + 3) * n * dt.itemsize
+            flops = sum(t * (2 * d_l + 1) * r for t, r in zip(steps_l, segs)) + \
+                sum(t * (2 * d_u + 2) * r for t, r in zip(steps_u, segs))
             record(kname, dt_name, *compare(dt_name, [got], [want], [scale]), ms,
-                   timer(lambda: fn_plain(*args), TRISOLVE_PLAIN_REPS), nbytes)
+                   timer(lambda: fn_plain(*args), TRISOLVE_PLAIN_REPS), nbytes, flops,
+                   barrier_ms=barriers * sync_ms)
             torch.cuda.synchronize()
             del M, got, want, scale
     record.require_ok()
@@ -578,8 +683,273 @@ def convdiff_ilu_path(torch, record, A, A_dev):
     log(f"  launches convdiff-ilu: {counts}")
     require(all(counts[k] > 0 for k in ILU_KERNELS + PATH_KERNELS["convdiff"]),
             f"convdiff-ilu: K1 and both K6 forms launched ({counts})")
-    require(all(counts[k] == 0 for k in PATH_KERNELS["mesh3d"]),
-            f"convdiff-ilu: K5 did not launch ({counts})")
+    require(all(counts[k] == 0 for k in PATH_KERNELS["mesh3d"] + MGS_KERNELS),
+            f"convdiff-ilu: K5 and the MGS kernels did not launch ({counts})")
+    return counts
+
+MID_ROWS = 16          # the middle basis height of K7/K2x2/K3-plain checks
+ORTH_WALL_REPS = 6     # interleaved timed solves per form and mode
+GRID_BLOCKS_PER_SM = (1, 2, 4, 0)  # K7 grids measured (0: every resident block)
+
+
+def mgs_scale(torch, V, w, rows):
+    """The MGS recurrence on absolute values, with the coefficients h_j of
+    the recurrence itself: sw_j = |w| + sum_{i<j} |h_i| |v_i| bounds the
+    terms that make w_j, <sw_j, |v_j|> those that make h_j.  The scale of
+    h, of w' and of ||w'|| for the tolerance.  (Adding |<sw_j, |v_j|>| |v_j|
+    instead would grow ~1.6x a row on a near-orthonormal basis of positive
+    |v_j|, far beyond any error of the recurrence.)"""
+    sw = w.abs()
+    wj = w.clone()
+    sh = torch.zeros(V.shape[0], dtype=V.dtype, device=V.device)
+    for j in range(rows):
+        a = V[j].abs()
+        sh[j] = torch.dot(sw, a)
+        hj = torch.dot(wj, V[j])
+        wj -= hj * V[j]
+        sw = sw + hj.abs() * a
+    return sh, sw, torch.sqrt(torch.dot(sw, sw))
+
+
+def mgs_basis(torch, n, dt, seed):
+    """A 31-row basis of near-orthonormal rows (N(0, 1/n) entries), w and u."""
+    rng = np.random.default_rng(seed)
+    m1 = RLEN + 1
+    V = torch.tensor(rng.standard_normal((m1, n)) / np.sqrt(n), dtype=dt, device="cuda")
+    w = torch.tensor(rng.standard_normal(n), dtype=dt, device="cuda")
+    u = torch.tensor(rng.standard_normal(m1), dtype=dt, device="cuda")
+    return V, w, u
+
+
+def check_mgs_kernels(torch, n, record):
+    """K7, K2x2 and K3 plain mode against their plain versions at
+    convdiff@1M's shapes (fp32, fp64; a 31-row basis at rows 31 and 16).
+    One call computes K2x2 (torch.mm against an (n, 2) matrix) and K3 plain
+    (torch.addmv); none computes K7."""
+    from gmres_tpu_torch.ops.cuda import mgs_kernel as mk
+    from gmres_tpu_torch.ops.cuda import orth_kernel as ok_
+
+    timer = Timer(torch)
+    m1 = RLEN + 1
+    for dt_name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        s = dt.itemsize
+        V, w, u = mgs_basis(torch, n, dt, 3)
+        for rows in (m1, MID_ROWS):
+            key = dt_name if rows == m1 else f"{dt_name} rows {rows}"
+            got = mk.mgs_cuda(V, w, rows)
+            blocks, tiles = mk.mgs_cuda.grid
+            sync = barrier_ms(torch, timer, blocks)
+            log(f"  basis_mgs {key}: one launch of {blocks} blocks x {tiles} register tiles, "
+                f"{rows} barriers of {1e3 * sync:.3f} us each")
+            record("basis_mgs", dt_name,
+                   *compare_each(dt_name, got, mk.mgs_plain(V, w, rows),
+                                 mgs_scale(torch, V, w, rows)),
+                   timer(lambda: mk.mgs_cuda(V, w, rows)),
+                   timer(lambda: mk.mgs_plain(V, w, rows), 5), (rows + 2) * n * s,
+                   (4 * rows + 2) * n, None, rows * sync, key=key)
+
+            vk = V[rows - 1]
+            W = torch.stack([w, vk], dim=1)
+            record("basis_gram2", dt_name,
+                   *compare_each(dt_name, ok_.gram2_cuda(V, w, vk, rows),
+                                 ok_.gram2_plain(V, w, vk, rows),
+                                 ok_.gram2_plain(V.abs(), w.abs(), vk.abs(), rows)),
+                   timer(lambda: ok_.gram2_cuda(V, w, vk, rows)),
+                   timer(lambda: ok_.gram2_plain(V, w, vk, rows)), (rows + 2) * n * s,
+                   4 * rows * n, timer(lambda: torch.mm(V[:rows], W)), key=key)
+
+            sw = w.abs() + torch.mv(V[:rows].abs().t(), u[:rows].abs())
+            record("basis_update", dt_name,
+                   *compare_each(dt_name, [ok_.update_cuda(V, w, u, rows)],
+                                 [ok_.update_plain(V, w, u, rows)], [sw]),
+                   timer(lambda: ok_.update_cuda(V, w, u, rows)),
+                   timer(lambda: ok_.update_plain(V, w, u, rows)), (rows + 2) * n * s,
+                   2 * rows * n, timer(lambda: torch.addmv(w, V[:rows].t(), u[:rows],
+                                                           alpha=-1)), key=key)
+        torch.cuda.synchronize()
+        del V, w, u, W
+    record.require_ok()
+
+
+def mgs_grid_table(torch, n, copy_gbs):
+    """K7 at n on a few grids (blocks per SM; and the L2 form on the
+    default grid), fp32 and fp64, rows 16 and 31: time, grid, one barrier
+    of that grid and the bound; every result bit-identical to the first."""
+    from gmres_tpu_torch.ops.cuda import mgs_kernel as mk
+
+    timer = Timer(torch)
+    log("K7 grid sizes (ms; bound = max(bytes / copy, rows x barrier)):")
+    for dt_name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        V, w, _ = mgs_basis(torch, n, dt, 4)
+        for rows in (MID_ROWS, RLEN + 1):
+            ref = None
+            for per_sm, tiles_max in [(p, mk.MAX_REGISTER_TILES) for p in GRID_BLOCKS_PER_SM] + \
+                    [(mk.BLOCKS_PER_SM, 0)]:
+                out = mk.mgs_cuda(V, w, rows, per_sm, tiles_max)
+                blocks, tiles = mk.mgs_cuda.grid
+                ref = ref or out
+                require(all(torch.equal(a, b) for a, b in zip(out, ref)),
+                        f"K7 bit-identical across grids ({dt_name}, rows {rows}, "
+                        f"{blocks} blocks)")
+                ms = timer(lambda: mk.mgs_cuda(V, w, rows, per_sm, tiles_max))
+                sync = barrier_ms(torch, timer, blocks)
+                bound = max((rows + 2) * n * dt.itemsize / (copy_gbs * 1e9) * 1e3, rows * sync)
+                log(f"  K7 {dt_name} rows {rows:2d} blocks/SM {per_sm or 'all'} "
+                    f"{'L2 form' if tiles == 0 else f'{tiles} tiles/block'}: {blocks:5d} blocks "
+                    f"{ms:.4f} ms, barrier {1e3 * sync:.3f} us, bound {bound:.4f} ms "
+                    f"({ms / bound:.2f}x)")
+        del V, w
+
+
+def mgs_step_walls(torch, n):
+    """Host wall per Arnoldi orthogonalization step (k = 0..29 in turn,
+    median of 5 sweeps, ending in a device sync) of sequential MGS (K7),
+    ICWY (K2x2, solve, K3 SUMSQ) and CGSR (K2, K3 GRAM, K3 SUMSQ)."""
+    from gmres_tpu_torch.ops.orth import mgs_lowsync_step, orthonormalize_step
+
+    out = {}
+    for dt_name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        V, w, _ = mgs_basis(torch, n, dt, 5)
+        L = torch.zeros((RLEN + 1, RLEN + 1), dtype=dt, device="cuda")
+
+        def seq():
+            for k in range(RLEN):
+                orthonormalize_step("mgs", V, k, w)
+
+        def icwy():
+            for k in range(RLEN):
+                mgs_lowsync_step(V, k, w, L)
+
+        def cgsr():
+            for k in range(RLEN):
+                orthonormalize_step("cgsr", V, k, w)
+
+        for form, fn in (("sequential", seq), ("icwy", icwy), ("cgsr", cgsr)):
+            fn()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            out[(dt_name, form)] = statistics.median(times) / RLEN * 1e3
+        log(f"orthogonalization step wall ({dt_name}, mean over k = 0..{RLEN - 1}): "
+            + ", ".join(f"{f} {out[(dt_name, f)]:.4f} ms"
+                        for f in ("sequential", "icwy", "cgsr")))
+        del V, w, L
+    return out
+
+
+def orth_solve_walls(torch, A, A_dev):
+    """Walls of whole solves with sequential MGS, ICWY MGS and CGSR, in
+    both modes, interleaved (the order reversed every other round) so that
+    host noise falls on all three alike; the evidence behind the
+    low_sync_mgs=None rule on the card."""
+    from gmres_tpu_torch import rand_vect, solve
+
+    n = A.n_rows
+    b = torch.tensor(-csr_residual(A, rand_vect(n, 42), np.zeros(n)), device="cuda")
+    forms = {"sequential": dict(orth="mgs", low_sync_mgs=False),
+             "icwy": dict(orth="mgs", low_sync_mgs=True), "cgsr": dict(orth="cgsr")}
+    for mode in ("baseline", "mixed"):
+        cfgs = {f: config(mode, "identity", **kw) for f, kw in forms.items()}
+        walls = {f: [] for f in forms}
+        for f in forms:
+            solve(A_dev, b, cfgs[f])  # warm-up
+        for rep in range(ORTH_WALL_REPS):
+            for f in (list(forms) if rep % 2 == 0 else list(forms)[::-1]):
+                t0 = time.perf_counter()
+                solve(A_dev, b, cfgs[f])
+                torch.cuda.synchronize()
+                walls[f].append(time.perf_counter() - t0)
+        med = {f: statistics.median(v) for f, v in walls.items()}
+        log(f"solve walls {mode} (s, {ORTH_WALL_REPS} interleaved each): "
+            + "; ".join(f"{f} median {med[f]:.4f} min {min(v):.4f} max {max(v):.4f}"
+                        for f, v in walls.items())
+            + f"; icwy/sequential {med['icwy'] / med['sequential']:.4f}, "
+            f"sequential/cgsr {med['sequential'] / med['cgsr']:.4f}")
+
+
+def convdiff_mgs_path(torch, record, A, A_dev, copy_gbs):
+    """MGS (sequential on K7, ICWY on K2x2 + K3 SUMSQ) in both modes and the
+    restart policies and orth_steps=3 in mixed, on the staged convdiff@1M
+    operator; returns the launch counts of the path's solves."""
+    from gmres_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    check_mgs_kernels(torch, A.n_rows, record)
+    mgs_grid_table(torch, A.n_rows, copy_gbs)
+    mgs_step_walls(torch, A.n_rows)
+
+    reset_launch_counts()
+
+    def run(label, mode, timed, converges=True, **kw):
+        cfg = config(mode, "identity", **kw)
+        before = launch_counts()
+        res, wall = solve_timed(torch, f"convdiff-mgs {label}", mode, A, A_dev, cfg, timed,
+                                history=True, converges=converges)
+        after = launch_counts()
+        c = {k: after[k] - before[k] for k in after}
+        log(f"  launches {label} {mode}: {c}")
+        require(c["dia_spmv"] > 0 and c["dia_residual"] > 0, f"{label} {mode}: K1 launched")
+        require(all(c[k] == 0 for k in PATH_KERNELS["mesh3d"] + ILU_KERNELS),
+                f"{label} {mode}: neither K5 nor K6 launched ({c})")
+        return res, wall, c, timed + 1
+
+    for mode in ("baseline", "mixed"):
+        for form, lowsync in (("sequential", False), ("icwy", True)):
+            res, _, c, solves = run(f"mgs {form}", mode, 1, orth="mgs", low_sync_mgs=lowsync)
+            want = MGS_HISTORY
+            log(f"  vs the reference's {want[0]}/{want[1]}: restarts {res.restarts - want[0]:+d}")
+            require(abs(res.restarts - want[0]) <= 1,
+                    f"mgs {form} {mode}: {res.restarts}/{res.total_iters} not within one "
+                    f"restart of {want[0]}/{want[1]}")
+            # FIXED: every cycle enqueues m steps, so steps == iterations
+            steps = solves * res.total_iters
+            if lowsync:
+                ok = c["basis_gram2"] == c["basis_update_sumsq"] == steps and c["basis_mgs"] == 0
+            else:
+                ok = c["basis_mgs"] == steps and c["basis_gram2"] == c["basis_update_sumsq"] == 0
+            require(ok and c["basis_gram"] == c["basis_update_gram"] == c["basis_update"] == 0,
+                    f"mgs {form} {mode}: its kernels once per step ({steps}), no other sweep "
+                    f"({c})")
+    orth_solve_walls(torch, A, A_dev)
+
+    def cgsr_only(c, label, gram_per_step=1):
+        require(c["basis_mgs"] == c["basis_gram2"] == c["basis_update"] == 0
+                and c["basis_update_gram"] > 0
+                and c["basis_gram"] == gram_per_step * c["basis_update_gram"],
+                f"{label}: the CGSR sweeps, {gram_per_step} K2 a step, no MGS kernel ({c})")
+
+    for policy, per_step in (("relres", 1), ("orthloss", 2)):
+        res, _, c, _ = run(policy, "mixed", 1, policy=policy, restart_improvement=1e-2)
+        want = POLICY_ITERS[policy]
+        log(f"  {policy} vs the reference's {want} iterations: {res.total_iters - want:+d}; "
+            f"cycle lengths {[h['k'] for h in res.history]}")
+        require(abs(res.total_iters - want) <= RLEN,
+                f"{policy}: {res.restarts}/{res.total_iters} not within {RLEN} iterations "
+                f"of {want}")
+        cgsr_only(c, policy, per_step)
+
+    res, _, c, _ = run("repeat", "mixed", 1, converges=False, policy="repeat",
+                       restart_improvement=1e-2)
+    ks = [h["k"] for h in res.history]
+    want = REPEAT_HISTORY
+    log(f"  repeat: aborted={res.aborted} {res.restarts}/{res.total_iters}, first cycle "
+        f"{ks[0]}, the reference's {want[0]}/{want[1]} with k = {want[2]}")
+    require(res.aborted and not res.converged and res.restarts == want[0],
+            f"repeat: aborts at {want[0]} restarts ({res.restarts}/{res.total_iters})")
+    require(all(k == ks[0] for k in ks), f"repeat: every cycle has the first's length ({ks})")
+    cgsr_only(c, "repeat")
+
+    res, _, c, _ = run("cgsr orth_steps=3", "mixed", 1, orth_steps=3)
+    log(f"  orth_steps=3: {res.restarts}/{res.total_iters} (no reference record)")
+    require(c["basis_update"] > 0 and c["basis_update"] == c["basis_gram"]
+            and c["basis_update_gram"] == c["basis_update_sumsq"] == 0
+            and c["basis_mgs"] == c["basis_gram2"] == 0,
+            f"orth_steps=3: K2 and K3 plain once per pass, no fused CGSR or MGS sweep ({c})")
+    counts = launch_counts()
+    log(f"  launches convdiff-mgs: {counts}")
     return counts
 
 
@@ -624,17 +994,20 @@ def main() -> int:
     mesh3d_counts = mesh3d_path(torch, record)
     t2 = time.perf_counter()
     ilu_counts = convdiff_ilu_path(torch, record, A, A_dev)
+    t3 = time.perf_counter()
+    mgs_counts = convdiff_mgs_path(torch, record, A, A_dev, copy_gbs)
     log(f"path seconds: convdiff {t1 - t0:.1f}, mesh3d {t2 - t1:.1f}, "
-        f"convdiff-ilu {time.perf_counter() - t2:.1f}")
-    path_counts = (convdiff_counts, mesh3d_counts, ilu_counts)
+        f"convdiff-ilu {t3 - t2:.1f}, convdiff-mgs {time.perf_counter() - t3:.1f}")
+    path_counts = (convdiff_counts, mesh3d_counts, ilu_counts, mgs_counts)
     counts = {k: sum(c[k] for c in path_counts) for k in kernel_wrappers()}
     require(all(v > 0 for v in counts.values()), f"every kernel launched on some path ({counts})")
     records = record.records
 
     # kernel -> (source, the TPU kernels' pallas_calls it replaces); the
     # JSON numbers are the fp32 variant (the mixed inner loop; for the
-    # residual modes the fp64 residual with its fp32-demoted norm), fp64
-    # alongside; launches are summed over the three paths' solves
+    # residual modes the fp64 residual with its fp32-demoted norm; for K7,
+    # K2x2 and K3 plain the 31-row basis), the other variants alongside;
+    # launches are summed over the four paths' solves
     sources = {
         "dia_spmv": ("gmres_tpu_torch/csrc/dia_spmv.cu",
                      "gmres_tpu/ops/pallas/spmv_kernel.py:88"),
@@ -656,16 +1029,26 @@ def main() -> int:
                                "gmres_tpu/ops/pallas/trisolve_kernel.py:213"),
         "ilu_trisolve_segmented": ("gmres_tpu_torch/csrc/ilu_trisolve.cu",
                                    "gmres_tpu/ops/pallas/trisolve_kernel.py:155"),
+        "basis_mgs": ("gmres_tpu_torch/csrc/basis_mgs.cu",
+                      "gmres_tpu/ops/pallas/orth_kernel.py:381"),
+        "basis_gram2": ("gmres_tpu_torch/csrc/basis_sweep.cu",
+                        "gmres_tpu/ops/pallas/orth_kernel.py:102"),
+        "basis_update": ("gmres_tpu_torch/csrc/basis_sweep.cu",
+                         "gmres_tpu/ops/pallas/orth_kernel.py:129"),
     }
+    require(set(sources) == set(kernel_wrappers()), "every kernel has a JSON entry")
     kernels = []
     for name, (src, replaces) in sources.items():
         rec = records[name]
+        main_rec = rec["float32"]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": counts[name], "dtype": "float32",
-            "max_abs_err": rec["float32"]["max_abs_err"], "ms": rec["float32"]["ms"],
-            "plain_ms": rec["float32"]["plain_ms"], "gb_per_s": rec["float32"]["gb_per_s"],
-            "float64": rec["float64"], "copy_gb_per_s": copy_gbs,
+            "max_abs_err": main_rec["max_abs_err"], "ms": main_rec["ms"],
+            "plain_ms": main_rec["plain_ms"], "bound_ms": main_rec["bound_ms"],
+            "bound_by": main_rec["bound_by"], "library_ms": main_rec["library_ms"],
+            "gb_per_s": main_rec["gb_per_s"], "copy_gb_per_s": copy_gbs,
+            "variants": {k: v for k, v in rec.items() if k != "float32"},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

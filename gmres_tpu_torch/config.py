@@ -184,3 +184,26 @@ class GmresConfig:
 
     def with_(self, **kw) -> "GmresConfig":
         return dataclasses.replace(self, **kw)
+
+
+def use_lowsync_mgs(cfg: GmresConfig, device_type: str) -> bool:
+    """Whether an MGS solve runs the one-reduce ICWY step instead of the
+    sequential recurrence.  ``low_sync_mgs=True`` or ``False`` forces the
+    form on every device; ``None`` takes ``LOWSYNC_MGS_DEFAULT`` for the
+    device type."""
+    if cfg.orth != Orth.MGS:
+        return False
+    if cfg.low_sync_mgs is not None:
+        return bool(cfg.low_sync_mgs)
+    return LOWSYNC_MGS_DEFAULT[device_type]
+
+
+# low_sync_mgs=None by device type.  CPU: the JAX package's CPU branch,
+# sequential (gmres_tpu/solver/gmres.py:204-208).  CUDA: sequential too, in
+# both modes: on the H100 at convdiff@1M one K7 launch a step took 0.0746 /
+# 0.1144 ms of host wall a step (fp32 / fp64) against ICWY's 0.1363 /
+# 0.1743, and whole solves 0.7707 / 1.0159 s (baseline / mixed medians of 6
+# interleaved) against 0.9105 / 1.0881 (chip_smoke.py, PERF.md).  The JAX
+# package's TPU rule (ICWY except for fp64 cycles) came from the TPU's
+# emulated fp64 and does not carry.
+LOWSYNC_MGS_DEFAULT = {"cpu": False, "cuda": False}

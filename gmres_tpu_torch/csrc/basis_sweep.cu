@@ -1,12 +1,18 @@
-// K2-K4: sweeps over the row-stored Krylov basis V (m+1, n).
+// K2-K4 and K2x2: sweeps over the row-stored Krylov basis V (m+1, n).
 //
 // K2 basis_gram<TV>            u[j] = sum_i V[j,i] w[i]            for j < rows
 //   replaces gmres_tpu/ops/pallas/orth_kernel.py:_gram (pallas_call at :59).
 // K3 basis_update<TV,GRAM,SUMSQ>  w' = w - sum_j u[j] V[j,:], fused with
 //   u2 = V w' (GRAM) or ||w'||^2 (SUMSQ) over the same tile
 //   replaces orth_kernel.py:_update_gram (:171) and _update_sumsq (:216);
-//   with both flags off it is _update (:129).  gram, update_gram and
+//   with both flags off it is _update (:129), exported as basis_update
+//   (CGS passes of CGSR with orth_steps != 2).  gram, update_gram and
 //   update_sumsq chained are one CGSR step (orth_kernel.py:cgsr2_pallas).
+// K2x2 basis_gram2<TV>        (u0, u1) = (V w0, V w1) over rows < rows
+//   replaces orth_kernel.py:_gram2 (:102), the one reduction of an ICWY
+//   (one-reduce MGS) step: each tile of V is read once for both vectors,
+//   so the sweep costs one read of the basis where two K2 launches cost
+//   two.  Partials (n_blocks, m+1, 2), no atomics, as in K2.
 // K4 basis_axpy<TV,TX>         x[i] += (TX)(sum_{j<rows} y[j] V[j,i])
 //   replaces gmres_tpu/ops/pallas/df64_kernel.py:axpy_df64 (:295) and the
 //   basis combination gmres_tpu/solver/gmres.py:547 does with jnp.matmul:
@@ -36,16 +42,6 @@
 #include "common.cuh"
 
 using namespace gmres;
-
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, size_t col0,
-                                          int n, T (&v)[kItems]) {
-#pragma unroll
-  for (int it = 0; it < kItems; ++it) {
-    const size_t c = col0 + (size_t)it * kThreads;
-    v[it] = c < (size_t)n ? src[c] : T(0);
-  }
-}
 
 // red[warp * kMaxRows + j] holds warp `warp`'s share of row j; thread j
 // finishes row j over the warps and writes the block's partial.  Rows
@@ -84,6 +80,52 @@ basis_gram_kernel(const T* __restrict__ V, const T* __restrict__ w,
     if (lane == 0) red[warp * kMaxRows + j] = p;
   }
   write_row_partials(red, partials, rows, m1);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+basis_gram2_kernel(const T* __restrict__ V, const T* __restrict__ w0,
+                   const T* __restrict__ w1, T* __restrict__ partials, int n, int rows,
+                   int m1) {
+  // red[(c * kWarps + warp) * kMaxRows + j]: warp `warp`'s share of row j
+  // against vector c (32 KB in fp64)
+  __shared__ T red[2 * kWarps * kMaxRows];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t col0 = (size_t)blockIdx.x * kTile + threadIdx.x;
+  T av[kItems], bv[kItems];
+  load_tile(w0, col0, n, av);
+  load_tile(w1, col0, n, bv);
+  for (int j = 0; j < rows; ++j) {
+    T rv[kItems];
+    load_tile(V + (size_t)j * n, col0, n, rv);
+    T p0 = T(0), p1 = T(0);
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      p0 += rv[it] * av[it];
+      p1 += rv[it] * bv[it];
+    }
+    p0 = warp_sum(p0);
+    p1 = warp_sum(p1);
+    if (lane == 0) {
+      red[warp * kMaxRows + j] = p0;
+      red[(kWarps + warp) * kMaxRows + j] = p1;
+    }
+  }
+  __syncthreads();
+  // partials[block][j][c]; rows past `rows` get zeros (the zero tail)
+  for (int j = threadIdx.x; j < m1; j += kThreads) {
+    T s0 = T(0), s1 = T(0);
+    if (j < rows) {
+#pragma unroll
+      for (int q = 0; q < kWarps; ++q) {
+        s0 += red[q * kMaxRows + j];
+        s1 += red[(kWarps + q) * kMaxRows + j];
+      }
+    }
+    T* out = partials + ((size_t)blockIdx.x * m1 + j) * 2;
+    out[0] = s0;
+    out[1] = s1;
+  }
 }
 
 template <typename T, bool GRAM, bool SUMSQ>
@@ -179,6 +221,15 @@ static int launch_gram(const T* V, const T* w, T* partials, int n, int rows, int
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+static int launch_gram2(const T* V, const T* w0, const T* w1, T* partials, int n, int rows,
+                        int m1, void* stream) {
+  if (bad_shape(n, rows, m1)) return (int)cudaErrorInvalidValue;
+  basis_gram2_kernel<T><<<blocks_for(n, kTile), kThreads, 0, (cudaStream_t)stream>>>(
+      V, w0, w1, partials, n, rows, m1);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool GRAM, bool SUMSQ>
 static int launch_update(const T* V, const T* w, const T* u, T* w_out, T* partials,
                          int n, int rows, int m1, void* stream) {
@@ -207,6 +258,27 @@ int gmres_basis_gram_f32(const float* V, const float* w, float* partials, int n,
 int gmres_basis_gram_f64(const double* V, const double* w, double* partials, int n,
                          int rows, int m1, void* stream) {
   return launch_gram<double>(V, w, partials, n, rows, m1, stream);
+}
+
+int gmres_basis_gram2_f32(const float* V, const float* w0, const float* w1, float* partials,
+                          int n, int rows, int m1, void* stream) {
+  return launch_gram2<float>(V, w0, w1, partials, n, rows, m1, stream);
+}
+
+int gmres_basis_gram2_f64(const double* V, const double* w0, const double* w1,
+                          double* partials, int n, int rows, int m1, void* stream) {
+  return launch_gram2<double>(V, w0, w1, partials, n, rows, m1, stream);
+}
+
+// K3 with both flags off: w' = w - u^T V alone (orth_kernel.py:_update)
+int gmres_basis_update_f32(const float* V, const float* w, const float* u, float* w_out,
+                           int n, int rows, int m1, void* stream) {
+  return launch_update<float, false, false>(V, w, u, w_out, nullptr, n, rows, m1, stream);
+}
+
+int gmres_basis_update_f64(const double* V, const double* w, const double* u,
+                           double* w_out, int n, int rows, int m1, void* stream) {
+  return launch_update<double, false, false>(V, w, u, w_out, nullptr, n, rows, m1, stream);
 }
 
 int gmres_basis_update_gram_f32(const float* V, const float* w, const float* u,

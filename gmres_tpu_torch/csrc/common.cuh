@@ -1,5 +1,6 @@
 // Shared launch geometry and deterministic reductions for the port's
-// hand-written Hopper kernels (dia_spmv.cu, basis_sweep.cu, sell_spmv.cu).
+// hand-written Hopper kernels (dia_spmv.cu, basis_sweep.cu, sell_spmv.cu,
+// ilu_trisolve.cu, basis_mgs.cu).
 //
 // Every cross-thread sum is a fixed tree (warp shuffles, then one warp over
 // the per-warp values), and every cross-block sum is written as per-block
@@ -54,6 +55,24 @@ __device__ __forceinline__ T block_sum(T v, T* scratch) {
   __syncthreads();
   return total;
 }
+
+// Thread threadIdx.x's kItems values of one kTile-column tile starting at
+// col0 - threadIdx.x (columns kThreads apart, so every load is coalesced);
+// columns at or past n read as 0.
+template <typename T>
+__device__ __forceinline__ void load_tile(const T* __restrict__ src, size_t col0,
+                                          int n, T (&v)[kItems]) {
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const size_t c = col0 + (size_t)it * kThreads;
+    v[it] = c < (size_t)n ? src[c] : T(0);
+  }
+}
+
+// a * b + c rounded once, spelled out so that every instantiation of a
+// kernel contracts the same way whatever the compiler would choose
+__device__ __forceinline__ float fmadd(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fmadd(double a, double b, double c) { return __fma_rn(a, b, c); }
 
 inline int blocks_for(int n, int per_block) { return (n + per_block - 1) / per_block; }
 

@@ -9,7 +9,14 @@ from __future__ import annotations
 
 def kernel_wrappers() -> dict:
     """Name -> wrapper for every kernel launch site of the main path."""
-    from gmres_tpu_torch.ops.cuda.orth_kernel import gram_cuda, update_gram_cuda, update_sumsq_cuda
+    from gmres_tpu_torch.ops.cuda.mgs_kernel import mgs_cuda
+    from gmres_tpu_torch.ops.cuda.orth_kernel import (
+        gram2_cuda,
+        gram_cuda,
+        update_cuda,
+        update_gram_cuda,
+        update_sumsq_cuda,
+    )
     from gmres_tpu_torch.ops.cuda.outer_kernel import basis_axpy_cuda
     from gmres_tpu_torch.ops.cuda.sell_kernel import sell_residual_cuda, sell_spmv_cuda
     from gmres_tpu_torch.ops.cuda.spmv_kernel import dia_residual_cuda, dia_spmv_cuda
@@ -29,6 +36,9 @@ def kernel_wrappers() -> dict:
         "basis_axpy": basis_axpy_cuda,
         "ilu_trisolve_fused": ilu_trisolve_fused_cuda,
         "ilu_trisolve_segmented": ilu_trisolve_segmented_cuda,
+        "basis_mgs": mgs_cuda,
+        "basis_gram2": gram2_cuda,
+        "basis_update": update_cuda,
     }
 
 

@@ -32,7 +32,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "gmres_tpu_torch"
-SOURCES = ("dia_spmv.cu", "basis_sweep.cu", "sell_spmv.cu", "ilu_trisolve.cu")
+SOURCES = ("dia_spmv.cu", "basis_sweep.cu", "sell_spmv.cu", "ilu_trisolve.cu", "basis_mgs.cu")
 HEADERS = ("common.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -52,6 +52,10 @@ _SIGNATURES = {
     "gmres_sell_residual_f64": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "gmres_basis_gram_f32": (_P, _P, _P, _I, _I, _I, _P),
     "gmres_basis_gram_f64": (_P, _P, _P, _I, _I, _I, _P),
+    "gmres_basis_gram2_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "gmres_basis_gram2_f64": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "gmres_basis_update_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "gmres_basis_update_f64": (_P, _P, _P, _P, _I, _I, _I, _P),
     "gmres_basis_update_gram_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "gmres_basis_update_gram_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "gmres_basis_update_sumsq_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -59,6 +63,9 @@ _SIGNATURES = {
     "gmres_basis_axpy_f32_f64": (_P, _P, _P, _I, _I, _P),
     "gmres_basis_axpy_f64_f64": (_P, _P, _P, _I, _I, _P),
     "gmres_basis_axpy_f32_f32": (_P, _P, _P, _I, _I, _P),
+    "gmres_basis_mgs_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "gmres_basis_mgs_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "gmres_grid_sync_probe": (_I, _I, _P),
     "gmres_ilu_trisolve_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P,
                                _P),
     "gmres_ilu_trisolve_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P,

@@ -1,10 +1,13 @@
-"""K2/K3 wrappers: the basis sweeps of one CGS or CGSR step
-(``csrc/basis_sweep.cu``), each beside its plain PyTorch version.
+"""K2/K3 and K2x2 wrappers: the basis sweeps of one CGS, CGSR or ICWY-MGS
+step (``csrc/basis_sweep.cu``), each beside its plain PyTorch version.
 
-Replaces ``gmres_tpu/ops/pallas/orth_kernel.py``'s ``_gram``,
-``_update_gram``, ``_update_sumsq`` and their chain ``cgsr2_pallas``:
+Replaces ``gmres_tpu/ops/pallas/orth_kernel.py``'s ``_gram``, ``_gram2``,
+``_update``, ``_update_gram``, ``_update_sumsq`` and the chain
+``cgsr2_pallas``:
 
     gram:          u = V w
+    gram2:         (u0, u1) = (V w0, V w1), one sweep
+    update:        w1 = w - u^T V
     update_gram:   w1 = w - u^T V,  u2 = V w1
     update_sumsq:  w2 = w - u^T V,  ||w2||^2
 
@@ -64,6 +67,43 @@ def gram_cuda(V: torch.Tensor, w: torch.Tensor, rows: int) -> torch.Tensor:
 gram_cuda.launches = 0
 
 
+def gram2_plain(V: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor, rows: int):
+    return gram_plain(V, w0, rows), gram_plain(V, w1, rows)
+
+
+def gram2_cuda(V: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor, rows: int):
+    """K2x2: (V w0, V w1) from per-block partials, V read once."""
+    lib, sfx, m1, n, nb = _sweep_args("gram2", V, rows, w0=(w0, V.shape[1]),
+                                      w1=(w1, V.shape[1]))
+    partials = torch.empty((nb, m1, 2), dtype=V.dtype, device=V.device)
+    lib.call(f"gmres_basis_gram2_{sfx}", V.data_ptr(), w0.data_ptr(), w1.data_ptr(),
+             partials.data_ptr(), n, rows, m1)
+    gram2_cuda.launches += 1
+    u = partials.sum(dim=0)
+    return u[:, 0], u[:, 1]
+
+
+gram2_cuda.launches = 0
+
+
+def update_plain(V, w, u, rows: int):
+    _rows_ok(V, rows)
+    return w - torch.mv(V[:rows].t(), u[:rows])
+
+
+def update_cuda(V, w, u, rows: int):
+    """K3 with both flags off: w - u^T V."""
+    lib, sfx, m1, n, _ = _sweep_args("update", V, rows, w=(w, V.shape[1]), u=(u, V.shape[0]))
+    w1 = torch.empty_like(w)
+    lib.call(f"gmres_basis_update_{sfx}", V.data_ptr(), w.data_ptr(), u.data_ptr(),
+             w1.data_ptr(), n, rows, m1)
+    update_cuda.launches += 1
+    return w1
+
+
+update_cuda.launches = 0
+
+
 def update_gram_plain(V, w, u, rows: int):
     _rows_ok(V, rows)
     w1 = w - torch.mv(V[:rows].t(), u[:rows])
@@ -108,6 +148,14 @@ update_sumsq_cuda.launches = 0
 
 def gram(V, w, rows: int):
     return gram_cuda(V, w, rows) if V.is_cuda else gram_plain(V, w, rows)
+
+
+def gram2(V, w0, w1, rows: int):
+    return gram2_cuda(V, w0, w1, rows) if V.is_cuda else gram2_plain(V, w0, w1, rows)
+
+
+def update(V, w, u, rows: int):
+    return update_cuda(V, w, u, rows) if V.is_cuda else update_plain(V, w, u, rows)
 
 
 def update_gram(V, w, u, rows: int):

@@ -1,13 +1,13 @@
-"""Orthogonalization: CGS and CGSR (``Orthogonalization.hpp:76-136``).
+"""Orthogonalization: CGS, MGS and CGSR (``Orthogonalization.hpp:76-136``),
+and the one-reduce ICWY form of MGS.
 
 The Krylov basis is row-stored, ``V`` of shape (m+1, n).  The step index
 ``k`` is a host int here (the Arnoldi loop is a Python loop), so the
 j <= k mask of the reference is simply a sweep over rows 0..k: every
-basis sweep reads only those rows, through the kernels K2/K3 on the card
-(``ops/cuda/orth_kernel.py``) in fp32 and fp64 alike.  The JAX package's
-``assume_zero_tail`` flag has nothing left to select and is not carried.
-
-MGS is not ported yet.
+basis sweep reads only those rows, through the kernels on the card
+(``ops/cuda/orth_kernel.py``: K2, K2x2, K3; ``ops/cuda/mgs_kernel.py``: K7)
+in fp32 and fp64 alike.  The JAX package's ``assume_zero_tail`` flag has
+nothing left to select and is not carried.
 """
 
 from __future__ import annotations
@@ -15,19 +15,41 @@ from __future__ import annotations
 import torch
 
 from gmres_tpu_torch.ops.blas import nrm2
-from gmres_tpu_torch.ops.cuda.orth_kernel import cgsr2, gram, update_sumsq
-
-
-def _mgs_missing():
-    return NotImplementedError("orth='mgs' (sequential and one-reduce ICWY MGS) "
-                               "is slice 4 of the port")
+from gmres_tpu_torch.ops.cuda.mgs_kernel import mgs as mgs_sweep
+from gmres_tpu_torch.ops.cuda.orth_kernel import cgsr2, gram, gram2, update, update_sumsq
 
 
 def cgs(V: torch.Tensor, k: int, w: torch.Tensor):
     """Classical Gram-Schmidt (``Orthogonalization.hpp:76-89``): (h, w')."""
     u = gram(V, w, k + 1)
-    w2, _ = update_sumsq(V, w, u, k + 1)
-    return u, w2
+    return u, update(V, w, u, k + 1)
+
+
+def mgs(V: torch.Tensor, k: int, w: torch.Tensor):
+    """Modified Gram-Schmidt (``Orthogonalization.hpp:91-107``): the k+1
+    sequential dot/axpy pairs, one K7 launch on the card.  Returns
+    (h, w', ||w'||)."""
+    return mgs_sweep(V, w, k + 1)
+
+
+def mgs_lowsync_step(V: torch.Tensor, k: int, w: torch.Tensor, L: torch.Tensor):
+    """One ICWY (one-reduce) MGS step (``gmres_tpu/ops/orth.py:119-210``):
+
+        (u, l) = (V w, V v_k);   L[k, :k] = l[:k];
+        h = (I + L)^{-1} u;      w' = w - h^T V,  with ||w'||^2
+
+    two basis sweeps (K2x2, then K3 SUMSQ) and a unit-lower-triangular
+    (m+1)x(m+1) solve.  ``L`` is the strictly lower coupling matrix in the
+    basis dtype (fp32 for an fp32 basis, fp64 for fp64), updated in place.
+    Rows > k of V and L are zero, so h is zero past k.  Returns
+    (h, w', ||w'||^2, L)."""
+    rows = k + 1
+    u, ell = gram2(V, w, V[k], rows)
+    L[k, :k] = ell[:k]
+    h = torch.linalg.solve_triangular(L, u.unsqueeze(1), upper=False,
+                                      unitriangular=True).squeeze(1)
+    w2, ss = update_sumsq(V, w, h, rows)
+    return h, w2, ss, L
 
 
 def cgsr(V: torch.Tensor, k: int, w: torch.Tensor, orth_steps: int = 2):
@@ -42,23 +64,27 @@ def cgsr(V: torch.Tensor, k: int, w: torch.Tensor, orth_steps: int = 2):
 def orthogonalize(kind: str, V, k: int, w, orth_steps: int = 2):
     if kind == "cgs":
         return cgs(V, k, w)
+    if kind == "mgs":
+        h, w, _ = mgs(V, k, w)
+        return h, w
     if kind == "cgsr":
         return cgsr(V, k, w, orth_steps)
-    if kind == "mgs":
-        raise _mgs_missing()
     raise ValueError(f"unknown orthogonalization {kind!r}")
 
 
 def orthonormalize_step(kind: str, V, k: int, w, orth_steps: int = 2):
     """Orthogonalize w against rows 0..k of V and take the norm of the
     result: ``(h_col, w_orth, ||w_orth||)``.  The two-pass CGSR step is
-    three basis sweeps (gram, update+gram, update+sum of squares) and CGS
-    two, with the norm folded into the last sweep."""
+    three basis sweeps (gram, update+gram, update+sum of squares), CGS two,
+    with the norm folded into the last sweep; MGS is one K7 launch with the
+    norm from its sum of squares."""
     if kind == "cgsr" and orth_steps == 2:
         return cgsr2(V, w, k + 1)
     if kind == "cgs":
         u = gram(V, w, k + 1)
         w2, ss = update_sumsq(V, w, u, k + 1)
         return u, w2, torch.sqrt(ss)
+    if kind == "mgs":
+        return mgs(V, k, w)
     h, w = orthogonalize(kind, V, k, w, orth_steps)
     return h, w, nrm2(w)

@@ -13,14 +13,20 @@ The semantics are those of ``gmres_tpu.solver.gmres`` on its CPU branch
   increment is promoted to the outer dtype before it is added
   (``gmres.cpp:276-290``).
 
-How it runs on the card.  Under the FIXED policy the inner loop is a
-Python ``for k in range(m)`` that never reads a value back to the host: no
-``.item()`` and no ``if`` on a tensor; the happy-breakdown guard is a
-``torch.where`` and the triangular solve is bounded by the device-side
-``kdim``.  So the loop only enqueues work, and the host reads the cycle's
-scalars once, at the start of the next cycle.  The hot operations run on
-hand-written kernels: the SpMV (K1 on DIA operators, K5 on sliced-ELL
-ones), the CGSR basis sweeps (K2, K3), the outer residual (K1 or K5 in
+How it runs on the card.  The inner loop is a Python ``for k in
+range(steps)`` that never reads a value back to the host: no ``.item()``
+and no ``if`` on a tensor; the happy-breakdown guard is a ``torch.where``,
+the triangular solve is bounded by the device-side ``kdim``, and a restart
+policy's trigger is a device-side ``trig_k`` that cuts the cycle after the
+loop, as the JAX package does on the TPU (``gmres_tpu/solver/gmres.py:
+156-165, 282-298``).  So the loop only enqueues work.  The host reads once
+per cycle: one ``.tolist()`` of the cycle's residual scalars together with
+the previous cycle's length and final |s(k+1)|, and one more read after
+the last cycle of a solve that aborts at ``max_restarts``.  Under REPEAT
+after the first cycle, the first cycle's length is known from that read
+and is the loop's bound.  The hot operations run on hand-written kernels:
+the SpMV (K1 on DIA operators, K5 on sliced-ELL ones), the basis sweeps
+(K2, K3, K2x2; K7 for sequential MGS), the outer residual (K1 or K5 in
 residual mode) and the solution update (K4).  x is updated in place.
 
 Operators are staged as in the JAX package: DIA when the pattern is banded
@@ -47,12 +53,13 @@ import time
 import numpy as np
 import torch
 
-from gmres_tpu_torch.config import GmresConfig
+from gmres_tpu_torch.config import GmresConfig, RestartPolicy, use_lowsync_mgs
 from gmres_tpu_torch.ops.blas import nrm2
+from gmres_tpu_torch.ops.cuda.orth_kernel import gram
 from gmres_tpu_torch.ops.cuda.outer_kernel import basis_axpy, outer_residual
 from gmres_tpu_torch.ops.dia import from_csr
 from gmres_tpu_torch.ops.givens import accumulate_rotation, rotg
-from gmres_tpu_torch.ops.orth import orthonormalize_step
+from gmres_tpu_torch.ops.orth import mgs_lowsync_step, orthonormalize_step
 from gmres_tpu_torch.ops.reorder import permute_symmetric, rcm_permutation
 from gmres_tpu_torch.ops.sell import sell_from_csr
 from gmres_tpu_torch.ops.spmv import spmv
@@ -65,8 +72,13 @@ from gmres_tpu_torch.precond.build import (
 )
 from gmres_tpu_torch.solver.policies import (
     PolicyState,
+    cycle_steps,
+    cycle_threshold,
     initial_policy_state,
-    require_supported,
+    next_state,
+    orthloss_step,
+    residual_trigger,
+    with_first_length,
 )
 from gmres_tpu_torch.sparse import CSRMatrix
 
@@ -83,9 +95,13 @@ class CycleInfo:
     beta: float                  # preconditioned residual norm
     rel_initial: float           # r_norm / (||b|| + ||A||_F ||x||)
     prec_rel0: float             # beta / ||M^{-1} b||
-    k_final: int                 # inner iterations this cycle
-    arnoldi_final: torch.Tensor | float  # |s(k+1)| at cycle end (on device)
     pstate: PolicyState
+    # (k_final, |s(k+1)| at the cycle's end) as one fp64 (2,) tensor on the
+    # device, read with the next cycle's scalars; None when the inner loop
+    # did not run
+    tail: torch.Tensor | None = None
+    # the previous cycle's (k_final, |s(k+1)|), read with this cycle's scalars
+    prev_tail: tuple | None = None
 
 
 @dataclasses.dataclass
@@ -104,9 +120,13 @@ class GmresResult:
     diverged: bool = False
 
 
-def _inner_cycle(cfg: GmresConfig, A_in, M, w0: torch.Tensor, beta: torch.Tensor):
-    """The Arnoldi / Givens loop of one FIXED-policy cycle: m steps, no
-    host read.  Returns (V, H, Q, kdim, arn)."""
+def _inner_cycle(cfg: GmresConfig, A_in, M, w0: torch.Tensor, beta: torch.Tensor,
+                 steps: int, restart_tol: float, pstate: PolicyState, minvb_norm):
+    """The Arnoldi / Givens / policy loop of one cycle: ``steps`` steps (m,
+    or under REPEAT after the first cycle the first cycle's length), no host
+    read.  A policy trigger is kept on the device and cuts the cycle
+    afterwards (``gmres_tpu/solver/gmres.py:282-298``).  Returns
+    (V, H, Q, kdim, k_fin, arn)."""
     m = cfg.m
     in_dt = cfg.precision.inner_dtype
     dev = w0.device
@@ -119,9 +139,21 @@ def _inner_cycle(cfg: GmresConfig, A_in, M, w0: torch.Tensor, beta: torch.Tensor
     kdim = torch.zeros((), dtype=torch.int64, device=dev)
     bd = torch.zeros((), dtype=torch.bool, device=dev)
     arn = torch.zeros(m, dtype=_f64, device=dev)
-    for k in range(m):
+    # the first k+1 at which the policy fired, m while it has not
+    trig_k = torch.full((), m, dtype=torch.int64, device=dev)
+    lowsync = use_lowsync_mgs(cfg, dev.type)
+    # ICWY's strictly lower coupling matrix, in the basis dtype
+    L = torch.zeros((m + 1, m + 1), dtype=in_dt, device=dev) if lowsync else None
+    orthloss = cfg.policy == RestartPolicy.LOST_ORTHOGONALITY
+    S = torch.zeros((m + 1, m + 1), dtype=in_dt, device=dev) if orthloss else None
+    loss_sq = torch.zeros((), dtype=_f64, device=dev)
+    for k in range(steps):
         w = typesafe_apply(M, spmv(A_in, V[k]))
-        h_col, w, h_next = orthonormalize_step(cfg.orth.value, V, k, w, cfg.orth_steps)
+        if lowsync:
+            h_col, w, ss, L = mgs_lowsync_step(V, k, w, L)
+            h_next = torch.sqrt(ss)
+        else:
+            h_col, w, h_next = orthonormalize_step(cfg.orth.value, V, k, w, cfg.orth_steps)
         # the reference divides unconditionally (Orthogonalization.hpp:59);
         # a zero h(k+1,k) gives a zero vector instead of NaNs
         V[k + 1] = torch.where(h_next != 0, w / h_next, torch.zeros_like(w))
@@ -138,61 +170,108 @@ def _inner_cycle(cfg: GmresConfig, A_in, M, w0: torch.Tensor, beta: torch.Tensor
         kdim = torch.where(bd | (r_ == 0), kdim, k + 1)
         bd = bd | (h_next == 0) | (r_ == 0)
         H[:, k] = hhat
-        arn[k] = torch.abs(beta * Q[k + 1, 0]).to(_f64)
-    return V, H, Q, kdim, arn
+        arnoldi = torch.abs(beta * Q[k + 1, 0]).to(_f64)
+        arn[k] = arnoldi
+        # the restart policy (IterUtil.hpp check()), on the device
+        trigger = residual_trigger(cfg, pstate, arnoldi, minvb_norm, restart_tol)
+        if orthloss:
+            # <v_j, v_{k+1}> for j <= k: K2 over rows 0..k leaves row k+1 out
+            loss_sq = orthloss_step(S, k, gram(V, V[k + 1], k + 1), loss_sq)
+            lost = loss_sq >= cfg.restart_improvement ** 2
+            trigger = lost if trigger is None else trigger | lost
+        if trigger is not None:
+            trig_k = torch.where(trigger, torch.clamp(trig_k, max=k + 1), trig_k)
+    # the post-hoc trigger: the cycle ended at trig_k
+    k_fin = torch.clamp(trig_k, max=steps)
+    kdim = torch.minimum(kdim, trig_k)
+    return V, H, Q, kdim, k_fin, arn
 
 
 def restart_cycle(cfg: GmresConfig, A_out, A_in, M, b, x, b_norm, minvb_norm,
-                  a_norm, pstate: PolicyState):
-    """One outer iteration: the residual and the check_initial quantities
-    (the cycle's one host read), then unless converged the inner loop and
-    the in-place solution update.  Returns (x, CycleInfo)."""
+                  a_norm, pstate: PolicyState, pending: torch.Tensor | None = None):
+    """One outer iteration: the residual and the check_initial quantities,
+    read to the host together with ``pending`` (the previous cycle's
+    k_final and |s(k+1)|) in the cycle's one host read; then unless
+    converged the inner loop and the in-place solution update.  Returns
+    (x, CycleInfo)."""
     in_dt = cfg.precision.inner_dtype
-    m = cfg.m
     r, r_ss, x_ss = outer_residual(A_out, b, x, in_dt)
     w0 = typesafe_apply(M, r.to(in_dt))
     beta = nrm2(w0)
     r_norm = torch.sqrt(r_ss)
     rel_initial = r_norm / (b_norm + a_norm * torch.sqrt(x_ss))
     prec_rel0 = beta.to(_f64) / minvb_norm
-    rel, prec, beta_h, rn = torch.stack(
-        [rel_initial, prec_rel0, beta.to(_f64), r_norm]).tolist()
+    scalars = [rel_initial, prec_rel0, beta.to(_f64), r_norm]
+    if pending is None:
+        rel, prec, beta_h, rn = torch.stack(scalars).tolist()
+        prev = None
+    else:
+        rel, prec, beta_h, rn, k_prev, arn_prev = torch.cat(
+            [torch.stack(scalars), pending]).tolist()
+        prev = (int(k_prev), arn_prev)
+        pstate = with_first_length(pstate, prev[0])
     finite = all(v == v and abs(v) != float("inf") for v in (rel, beta_h))
     converged0 = rel <= cfg.tol
     if converged0 or not finite:
-        return x, CycleInfo(converged0, not finite, rn, beta_h, rel, prec, 0, 0.0, pstate)
+        return x, CycleInfo(converged0, not finite, rn, beta_h, rel, prec, pstate,
+                            prev_tail=prev)
 
-    V, H, Q, kdim, arn = _inner_cycle(cfg, A_in, M, w0, beta)
+    restart_tol = cycle_threshold(cfg, pstate, prec)
+    steps = cycle_steps(cfg, pstate)
+    V, H, Q, kdim, k_fin, arn = _inner_cycle(cfg, A_in, M, w0, beta, steps, restart_tol,
+                                             pstate, minvb_norm)
     # solution_update (gmres.cpp:276-303): y = H[:k,:k]^{-1} s[:k] with
-    # s = beta Q e1; x += V[:k]^T y promoted to the outer dtype
+    # s = beta Q e1 (kdim <= k_fin bounds it); x += V[:k]^T y promoted to
+    # the outer dtype
     s_fin = beta * Q[:, 0]
-    y = trsv_upper_padded(H[:m, :m], s_fin[:m], kdim)
+    y = trsv_upper_padded(H[:steps, :steps], s_fin[:steps], kdim)
     x = basis_axpy(x, V, y)
-    # FIXED: no policy threshold; the first cycle's length is recorded
-    new_pstate = pstate._replace(
-        is_first=False,
-        second_restart_length=m if pstate.is_first else pstate.second_restart_length)
-    return x, CycleInfo(False, False, rn, beta_h, rel, prec, m, arn[m - 1], new_pstate)
+    # |s(k+1)| at the (possibly post-hoc) cycle end: the recorded proxy,
+    # since rotations after the trigger have touched that row of Q
+    tail = torch.cat([k_fin.to(_f64).view(1), arn.gather(0, (k_fin - 1).view(1))])
+    return x, CycleInfo(False, False, rn, beta_h, rel, prec, next_state(pstate, restart_tol),
+                        tail=tail, prev_tail=prev)
 
 
 def drive_restarts(cycle, x, cfg: GmresConfig, record_history=False,
                    progress=None) -> GmresResult:
     """The host outer loop: the reference's ``check_initial`` bookkeeping
     (restart counting, abort, convergence; ``IterUtil.hpp:42-51``,
-    including the count-before-test quirk).  ``cycle(x, pstate)`` runs one
-    restart cycle and returns (x, CycleInfo)."""
+    including the count-before-test quirk).  ``cycle(x, pstate, pending)``
+    runs one restart cycle and returns (x, CycleInfo).
+
+    A cycle's length and final |s(k+1)| stay on the device until the next
+    cycle's read, so the host reads once per cycle (plus once after the
+    last cycle when the solve aborts at ``max_restarts``); a cycle's
+    bookkeeping (iteration count, history, ``progress``) is done when they
+    arrive."""
     pstate = initial_policy_state()
     history = [] if record_history else None
-    arnoldi = []  # device scalars, read back in one transfer at the end
     total_iters = 0
     converged = aborted = diverged = False
     rel_prec_res = float("nan")
+    last = None  # (i, CycleInfo) of the cycle whose tail is still on the device
+
+    def settle(tail):
+        nonlocal total_iters
+        i_prev, info_prev = last
+        k, arn = tail
+        total_iters += k
+        if record_history:
+            history.append(dict(i=i_prev, k=k, rel_initial=info_prev.rel_initial,
+                                prec_rel0=info_prev.prec_rel0, arnoldi_final=arn))
+        if progress is not None:
+            progress(i_prev, k, info_prev.rel_initial)
+
     i = 0
     while True:
         if i + 1 > cfg.max_restarts:
             aborted = True
             break
-        x, info = cycle(x, pstate)
+        x, info = cycle(x, pstate, None if last is None else last[1].tail)
+        if last is not None:
+            settle(info.prev_tail)
+            last = None
         pstate = info.pstate
         if info.diverged:
             diverged = aborted = True
@@ -204,17 +283,11 @@ def drive_restarts(cycle, x, cfg: GmresConfig, record_history=False,
                 history.append(dict(i=i, k=0, rel_initial=info.rel_initial,
                                     prec_rel0=info.prec_rel0))
             break
-        total_iters += info.k_final
-        if record_history:
-            arnoldi.append(info.arnoldi_final)
-            history.append(dict(i=i, k=info.k_final, rel_initial=info.rel_initial,
-                                prec_rel0=info.prec_rel0))
-        if progress is not None:
-            progress(i, info.k_final, info.rel_initial)
+        last = (i, info)
         i += 1
-    if arnoldi:
-        for h, a in zip(history, torch.stack(arnoldi).tolist()):
-            h["arnoldi_final"] = a
+    if last is not None:
+        k, arn = last[1].tail.tolist()
+        settle((int(k), arn))
     return GmresResult(x=x, converged=converged, aborted=aborted,
                        total_iters=total_iters, restarts=i, final_k=0,
                        rel_prec_res=rel_prec_res, history=history,
@@ -248,9 +321,6 @@ def _require_supported(cfg: GmresConfig) -> None:
             "the df64, compressed-basis and bf16 precision tiers are slice 5 of the port")
     if cfg.nan_fallback:
         raise NotImplementedError("nan_fallback is slice 5 of the port")
-    if cfg.orth.value == "mgs":
-        raise NotImplementedError("orth='mgs' is slice 4 of the port")
-    require_supported(cfg.policy)
     if cfg.axis_name is not None:
         raise NotImplementedError("distributed solves (axis_name) are slice 7 of the port")
 
@@ -356,9 +426,9 @@ def solve(A, b, cfg: GmresConfig | None = None, x0=None, M=None,
     a_norm = nrm2(A_in.vals).to(_f64)
     setup_seconds = time.perf_counter() - t0
 
-    def cycle(x, pstate):
+    def cycle(x, pstate, pending):
         return restart_cycle(cfg, A_out, A_in, M, b, x, b_norm, minvb_norm,
-                             a_norm, pstate)
+                             a_norm, pstate, pending)
 
     result = drive_restarts(cycle, x, cfg, record_history, progress)
     if dev.type == "cuda":

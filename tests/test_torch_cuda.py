@@ -1,8 +1,9 @@
-"""Kernels K1-K6 on the card against their plain PyTorch versions, at small
-and ragged sizes (n not a multiple of the block, tile, slice or segment;
-empty rows; a long row; n_cols != n_rows; one-sided factors; identity tail
-segments), and small DIA, SELL and ILU solves on the card against the same
-solves on the CPU.
+"""Kernels K1-K7 and K2x2 on the card against their plain PyTorch versions,
+at small and ragged sizes (n not a multiple of the block, tile, slice or
+segment; n below one tile; empty rows; a long row; n_cols != n_rows;
+one-sided factors; identity tail segments; rows < m+1), K7 bit for bit
+across grid sizes and forms, and small DIA, SELL, ILU and MGS solves on the
+card against the same solves on the CPU.
 
 These need an NVIDIA GPU with the CUDA toolkit: they carry the ``cuda``
 marker and skip elsewhere.  On the card:
@@ -19,6 +20,7 @@ import torch
 import gmres_tpu_torch
 from gmres_tpu_torch.io.synth import convection_diffusion_2d, random_sparse, unstructured_mesh
 from gmres_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+from gmres_tpu_torch.ops.cuda import mgs_kernel as mk
 from gmres_tpu_torch.ops.cuda import orth_kernel as ok
 from gmres_tpu_torch.ops.cuda import outer_kernel as ou
 from gmres_tpu_torch.ops.cuda import sell_kernel as sl
@@ -86,6 +88,61 @@ def test_basis_sweeps(dt, n, rows):
     _close(ou.basis_axpy_cuda(x.clone(), V, y), ou.basis_axpy_plain(x.clone(), V, y), dt)
 
 
+def _basis(dt, n, rows, m1=31, seed=0):
+    """V (m1, n) with its first `rows` rows orthonormal and the rest zero,
+    and a vector w, on the card."""
+    rng = np.random.default_rng(seed + n + rows)
+    V = torch.zeros((m1, n), dtype=dt, device="cuda")
+    q = np.linalg.qr(rng.standard_normal((n, rows)))[0].T
+    V[:rows] = torch.tensor(q, dtype=dt, device="cuda")
+    w = torch.tensor(rng.standard_normal(n), dtype=dt, device="cuda")
+    return V, w
+
+
+@DTYPES
+@pytest.mark.parametrize("n,rows", [(700, 5), (1024, 31), (5000, 1), (5000, 7), (70001, 16)])
+def test_gram2_and_plain_update(dt, n, rows):
+    # n below one tile (700), exactly one (1024), ragged (5000, 70001)
+    V, w = _basis(dt, n, rows)
+    w1 = torch.roll(w, 3)
+    for got, want in zip(ok.gram2_cuda(V, w, w1, rows), ok.gram2_plain(V, w, w1, rows)):
+        _close(got, want, dt)
+        assert not got[rows:].any()
+    u = torch.zeros(31, dtype=dt, device="cuda")
+    u[:rows] = torch.arange(1, rows + 1, dtype=dt, device="cuda") / rows
+    _close(ok.update_cuda(V, w, u, rows), ok.update_plain(V, w, u, rows), dt)
+
+
+@DTYPES
+@pytest.mark.parametrize("n,rows", [(700, 5), (1024, 31), (5000, 1), (5000, 7), (70001, 16),
+                                    (300_001, 31)])
+def test_mgs_kernel(dt, n, rows):
+    V, w = _basis(dt, n, rows)
+    got = mk.mgs_cuda(V, w, rows)
+    want = mk.mgs_plain(V, w, rows)
+    for g, p in zip(got, want):
+        _close(g, p, dt)
+    assert not got[0][rows:].any()
+    # w' is orthogonal to the live rows
+    assert float((V[:rows] @ got[1]).abs().max()) <= TOL[dt] * 10 * float(got[2])
+
+
+@DTYPES
+def test_mgs_kernel_bit_equal_across_grids_and_forms(dt):
+    # 294 tiles: one block per SM holds 4 tiles a block (74 blocks), the
+    # resident grid 1 a block (294 blocks); the L2 form keeps w in memory
+    V, w = _basis(dt, 300_001, 31, seed=1)
+    runs = []
+    for per_sm, tiles_max in ((1, 8), (0, 8), (2, 8), (0, 0), (1, 0)):
+        runs.append((mk.mgs_cuda(V, w, 31, blocks_per_sm=per_sm, max_register_tiles=tiles_max),
+                     mk.mgs_cuda.grid))
+    grids = {g for _, g in runs}
+    assert len(grids) >= 4, grids
+    ref = runs[0][0]
+    for out, grid in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(out, ref)), grid
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     V = torch.zeros((4, 100), device="cuda")
     with pytest.raises(ValueError):
@@ -96,6 +153,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         ok.gram_cuda(V, torch.zeros(200, device="cuda")[::2], 2)
     with pytest.raises(ValueError):
         ok.gram_cuda(V, torch.zeros(100, device="cuda"), 5)
+    with pytest.raises(ValueError):
+        mk.mgs_cuda(V, torch.zeros(100, device="cuda"), 5)
+    with pytest.raises(TypeError):
+        mk.mgs_cuda(V.half(), torch.zeros(100, device="cuda").half(), 2)
+    with pytest.raises(ValueError):
+        ok.gram2_cuda(V, torch.zeros(100, device="cuda"), torch.zeros(99, device="cuda"), 2)
 
 
 def _sell_case(case):
@@ -157,13 +220,15 @@ def test_sell_wrappers_refuse_what_the_kernel_does_not_take():
 
 PATH_KERNELS = {"dia": {"dia_spmv", "dia_residual"}, "sell": {"sell_spmv", "sell_residual"}}
 ILU_KERNELS = {"ilu_trisolve_fused", "ilu_trisolve_segmented"}
+MGS_KERNELS = {"basis_mgs", "basis_gram2", "basis_update"}  # MGS and orth_steps != 2 only
 
 
 @pytest.mark.parametrize("fmt", ["dia", "sell"])
 @pytest.mark.parametrize("mode", ["baseline", "mixed"])
 def test_solve_on_card_matches_cpu(mode, fmt):
     # each path launches its own SpMV kernels and the shared sweeps, and
-    # not the other path's SpMV kernels nor, with no preconditioner, K6
+    # not the other path's SpMV kernels nor, with no preconditioner, K6, nor
+    # under CGSR the MGS kernels
     A = convection_diffusion_2d(32, beta=2.0) if fmt == "dia" else unstructured_mesh(4096, run=8)
     x_true = gmres_tpu_torch.rand_vect(A.n_rows, 42)
     b = A.to_scipy() @ x_true
@@ -174,7 +239,7 @@ def test_solve_on_card_matches_cpu(mode, fmt):
     reset_launch_counts()
     res = gmres_tpu_torch.solve(A, b, cfg)
     counts = launch_counts()
-    other = PATH_KERNELS["sell" if fmt == "dia" else "dia"] | ILU_KERNELS
+    other = PATH_KERNELS["sell" if fmt == "dia" else "dia"] | ILU_KERNELS | MGS_KERNELS
     assert all(counts[k] > 0 for k in counts if k not in other), counts
     assert all(counts[k] == 0 for k in other), counts
     ref = gmres_tpu_torch.solve(A, b, cfg, device="cpu")
@@ -312,3 +377,51 @@ def test_ilu_solve_on_card_matches_cpu(mode, precond):
     backward = np.linalg.norm(b - A.to_scipy() @ x) / (
         np.linalg.norm(b) + np.linalg.norm(A.vals.numpy()) * np.linalg.norm(x))
     assert backward <= 1e-8
+
+
+@pytest.mark.parametrize("lowsync", [False, True])
+@pytest.mark.parametrize("mode", ["baseline", "mixed"])
+def test_mgs_solve_on_card_matches_cpu(mode, lowsync):
+    # sequential MGS through K7 alone, ICWY through K2x2 and K3 SUMSQ;
+    # neither launches K2, the other form's kernels or K3 plain
+    A = convection_diffusion_2d(32, beta=2.0)
+    x_true = gmres_tpu_torch.rand_vect(A.n_rows, 42)
+    b = A.to_scipy() @ x_true
+    cfg = gmres_tpu_torch.GmresConfig(
+        precision=gmres_tpu_torch.PrecisionSpec.from_mode(mode), orth="mgs",
+        low_sync_mgs=lowsync, precond="identity", restart_length=30, tol=1e-8,
+        max_restarts=80)
+    reset_launch_counts()
+    res = gmres_tpu_torch.solve(A, b, cfg)
+    counts = launch_counts()
+    assert counts["basis_mgs"] == (0 if lowsync else res.total_iters), counts
+    assert (counts["basis_gram2"] > 0) == lowsync, counts
+    assert counts["basis_update_sumsq"] == (counts["basis_gram2"] if lowsync else 0), counts
+    assert counts["basis_gram"] == counts["basis_update"] == 0, counts
+    ref = gmres_tpu_torch.solve(A, b, cfg, device="cpu")
+    assert res.x.is_cuda and res.converged
+    assert (res.restarts, res.total_iters) == (ref.restarts, ref.total_iters)
+    xr = ref.x.numpy()
+    tol = 1e-9 if mode == "baseline" else 1e-5
+    assert np.linalg.norm(res.x.cpu().numpy() - xr) / np.linalg.norm(xr) <= tol
+
+
+@pytest.mark.parametrize("kw", [dict(policy="relres", restart_improvement=1e-2),
+                                dict(policy="repeat", restart_improvement=1e-2),
+                                dict(policy="orthloss", restart_improvement=1e-2),
+                                dict(orth_steps=3)])
+def test_policy_solve_on_card_matches_cpu(kw):
+    A = convection_diffusion_2d(32, beta=2.0)
+    x_true = gmres_tpu_torch.rand_vect(A.n_rows, 42)
+    b = A.to_scipy() @ x_true
+    cfg = gmres_tpu_torch.GmresConfig(
+        precision=gmres_tpu_torch.PrecisionSpec.from_mode("mixed"), orth="cgsr",
+        precond="identity", restart_length=30, tol=1e-8, max_restarts=80, **kw)
+    reset_launch_counts()
+    res = gmres_tpu_torch.solve(A, b, cfg, record_history=True)
+    counts = launch_counts()
+    assert (counts["basis_update"] > 0) == ("orth_steps" in kw), counts
+    ref = gmres_tpu_torch.solve(A, b, cfg, device="cpu", record_history=True)
+    assert [h["k"] for h in res.history] == [h["k"] for h in ref.history]
+    assert (res.converged, res.restarts, res.total_iters) == (ref.converged, ref.restarts,
+                                                              ref.total_iters)

@@ -44,6 +44,9 @@ def _imported_roots(path: Path):
 
 def test_port_never_imports_jax_or_gmres_tpu():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    names = {p.relative_to(REPO).as_posix() for p in files}
+    assert {"gmres_tpu_torch/ops/cuda/mgs_kernel.py", "gmres_tpu_torch/ops/orth.py",
+            "gmres_tpu_torch/solver/policies.py"} <= names
     assert len(files) > 15
     for path in files:
         for name in _imported_roots(path):
@@ -170,10 +173,12 @@ def test_solve_on_cuda_never_falls_back_to_cpu():
 
 
 @pytest.mark.parametrize("cfg", [
-    dict(orth="mgs", precond="identity"),
+    dict(orth="cgsr", precond="identity", nan_fallback=True),
     dict(orth="cgsr", precond="bilu_jacobi"),
-    dict(orth="cgsr", precond="identity", policy="orthloss"),
-    dict(orth="cgsr", precond="identity", policy="relres"),
+    dict(orth="mgs", precond="identity",
+         precision=gmres_tpu_torch.PrecisionSpec("float64", "float32", "float32",
+                                                 basis="bfloat16")),
+    dict(orth="cgsr", precond="identity", axis_name="x"),
     dict(orth="cgsr", precond="identity",
          precision=gmres_tpu_torch.PrecisionSpec.from_mode("df64")),
     dict(orth="cgsr", precond="identity",

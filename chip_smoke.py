@@ -28,7 +28,15 @@ CGSR unless said otherwise, restart length 30, tol 1e-8):
    (K2x2 and K3 SUMSQ) in both modes (the reference's 26/780), and in mixed
    CGSR under the relres (787), orthloss (780, K2 in the loss recurrence)
    and repeat policies (the reference aborts at 80 restarts of 7
-   iterations) and CGSR with ``orth_steps=3`` (K3 plain mode).
+   iterations) and CGSR with ``orth_steps=3`` (K3 plain mode);
+5. the df64 path (convdiff-df64): the same convdiff@1M operator in mode
+   ``df64`` (the inner loop on (hi, lo) fp32 pairs), identity
+   preconditioner: CGSR (the reference's 26/780), CGS, and MGS sequential
+   and ICWY (the reference's 26/780 for MGS), through K8 (pair DIA SpMV),
+   K9-K11 (pair sweeps) and K4's pair mode, timed interleaved with the
+   baseline CGSR solve; then two small phases on the card: the NaN fp64
+   fallback (the n = 32 overflow matrix of tests/test_aux.py, mixed) and a
+   checkpointed mixed CGSR solve aborted at 12 restarts and resumed.
 
 Before each path's solves it holds each of the path's kernels against its
 plain PyTorch version at the path's shapes (fp32 and fp64; a 31-row Krylov
@@ -38,17 +46,18 @@ cooperative kernels K6 and K7 its grid barriers times one measured empty
 barrier of the same grid) and, where one PyTorch call computes the same
 function, that call's time.  Each path's launch counts are reset just
 before its solves and read just after: the path's own kernels must launch,
-the other paths' SpMV kernels, (without ILU) K6 and (without MGS, a policy
-or orth_steps != 2) the MGS kernels must not.  Any failed check raises
-and the script exits non-zero; without a CUDA device it exits non-zero at
-once.  Each phase prints its seconds.
+the other paths' SpMV kernels, (without ILU) K6, (without MGS, a policy
+or orth_steps != 2) the MGS kernels and (outside the df64 path) K8-K11
+must not; on the df64 path K1's plain mode, K2, K3, K2x2 and K7 must not.
+Any failed check raises and the script exits non-zero; without a CUDA
+device it exits non-zero at once.  Each phase prints its seconds.
 
 Output: the card's name and power limit, versions, build time, per-kernel
 error, timing and bound lines, per-path build/stage and per-mode solve
-lines, K7's grid-size table and the sequential-vs-ICWY MGS walls; then one
-JSON line with the 13 kernels (launch counts from the solves, measured
-errors and times, bounds, one-call times); then the last line
-``{"ok": true, "device": {...}}``.
+lines, K7's grid-size table and the sequential-vs-ICWY MGS walls, the
+df64 step and solve walls; then one JSON line with the 17 kernels (launch
+counts from the solves, measured errors and times, bounds, one-call times);
+then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -101,14 +110,29 @@ MGS_HISTORY = (26, 780)
 POLICY_ITERS = {"relres": 787, "orthloss": 780}
 REPEAT_HISTORY = (80, 560, 7)
 MGS_KERNELS = ("basis_mgs", "basis_gram2", "basis_update")
+DF64_KERNELS = ("dia_spmv_df64", "df_gram", "df_update_gram", "df_update_sumsq")
+# the kernels a df64 solve on DIA must not launch: K1 plain mode, K2, K3
+# (every mode), K2x2, K7
+DF64_IDLE = ("dia_spmv", "basis_gram", "basis_update_gram", "basis_update_sumsq",
+             "basis_update", "basis_gram2", "basis_mgs")
 # published peaks of one H100 SXM outside the tensor cores (NVIDIA's data
-# sheet, 700 W): the operations term of a kernel's bound
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# sheet, 700 W): the operations term of a kernel's bound.  "df64": the
+# error-free-transform chains are fp32 adds and multiplies, not FMAs, so
+# they are counted as instructions against half the 67 TFLOP/s FMA peak.
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "df64": 33.5e12}
+# fp32 instructions of a pair product plus a pair sum (df64.cuh: df_mul 10,
+# df_add 11, rounded to 20), per (row, column) and sweep
+DF_OPS = 20
 SYNC_PROBE = 2000      # barriers per timed empty cooperative launch
 # Kernel vs plain tolerance, relative to the same computation on absolute
 # values (the scale of the standard summation error bound): the two sum in
 # different orders (per-block partials, FMA contraction) over up to n terms.
-TOL_REL = {"float32": 1e-5, "float64": 1e-13}
+# A double-float pair carries ~2^-48; its sums are held to 2^-46.
+TOL_REL = {"float32": 1e-5, "float64": 1e-13, "df64": 2.0 ** -46}
+# the df64 path: the reference's CGSR df64 history at convdiff@1M
+# (results/round4/bench_df64.txt:7) and MGS (results/round5/bench_mgs_seq.txt)
+DF64_HISTORY = (26, 780)
+DF64_WALL_REPS = 3     # interleaved timed solves per form
 
 
 def log(*a):
@@ -460,7 +484,7 @@ def run_main_path(torch, label, A_csr, A_dev, expect):
     from gmres_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     other = {k for path, ks in PATH_KERNELS.items() if path != label for k in ks}
-    other |= set(ILU_KERNELS) | set(MGS_KERNELS)
+    other |= set(ILU_KERNELS) | set(MGS_KERNELS) | set(DF64_KERNELS)
     walls = {}
     reset_launch_counts()
     for mode in ("baseline", "mixed"):
@@ -953,6 +977,252 @@ def convdiff_mgs_path(torch, record, A, A_dev, copy_gbs):
     return counts
 
 
+def df64_pair_basis(torch, n, seed):
+    """The 31-row basis of mgs_basis as fp32 pairs, w as a pair, u in fp64;
+    with V and w in fp64 for the tolerance scales."""
+    from gmres_tpu_torch.ops.eft import split_f64
+
+    V, w, u = mgs_basis(torch, n, torch.float64, seed)
+    return (*split_f64(V), *split_f64(w), u, V, w)
+
+
+def check_df64_kernels(torch, A_csr, record):
+    """K8, K9-K11 (rows 31 and 16 of a 31-row basis) and K4's pair mode
+    (30 rows) against their plain versions at convdiff@1M's shapes.  K8 and
+    the updated pair of K10/K11 must equal the plain versions bit for bit;
+    the sums over n are held to 2^-46 of the terms' magnitudes.  No single
+    PyTorch call computes any of them."""
+    from gmres_tpu_torch.ops.cuda import df64_orth_kernel as dk
+    from gmres_tpu_torch.ops.cuda import df64_spmv_kernel as ds
+    from gmres_tpu_torch.ops.cuda import outer_kernel as ou
+    from gmres_tpu_torch.ops.cuda import spmv_kernel as sk
+    from gmres_tpu_torch.ops.dia import DF64Dia, from_csr
+    from gmres_tpu_torch.ops.eft import merge_f64, split_f64
+
+    timer = Timer(torch)
+    dia = from_csr(A_csr).to("cuda")
+    n, D = dia.n_rows, len(dia.offsets)
+    P = DF64Dia.from_dia(dia)
+    dh, dl, offs = P.data_hi, P.data_lo, P.offsets
+    x64 = torch.tensor(np.random.default_rng(6).standard_normal(n), device="cuda")
+    xh, xl = split_f64(x64)
+    got = ds.dia_spmv_df64_cuda(dh, dl, offs, xh, xl)
+    want = ds.dia_spmv_df64_plain(dh, dl, offs, xh, xl)
+    bit = all(torch.equal(g, w_) for g, w_ in zip(got, want))
+    err, bound, ok = compare("df64", [merge_f64(*got)], [merge_f64(*want)],
+                             [sk.dia_spmv_plain(dia.data.abs(), offs, x64.abs())])
+    log(f"  dia_spmv_df64: bit-equal to the plain version: {bit}")
+    record("dia_spmv_df64", "df64", err, bound, ok and bit,
+           timer(lambda: ds.dia_spmv_df64_cuda(dh, dl, offs, xh, xl)),
+           timer(lambda: ds.dia_spmv_df64_plain(dh, dl, offs, xh, xl), 5),
+           (2 * D + 4) * 4 * n, DF_OPS * D * n)
+    del dia, P, dh, dl, got, want
+
+    Vh, Vl, wh, wl, u, V, w = df64_pair_basis(torch, n, 7)
+    absV, absw = V.abs(), w.abs()
+    m1 = RLEN + 1
+    for rows in (m1, MID_ROWS):
+        key = "df64" if rows == m1 else f"df64 rows {rows}"
+        ur = u.clone()
+        ur[rows:] = 0
+        sw = absw + ur.abs() @ absV
+        record("df_gram", "df64",
+               *compare("df64", [dk.df_gram_cuda(Vh, Vl, wh, wl, rows)],
+                        [dk.df_gram_plain(Vh, Vl, wh, wl, rows)], [absV @ absw]),
+               timer(lambda: dk.df_gram_cuda(Vh, Vl, wh, wl, rows)),
+               timer(lambda: dk.df_gram_plain(Vh, Vl, wh, wl, rows), 5),
+               (2 * rows + 2) * 4 * n, DF_OPS * rows * n, key=key)
+        for kname, scale, ops in (("df_update_gram", absV @ sw, 2 * DF_OPS * rows * n),
+                                  ("df_update_sumsq", (sw * sw).sum(),
+                                   DF_OPS * (rows + 1) * n)):
+            fn_cuda, fn_plain = getattr(dk, kname + "_cuda"), getattr(dk, kname + "_plain")
+            gh, gl, gs = fn_cuda(Vh, Vl, wh, wl, ur, rows)
+            ph, pl, ps = fn_plain(Vh, Vl, wh, wl, ur, rows)
+            bit = torch.equal(gh, ph) and torch.equal(gl, pl)
+            log(f"  {kname} {key}: updated pair bit-equal to the plain version: {bit}")
+            err, bound, ok = compare_each("df64", [gs], [ps], [scale])
+            record(kname, "df64", err, bound, ok and bit,
+                   timer(lambda: fn_cuda(Vh, Vl, wh, wl, ur, rows)),
+                   timer(lambda: fn_plain(Vh, Vl, wh, wl, ur, rows), 5),
+                   (2 * rows + 4) * 4 * n, ops, key=key)
+    # K4 pair mode: x (fp64) += y^T (Vh + Vl)[:30], summed in fp64
+    y = u[:RLEN].contiguous()
+    x0 = torch.tensor(np.random.default_rng(8).random(n), device="cuda")
+    got = ou.basis_axpy_pair_cuda(x0.clone(), Vh, Vl, y)
+    want = ou.basis_axpy_pair_plain(x0.clone(), Vh, Vl, y)
+    xk, xp = x0.clone(), x0.clone()
+    record("basis_axpy", "float64",
+           *compare("float64", [got], [want], [x0.abs() + y.abs() @ absV[:RLEN]]),
+           timer(lambda: ou.basis_axpy_pair_cuda(xk, Vh, Vl, y)),
+           timer(lambda: ou.basis_axpy_pair_plain(xp, Vh, Vl, y)), 2 * RLEN * 4 * n + 16 * n,
+           3 * RLEN * n, key="pair")
+    torch.cuda.synchronize()
+    del Vh, Vl, wh, wl, u, V, w, absV, got, want
+    record.require_ok()
+
+
+def df64_step_walls(torch, n):
+    """Host wall per df64 orthogonalization step (k = 0..29 in turn, median
+    of 5 sweeps, ending in a device sync) of sequential MGS (a one-row K9
+    and K11 per row), ICWY (two K9, an fp64 solve, K11) and CGSR (K9, K10,
+    K11)."""
+    from gmres_tpu_torch.ops import df64
+
+    Vh, Vl, wh, wl, _, _, _ = df64_pair_basis(torch, n, 9)
+    L = torch.zeros((RLEN + 1, RLEN + 1), dtype=torch.float64, device="cuda")
+    forms = {
+        "sequential": lambda k: df64.df_orthonormalize_step("mgs", Vh, Vl, k, wh, wl),
+        "icwy": lambda k: df64.df_mgs_lowsync_step(Vh, Vl, k, wh, wl, L),
+        "cgsr": lambda k: df64.df_orthonormalize_step("cgsr", Vh, Vl, k, wh, wl)}
+    out = {}
+    for form, step in forms.items():
+        def sweep():
+            for k in range(RLEN):
+                step(k)
+        sweep()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            sweep()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[form] = statistics.median(times) / RLEN * 1e3
+    log("df64 orthogonalization step wall (mean over k = 0..29): "
+        + ", ".join(f"{f} {v:.4f} ms" for f, v in out.items()))
+    return out
+
+
+def df64_solve_walls(torch, A, A_dev):
+    """Walls of whole df64 solves (CGSR, CGS, MGS sequential and ICWY) and
+    of the baseline CGSR solve, interleaved (the order reversed every other
+    round): the df64/baseline ratio and the evidence behind the
+    low_sync_mgs=None rule of df64 cycles on the card."""
+    from gmres_tpu_torch import rand_vect, solve
+
+    n = A.n_rows
+    b = torch.tensor(-csr_residual(A, rand_vect(n, 42), np.zeros(n)), device="cuda")
+    cfgs = {"baseline cgsr": config("baseline", "identity"),
+            "df64 cgsr": config("df64", "identity"),
+            "df64 cgs": config("df64", "identity", orth="cgs"),
+            "df64 mgs sequential": config("df64", "identity", orth="mgs", low_sync_mgs=False),
+            "df64 mgs icwy": config("df64", "identity", orth="mgs", low_sync_mgs=True)}
+    walls = {f: [] for f in cfgs}
+    for cfg in cfgs.values():
+        solve(A_dev, b, cfg)  # warm-up
+    for rep in range(DF64_WALL_REPS):
+        for f in (list(cfgs) if rep % 2 == 0 else list(cfgs)[::-1]):
+            t0 = time.perf_counter()
+            solve(A_dev, b, cfgs[f])
+            torch.cuda.synchronize()
+            walls[f].append(time.perf_counter() - t0)
+    med = {f: statistics.median(v) for f, v in walls.items()}
+    log(f"solve walls df64 path (s, {DF64_WALL_REPS} interleaved each): "
+        + "; ".join(f"{f} median {med[f]:.4f} min {min(v):.4f} max {max(v):.4f}"
+                    for f, v in walls.items()))
+    log(f"df64/baseline wall ratio (CGSR): {med['df64 cgsr'] / med['baseline cgsr']:.4f}; "
+        f"df64 icwy/sequential {med['df64 mgs icwy'] / med['df64 mgs sequential']:.4f}")
+    return med
+
+
+def nan_fallback_phase(torch):
+    """The overflow matrix of tests/test_aux.py:65-85 (n = 32, diagonal
+    3e38, CSR) in mixed with nan_fallback: the fp32 inner loop overflows,
+    the solve is repeated in baseline on the card."""
+    from gmres_tpu_torch import GmresConfig, PrecisionSpec, solve
+    from gmres_tpu_torch.sparse import csr_from_coo
+
+    n, big = 32, 3e38
+    rows = np.arange(n)
+    A = csr_from_coo(rows, rows, np.full(n, big), n_rows=n)
+    cfg = GmresConfig(precision=PrecisionSpec.from_mode("mixed"), precond="identity",
+                      restart_length=5, tol=1e-10, max_restarts=50, nan_fallback=True,
+                      auto_format=False)
+    res = solve(A, np.ones(n), cfg)
+    x = res.x.cpu().numpy()
+    err = float(np.abs(x * big - 1.0).max())
+    log(f"nan fallback: converged={res.converged} fellback_to_fp64={res.fellback_to_fp64} "
+        f"restarts={res.restarts} x on {res.x.device}, max |x big - 1| = {err:.3e}")
+    require(res.converged and res.fellback_to_fp64 and res.x.is_cuda,
+            "nan fallback: converged in fp64 on the card")
+    require(err <= cfg.tol * (1 + np.sqrt(n)), "nan fallback: x = 1/big to the tolerance")
+
+
+def checkpoint_phase(torch, A, A_dev):
+    """A mixed CGSR solve at convdiff@1M with CheckpointSpec(every=10) to a
+    file under build/: aborted at max_restarts=12 (saved at 10), resumed to
+    the uninterrupted solve's restarts, x within 1e-12 of it."""
+    import tempfile
+
+    from gmres_tpu_torch import rand_vect, solve
+    from gmres_tpu_torch.ops.cuda._build import BUILD_ROOT
+    from gmres_tpu_torch.utils.checkpoint import CheckpointSpec, load
+
+    n = A.n_rows
+    b = torch.tensor(-csr_residual(A, rand_vect(n, 42), np.zeros(n)), device="cuda")
+    cfg = config("mixed", "identity")
+    full = solve(A_dev, b, cfg)
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
+        ck = CheckpointSpec(path=os.path.join(tmp, "convdiff.ckpt"), every=10)
+        part = solve(A_dev, b, cfg.with_(max_restarts=12), checkpoint=ck)
+        saved = load(ck.path)
+        res = solve(A_dev, b, cfg, checkpoint=ck)
+    diff = float((res.x - full.x).norm() / full.x.norm())
+    log(f"checkpoint: aborted={part.aborted} at {part.restarts}, file at restart {saved[1]} "
+        f"({saved[2]} iterations); resumed {res.restarts}/{res.total_iters} against "
+        f"{full.restarts}/{full.total_iters} uninterrupted, x rel diff {diff:.3e}")
+    require(part.aborted and part.restarts == 12 and saved[1] == 10,
+            "checkpoint: aborted at 12, file written at 10")
+    require(res.converged and (res.restarts, res.total_iters) == (full.restarts,
+                                                                  full.total_iters)
+            and full.restarts == DF64_HISTORY[0] and diff <= 1e-12,
+            "checkpoint: the resumed solve ends as the uninterrupted one")
+
+
+def convdiff_df64_path(torch, record, A, A_dev):
+    """The df64 tier at convdiff@1M on the staged DIA operator: kernel
+    checks, CGSR, CGS and MGS (sequential and ICWY) solves with their launch
+    counts, step and solve walls, then the NaN-fallback and checkpoint
+    phases; returns the launch counts of the df64 solves."""
+    from gmres_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    check_df64_kernels(torch, A, record)
+    reset_launch_counts()
+    for label, kw, converges in (("cgsr", {}, True), ("cgs", dict(orth="cgs"), True),
+                                 ("mgs sequential", dict(orth="mgs", low_sync_mgs=False), True),
+                                 ("mgs icwy", dict(orth="mgs", low_sync_mgs=True), True)):
+        before = launch_counts()
+        res, _ = solve_timed(torch, f"convdiff-df64 {label}", "df64", A, A_dev,
+                             config("df64", "identity", **kw), 1, history=True,
+                             converges=converges)
+        after = launch_counts()
+        c = {k: after[k] - before[k] for k in after}
+        log(f"  launches {label} df64: {c}")
+        if label != "cgs":
+            want = DF64_HISTORY
+            log(f"  vs the reference's {want[0]}/{want[1]}: restarts "
+                f"{res.restarts - want[0]:+d}")
+            require(abs(res.restarts - want[0]) <= 1,
+                    f"df64 {label}: {res.restarts}/{res.total_iters} not within one restart "
+                    f"of {want[0]}/{want[1]}")
+        require(c["dia_spmv_df64"] == 2 * res.total_iters and c["df_gram"] > 0
+                and c["df_update_sumsq"] > 0 and c["dia_residual"] > 0
+                and c["basis_axpy"] > 0,
+                f"df64 {label}: K8 once a step, K9, K11, K1 residual and K4 pair launched ({c})")
+        require((c["df_update_gram"] > 0) == (label == "cgsr"),
+                f"df64 {label}: K10 in CGSR only ({c})")
+        require(all(c[k] == 0 for k in DF64_IDLE + PATH_KERNELS["mesh3d"] + ILU_KERNELS),
+                f"df64 {label}: no K1 plain mode, K2, K3, K2x2, K7, K5 nor K6 ({c})")
+    counts = launch_counts()
+    log(f"  launches convdiff-df64: {counts}")
+    df64_step_walls(torch, A.n_rows)
+    df64_solve_walls(torch, A, A_dev)
+    nan_fallback_phase(torch)
+    checkpoint_phase(torch, A, A_dev)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -996,9 +1266,15 @@ def main() -> int:
     ilu_counts = convdiff_ilu_path(torch, record, A, A_dev)
     t3 = time.perf_counter()
     mgs_counts = convdiff_mgs_path(torch, record, A, A_dev, copy_gbs)
+    t4 = time.perf_counter()
+    df64_counts = convdiff_df64_path(torch, record, A, A_dev)
     log(f"path seconds: convdiff {t1 - t0:.1f}, mesh3d {t2 - t1:.1f}, "
-        f"convdiff-ilu {t3 - t2:.1f}, convdiff-mgs {time.perf_counter() - t3:.1f}")
+        f"convdiff-ilu {t3 - t2:.1f}, convdiff-mgs {t4 - t3:.1f}, "
+        f"convdiff-df64 {time.perf_counter() - t4:.1f}")
     path_counts = (convdiff_counts, mesh3d_counts, ilu_counts, mgs_counts)
+    require(all(c[k] == 0 for c in path_counts for k in DF64_KERNELS),
+            f"K8-K11 launched on the df64 path only ({path_counts})")
+    path_counts += (df64_counts,)
     counts = {k: sum(c[k] for c in path_counts) for k in kernel_wrappers()}
     require(all(v > 0 for v in counts.values()), f"every kernel launched on some path ({counts})")
     records = record.records
@@ -1006,8 +1282,9 @@ def main() -> int:
     # kernel -> (source, the TPU kernels' pallas_calls it replaces); the
     # JSON numbers are the fp32 variant (the mixed inner loop; for the
     # residual modes the fp64 residual with its fp32-demoted norm; for K7,
-    # K2x2 and K3 plain the 31-row basis), the other variants alongside;
-    # launches are summed over the four paths' solves
+    # K2x2 and K3 plain the 31-row basis) and for K8-K11 the df64 variant
+    # (31 rows), the other variants alongside; launches are summed over the
+    # five paths' solves
     sources = {
         "dia_spmv": ("gmres_tpu_torch/csrc/dia_spmv.cu",
                      "gmres_tpu/ops/pallas/spmv_kernel.py:88"),
@@ -1035,20 +1312,29 @@ def main() -> int:
                         "gmres_tpu/ops/pallas/orth_kernel.py:102"),
         "basis_update": ("gmres_tpu_torch/csrc/basis_sweep.cu",
                          "gmres_tpu/ops/pallas/orth_kernel.py:129"),
+        "dia_spmv_df64": ("gmres_tpu_torch/csrc/df64_spmv.cu",
+                          "gmres_tpu/ops/pallas/df64_kernel.py:141"),
+        "df_gram": ("gmres_tpu_torch/csrc/df64_sweep.cu",
+                    "gmres_tpu/ops/pallas/df64_kernel.py:559"),
+        "df_update_gram": ("gmres_tpu_torch/csrc/df64_sweep.cu",
+                           "gmres_tpu/ops/pallas/df64_kernel.py:602"),
+        "df_update_sumsq": ("gmres_tpu_torch/csrc/df64_sweep.cu",
+                            "gmres_tpu/ops/pallas/df64_kernel.py:656"),
     }
     require(set(sources) == set(kernel_wrappers()), "every kernel has a JSON entry")
     kernels = []
     for name, (src, replaces) in sources.items():
         rec = records[name]
-        main_rec = rec["float32"]
+        main = "df64" if name in DF64_KERNELS else "float32"
+        main_rec = rec[main]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": counts[name], "dtype": "float32",
+            "launches": counts[name], "dtype": main,
             "max_abs_err": main_rec["max_abs_err"], "ms": main_rec["ms"],
             "plain_ms": main_rec["plain_ms"], "bound_ms": main_rec["bound_ms"],
             "bound_by": main_rec["bound_by"], "library_ms": main_rec["library_ms"],
             "gb_per_s": main_rec["gb_per_s"], "copy_gb_per_s": copy_gbs,
-            "variants": {k: v for k, v in rec.items() if k != "float32"},
+            "variants": {k: v for k, v in rec.items() if k != main},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -189,13 +189,14 @@ class GmresConfig:
 def use_lowsync_mgs(cfg: GmresConfig, device_type: str) -> bool:
     """Whether an MGS solve runs the one-reduce ICWY step instead of the
     sequential recurrence.  ``low_sync_mgs=True`` or ``False`` forces the
-    form on every device; ``None`` takes ``LOWSYNC_MGS_DEFAULT`` for the
-    device type."""
+    form on every device; ``None`` takes ``LOWSYNC_MGS_DEFAULT`` (or, for a
+    df64 cycle, ``LOWSYNC_MGS_DF64_DEFAULT``) for the device type."""
     if cfg.orth != Orth.MGS:
         return False
     if cfg.low_sync_mgs is not None:
         return bool(cfg.low_sync_mgs)
-    return LOWSYNC_MGS_DEFAULT[device_type]
+    table = LOWSYNC_MGS_DF64_DEFAULT if cfg.precision.df64_inner else LOWSYNC_MGS_DEFAULT
+    return table[device_type]
 
 
 # low_sync_mgs=None by device type.  CPU: the JAX package's CPU branch,
@@ -207,3 +208,11 @@ def use_lowsync_mgs(cfg: GmresConfig, device_type: str) -> bool:
 # package's TPU rule (ICWY except for fp64 cycles) came from the TPU's
 # emulated fp64 and does not carry.
 LOWSYNC_MGS_DEFAULT = {"cpu": False, "cuda": False}
+
+# The same for df64 cycles.  CPU: the JAX package's CPU branch, sequential
+# (gmres_tpu/solver/gmres.py:325-328).  CUDA: ICWY.  Sequential df64 MGS is
+# a one-row K9 and a one-row K11 per basis row, 2(k+1) launches a step; on
+# the H100 at convdiff@1M its orthogonalization step took 1.7642 ms of host
+# wall against ICWY's 0.3248, and whole solves 2.9628 s against 1.5394
+# (medians of 3 interleaved; chip_smoke.py, PERF.md).
+LOWSYNC_MGS_DF64_DEFAULT = {"cpu": False, "cuda": True}

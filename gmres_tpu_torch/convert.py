@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gmres_tpu_torch.ops.dia import DIAMatrix
+from gmres_tpu_torch.ops.dia import DF64Dia, DIAMatrix
 from gmres_tpu_torch.precond.build import ExactILUDIAPrec, ILUJacobiPrec, JacobiPrec
 from gmres_tpu_torch.precond.level_ilu import LevelILUPrec
 from gmres_tpu_torch.sparse import CSRMatrix, csr_from_arrays
@@ -30,6 +30,19 @@ def dia_from_numpy(data, offsets, n_rows: int, n_cols: int, nnz: int,
     return DIAMatrix(data=torch.from_numpy(data).to(device),
                      offsets=tuple(int(o) for o in offsets),
                      n_rows=int(n_rows), n_cols=int(n_cols), nnz=int(nnz))
+
+
+def df64_dia_from_numpy(data_hi, data_lo, offsets, n_rows: int, n_cols: int, nnz: int,
+                        device="cpu") -> DF64Dia:
+    """From the (hi, lo) fp32 band arrays of a JAX ``DF64Dia``."""
+    hi, lo = (np.array(a, dtype=np.float32, order="C") for a in (data_hi, data_lo))
+    if hi.shape != (len(offsets), n_rows) or lo.shape != hi.shape:
+        raise ValueError(f"DF64 DIA bands of shapes {hi.shape}, {lo.shape} for "
+                         f"{len(offsets)} offsets and {n_rows} rows")
+    return DF64Dia(data_hi=torch.from_numpy(hi).to(device),
+                   data_lo=torch.from_numpy(lo).to(device),
+                   offsets=tuple(int(o) for o in offsets), n_rows=int(n_rows),
+                   n_cols=int(n_cols), nnz=int(nnz))
 
 
 def csr_from_numpy(row_ptr, col_idx, vals, n_cols: int | None = None,

@@ -19,6 +19,11 @@
 //   the increment is summed in the basis dtype and added to the fp64 iterate
 //   without ever being written to memory.  The TPU added it to a
 //   double-float pair; the H100 has native fp64.
+// K4 pair mode basis_axpy_pair   x[i] += sum_{j<rows} y[j] (Vh[j,i] + Vl[j,i])
+//   the solution update of a df64 cycle (gmres_tpu/solver/gmres.py:538-545,
+//   df_basis_comb then a pair add): each basis pair is merged to fp64 in
+//   registers and the sum taken in native fp64, so no fp64 copy of the basis
+//   (250 MB at m = 30, n = 1M) is ever made.
 //
 // What bounds them: device-memory bandwidth.  Each sweep reads rows x n basis
 // values and does 2 flops per value (124 MB per full fp32 sweep at m+1 = 31,
@@ -208,6 +213,31 @@ basis_axpy_kernel(const T* __restrict__ V, const T* __restrict__ y,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+basis_axpy_pair_kernel(const float* __restrict__ Vh, const float* __restrict__ Vl,
+                       const double* __restrict__ y, double* __restrict__ x, int n, int rows) {
+  __shared__ double ys[kMaxRows];
+  for (int j = threadIdx.x; j < rows; j += kThreads) ys[j] = y[j];
+  __syncthreads();
+  const size_t col0 = (size_t)blockIdx.x * kTile + threadIdx.x;
+  double acc[kItems];
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) acc[it] = 0.0;
+  for (int j = 0; j < rows; ++j) {
+    float vh[kItems], vl[kItems];
+    load_tile(Vh + (size_t)j * n, col0, n, vh);
+    load_tile(Vl + (size_t)j * n, col0, n, vl);
+    const double yj = ys[j];
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) acc[it] += yj * ((double)vh[it] + (double)vl[it]);
+  }
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const size_t c = col0 + (size_t)it * kThreads;
+    if (c < (size_t)n) x[c] += acc[it];
+  }
+}
+
 static bool bad_shape(int n, int rows, int m1) {
   return n <= 0 || rows <= 0 || rows > m1 || m1 > kMaxRows;
 }
@@ -323,6 +353,15 @@ int gmres_basis_axpy_f64_f64(const double* V, const double* y, double* x, int n,
 int gmres_basis_axpy_f32_f32(const float* V, const float* y, float* x, int n, int rows,
                              void* stream) {
   return launch_axpy<float, float>(V, y, x, n, rows, stream);
+}
+
+// pair mode: the basis as (hi, lo) fp32 pairs, y and x fp64
+int gmres_basis_axpy_pair(const float* Vh, const float* Vl, const double* y, double* x, int n,
+                          int rows, void* stream) {
+  if (bad_shape(n, rows, rows)) return (int)cudaErrorInvalidValue;
+  basis_axpy_pair_kernel<<<blocks_for(n, kTile), kThreads, 0, (cudaStream_t)stream>>>(
+      Vh, Vl, y, x, n, rows);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

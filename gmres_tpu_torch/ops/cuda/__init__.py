@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port and their wrappers.
 
 Each wrapper keeps a plain-int launch count (``wrapper.launches``), so a
-run can show that the main path went through its kernels.
+run can show that the main path went through its kernels.  K4's pair mode
+(``outer_kernel.basis_axpy_pair_cuda``) counts into ``basis_axpy``.
 """
 
 from __future__ import annotations
@@ -9,6 +10,12 @@ from __future__ import annotations
 
 def kernel_wrappers() -> dict:
     """Name -> wrapper for every kernel launch site of the main path."""
+    from gmres_tpu_torch.ops.cuda.df64_orth_kernel import (
+        df_gram_cuda,
+        df_update_gram_cuda,
+        df_update_sumsq_cuda,
+    )
+    from gmres_tpu_torch.ops.cuda.df64_spmv_kernel import dia_spmv_df64_cuda
     from gmres_tpu_torch.ops.cuda.mgs_kernel import mgs_cuda
     from gmres_tpu_torch.ops.cuda.orth_kernel import (
         gram2_cuda,
@@ -39,6 +46,10 @@ def kernel_wrappers() -> dict:
         "basis_mgs": mgs_cuda,
         "basis_gram2": gram2_cuda,
         "basis_update": update_cuda,
+        "dia_spmv_df64": dia_spmv_df64_cuda,
+        "df_gram": df_gram_cuda,
+        "df_update_gram": df_update_gram_cuda,
+        "df_update_sumsq": df_update_sumsq_cuda,
     }
 
 

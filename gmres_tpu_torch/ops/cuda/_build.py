@@ -32,8 +32,9 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "gmres_tpu_torch"
-SOURCES = ("dia_spmv.cu", "basis_sweep.cu", "sell_spmv.cu", "ilu_trisolve.cu", "basis_mgs.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("dia_spmv.cu", "basis_sweep.cu", "sell_spmv.cu", "ilu_trisolve.cu", "basis_mgs.cu",
+           "df64_spmv.cu", "df64_sweep.cu")
+HEADERS = ("common.cuh", "df64.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -63,6 +64,11 @@ _SIGNATURES = {
     "gmres_basis_axpy_f32_f64": (_P, _P, _P, _I, _I, _P),
     "gmres_basis_axpy_f64_f64": (_P, _P, _P, _I, _I, _P),
     "gmres_basis_axpy_f32_f32": (_P, _P, _P, _I, _I, _P),
+    "gmres_basis_axpy_pair": (_P, _P, _P, _P, _I, _I, _P),
+    "gmres_dia_spmv_df64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "gmres_df_gram": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "gmres_df_update_gram": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "gmres_df_update_sumsq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "gmres_basis_mgs_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "gmres_basis_mgs_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "gmres_grid_sync_probe": (_I, _I, _P),

@@ -1,6 +1,7 @@
 """The fp64 outer phase of a restart cycle: the true residual with its two
-norms (K1 or K5 in residual mode) and the solution update (K4), each beside
-its plain PyTorch version.
+norms (K1 or K5 in residual mode) and the solution update (K4, with a pair
+mode for the df64 tier's basis of fp32 pairs), each beside its plain
+PyTorch version.
 
 Replaces ``gmres_tpu/ops/pallas/df64_kernel.py``'s ``residual_df64`` and
 ``axpy_df64``, and ``gmres_tpu/ops/pallas/sell_kernel.py``'s
@@ -76,3 +77,40 @@ basis_axpy_cuda.launches = 0
 def basis_axpy(x, V, y):
     """The solution update x += V[:len(y)]^T y, in place."""
     return basis_axpy_cuda(x, V, y) if V.is_cuda else basis_axpy_plain(x, V, y)
+
+
+def basis_axpy_pair_plain(x: torch.Tensor, Vh: torch.Tensor, Vl: torch.Tensor,
+                          y: torch.Tensor) -> torch.Tensor:
+    """x += y @ (Vh + Vl)[:len(y)] in fp64, in place; returns x."""
+    rows = y.shape[0]
+    x += torch.mv((Vh[:rows].double() + Vl[:rows].double()).t(), y)
+    return x
+
+
+def basis_axpy_pair_cuda(x: torch.Tensor, Vh: torch.Tensor, Vl: torch.Tensor,
+                         y: torch.Tensor) -> torch.Tensor:
+    """K4, pair mode: x += sum_j y[j] (Vh[j] + Vl[j]) for the df64 cycle's
+    basis of fp32 pairs, each pair merged to fp64 in registers and summed
+    in fp64; x (fp64) in place.  Counts into ``basis_axpy_cuda.launches``."""
+    rows = y.shape[0]
+    if Vh.dim() != 2 or not 1 <= rows <= Vh.shape[0]:
+        raise ValueError(f"basis_axpy_pair: {rows} coefficients for a basis of shape "
+                         f"{tuple(Vh.shape)}")
+    n = Vh.shape[1]
+    for name, t, dt, shape in (("Vh", Vh, torch.float32, tuple(Vh.shape)),
+                               ("Vl", Vl, torch.float32, tuple(Vh.shape)),
+                               ("y", y, torch.float64, (rows,)),
+                               ("x", x, torch.float64, (n,))):
+        check(name, t, dt, shape, Vh.device)
+    lib = library()
+    if rows > lib.max_rows:
+        raise ValueError(f"basis_axpy_pair: {rows} basis rows > {lib.max_rows}")
+    lib.call("gmres_basis_axpy_pair", Vh.data_ptr(), Vl.data_ptr(), y.data_ptr(), x.data_ptr(),
+             n, rows)
+    basis_axpy_cuda.launches += 1
+    return x
+
+
+def basis_axpy_pair(x, Vh, Vl, y):
+    """The df64 cycle's solution update x += (Vh + Vl)[:len(y)]^T y, in place."""
+    return (basis_axpy_pair_cuda if Vh.is_cuda else basis_axpy_pair_plain)(x, Vh, Vl, y)

@@ -11,6 +11,9 @@ D*n values against CSR's nnz.
 
 ``dia_spmv`` sends a CUDA tensor to kernel K1 (``csrc/dia_spmv.cu``) in
 fp32 and fp64 at every size, and a CPU tensor to the plain version.
+``DF64Dia`` is the df64 tier's view of an fp64 DIA matrix as (hi, lo) fp32
+band pairs; ``dia_spmv_df64`` sends it to kernel K8 (``csrc/df64_spmv.cu``)
+on the card and to K8's plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -20,7 +23,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from gmres_tpu_torch.ops.cuda.df64_spmv_kernel import dia_spmv_df64_cuda, dia_spmv_df64_plain
 from gmres_tpu_torch.ops.cuda.spmv_kernel import dia_spmv_cuda, dia_spmv_plain
+from gmres_tpu_torch.ops.eft import merge_f64, split_f64
 from gmres_tpu_torch.sparse import CSRMatrix
 
 
@@ -114,3 +119,46 @@ def dia_spmv(A: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
     if A.data.is_cuda:
         return dia_spmv_cuda(A.data, A.offsets, x)
     return dia_spmv_plain(A.data, A.offsets, x)
+
+
+@dataclasses.dataclass(frozen=True)
+class DF64Dia:
+    """A DIA matrix of fp64 values split into (hi, lo) fp32 band pairs
+    (``gmres_tpu/ops/pallas/df64_kernel.py:316-348``): the df64 tier's inner
+    operator."""
+
+    data_hi: torch.Tensor        # (n_diags, n_rows) fp32
+    data_lo: torch.Tensor
+    offsets: tuple[int, ...]
+    n_rows: int
+    n_cols: int
+    nnz: int
+
+    @staticmethod
+    def from_dia(A: DIAMatrix) -> "DF64Dia":
+        dh, dl = split_f64(A.data.to(torch.float64))
+        return DF64Dia(data_hi=dh, data_lo=dl, offsets=A.offsets, n_rows=A.n_rows,
+                       n_cols=A.n_cols, nnz=A.nnz)
+
+    @property
+    def shape(self):
+        return (self.n_rows, self.n_cols)
+
+    @property
+    def device(self) -> torch.device:
+        return self.data_hi.device
+
+    @property
+    def vals(self) -> torch.Tensor:
+        """The fp64 values (hi + lo), so that ||A||_F is the fp64 matrix's."""
+        return merge_f64(self.data_hi, self.data_lo).reshape(-1)
+
+    def to(self, device) -> "DF64Dia":
+        return dataclasses.replace(self, data_hi=self.data_hi.to(device),
+                                   data_lo=self.data_lo.to(device))
+
+
+def dia_spmv_df64(A: DF64Dia, xh: torch.Tensor, xl: torch.Tensor):
+    """(yh, yl) = A @ (xh, xl) in pair arithmetic."""
+    fn = dia_spmv_df64_cuda if A.data_hi.is_cuda else dia_spmv_df64_plain
+    return fn(A.data_hi, A.data_lo, A.offsets, xh, xl)

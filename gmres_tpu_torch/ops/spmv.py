@@ -4,14 +4,17 @@ DIA operators go to ``dia_spmv`` (kernel K1 on the card) and sliced-ELL
 operators to ``sell_spmv`` (kernel K5 on the card).  CSR is the fallback
 for a matrix both formats refuse: a plain torch gather plus ``index_add_``
 over the precomputed row ids, as the JAX package leaves its CSR path to
-XLA.  The double-float operator formats are not ported yet.
+XLA.  A double-float ``DF64Dia`` takes an fp64 x through split, kernel K8
+and merge (``gmres_tpu/ops/spmv.py:66-70``).  The JAX package's ``DF64Sell``
+has no counterpart: the port's fp64 SELL operator runs K5 in native fp64.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gmres_tpu_torch.ops.dia import DIAMatrix, dia_spmv
+from gmres_tpu_torch.ops.dia import DF64Dia, DIAMatrix, dia_spmv, dia_spmv_df64
+from gmres_tpu_torch.ops.eft import merge_f64, split_f64
 from gmres_tpu_torch.ops.sell import SELLMatrix, sell_spmv
 from gmres_tpu_torch.sparse import CSRMatrix
 
@@ -24,13 +27,15 @@ def csr_spmv(A: CSRMatrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmv(A, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x in A's dtype; x is cast to A's dtype first."""
+    """y = A @ x in A's dtype; x is cast to A's dtype first (fp64 for a
+    ``DF64Dia``)."""
     if isinstance(A, DIAMatrix):
         return dia_spmv(A, x)
     if isinstance(A, SELLMatrix):
         return sell_spmv(A, x)
     if isinstance(A, CSRMatrix):
         return csr_spmv(A, x)
-    raise NotImplementedError(
-        f"spmv on {type(A).__name__}: the port takes DIA, SELL and CSR "
-        "operators; double-float (df64) operators are slice 5")
+    if isinstance(A, DF64Dia):
+        return merge_f64(*dia_spmv_df64(A, *split_f64(x.to(torch.float64))))
+    raise TypeError(f"spmv on {type(A).__name__}: the port takes DIA, SELL, CSR and "
+                    "DF64Dia operators")

@@ -320,7 +320,7 @@ def build_preconditioner(A, cfg: GmresConfig):
             "of the port")
     if dtype not in _NUMPY_DTYPE:
         raise NotImplementedError(
-            f"a {dtype} preconditioner is slice 5 of the port (bf16 tier)")
+            f"a {dtype} preconditioner is slice 5b of the port (bf16 tier)")
     if cfg.precond == Precond.JACOBI:
         if isinstance(A, CSRMatrix):
             return build_jacobi(A, dtype)

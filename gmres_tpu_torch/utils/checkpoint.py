@@ -1,0 +1,55 @@
+"""Solver checkpoint and resume (``gmres_tpu/utils/checkpoint.py``).
+
+Restarts are natural checkpoint boundaries: only x and the small policy
+scalars survive one.  ``solve(..., checkpoint=CheckpointSpec(path))`` saves
+(x, restart count, iteration count, policy state) every ``every`` restarts
+and resumes from the file when it exists.  The file is an ``.npz`` with the
+JAX package's keys and dtypes, so either package reads the other's file.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import tempfile
+
+import numpy as np
+import torch
+
+from gmres_tpu_torch.solver.policies import PolicyState
+
+
+@dataclasses.dataclass
+class CheckpointSpec:
+    path: str
+    every: int = 10  # restarts between saves
+
+
+def save(path: str, x, i: int, total_iters: int, pstate: PolicyState) -> None:
+    """Write to a temporary file in the same directory and rename it over
+    ``path``, so that an interrupted save never leaves a broken file."""
+    x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    d = os.path.dirname(os.path.abspath(path))
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".ckpt.tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, x=x, i=np.int64(i), total_iters=np.int64(total_iters),
+                     is_first=np.asarray(bool(pstate.is_first)),
+                     second_restart_length=np.int32(pstate.second_restart_length),
+                     restart_tol=np.float64(pstate.restart_tol))
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def load(path: str):
+    """(x as a numpy array, i, total_iters, PolicyState), or None when there
+    is no file."""
+    if not os.path.exists(path):
+        return None
+    with np.load(path) as z:
+        pstate = PolicyState(is_first=bool(z["is_first"]),
+                             second_restart_length=int(z["second_restart_length"]),
+                             restart_tol=float(z["restart_tol"]))
+        return z["x"], int(z["i"]), int(z["total_iters"]), pstate

@@ -7,9 +7,11 @@ compare two checkouts of the port on the same card.
 imports ``gmres_tpu_torch`` from DIR (default: this checkout), stages
 ``convection_diffusion_2d(1024, beta=2.0)``, and after one warm-up solve per
 mode times N solves per mode (identity preconditioner, restart 30, tol
-1e-8), the modes alternating.  Prints the card's name and power limit, then
-one JSON line: per mode the walls, their median and the history.  Run it
-for two checkouts in turns (A, B, B, A) in one session on the card.
+1e-8), the modes alternating.  Prints on its first line the card's name and
+power limit (``nvidia-smi --query-gpu=name,power.limit``; it fails without
+them), then one JSON line: per mode the walls, their median and the
+history.  Run it for two checkouts in turns (A, B, B, A) on the same card,
+one right after the other.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ def main() -> int:
     from gmres_tpu_torch.io.synth import convection_diffusion_2d
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip(), flush=True)
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     A = convection_diffusion_2d(1024, beta=2.0)
     b = torch.tensor(A.to_scipy() @ g.rand_vect(A.n_rows, 42), device="cuda")
     A_dev = g.stage(A)

@@ -1,9 +1,10 @@
-"""Kernels K1-K7 and K2x2 on the card against their plain PyTorch versions,
+"""Kernels K1-K11 and K2x2 on the card against their plain PyTorch versions,
 at small and ragged sizes (n not a multiple of the block, tile, slice or
 segment; n below one tile; empty rows; a long row; n_cols != n_rows;
 one-sided factors; identity tail segments; rows < m+1), K7 bit for bit
-across grid sizes and forms, and small DIA, SELL, ILU and MGS solves on the
-card against the same solves on the CPU.
+across grid sizes and forms, the df64 kernels K8-K11 and K4's pair mode
+(K8 and the updated pair of K10/K11 bit for bit), and small DIA, SELL, ILU,
+MGS and df64 solves on the card against the same solves on the CPU.
 
 These need an NVIDIA GPU with the CUDA toolkit: they carry the ``cuda``
 marker and skip elsewhere.  On the card:
@@ -19,6 +20,9 @@ import torch
 
 import gmres_tpu_torch
 from gmres_tpu_torch.io.synth import convection_diffusion_2d, random_sparse, unstructured_mesh
+from gmres_tpu_torch.ops import eft
+from gmres_tpu_torch.ops.cuda import df64_orth_kernel as dk
+from gmres_tpu_torch.ops.cuda import df64_spmv_kernel as ds
 from gmres_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 from gmres_tpu_torch.ops.cuda import mgs_kernel as mk
 from gmres_tpu_torch.ops.cuda import orth_kernel as ok
@@ -221,6 +225,7 @@ def test_sell_wrappers_refuse_what_the_kernel_does_not_take():
 PATH_KERNELS = {"dia": {"dia_spmv", "dia_residual"}, "sell": {"sell_spmv", "sell_residual"}}
 ILU_KERNELS = {"ilu_trisolve_fused", "ilu_trisolve_segmented"}
 MGS_KERNELS = {"basis_mgs", "basis_gram2", "basis_update"}  # MGS and orth_steps != 2 only
+DF64_KERNELS = {"dia_spmv_df64", "df_gram", "df_update_gram", "df_update_sumsq"}  # df64 only
 
 
 @pytest.mark.parametrize("fmt", ["dia", "sell"])
@@ -228,7 +233,7 @@ MGS_KERNELS = {"basis_mgs", "basis_gram2", "basis_update"}  # MGS and orth_steps
 def test_solve_on_card_matches_cpu(mode, fmt):
     # each path launches its own SpMV kernels and the shared sweeps, and
     # not the other path's SpMV kernels nor, with no preconditioner, K6, nor
-    # under CGSR the MGS kernels
+    # under CGSR the MGS kernels, nor outside the df64 tier K8-K11
     A = convection_diffusion_2d(32, beta=2.0) if fmt == "dia" else unstructured_mesh(4096, run=8)
     x_true = gmres_tpu_torch.rand_vect(A.n_rows, 42)
     b = A.to_scipy() @ x_true
@@ -239,7 +244,8 @@ def test_solve_on_card_matches_cpu(mode, fmt):
     reset_launch_counts()
     res = gmres_tpu_torch.solve(A, b, cfg)
     counts = launch_counts()
-    other = PATH_KERNELS["sell" if fmt == "dia" else "dia"] | ILU_KERNELS | MGS_KERNELS
+    other = (PATH_KERNELS["sell" if fmt == "dia" else "dia"] | ILU_KERNELS | MGS_KERNELS
+             | DF64_KERNELS)
     assert all(counts[k] > 0 for k in counts if k not in other), counts
     assert all(counts[k] == 0 for k in other), counts
     ref = gmres_tpu_torch.solve(A, b, cfg, device="cpu")
@@ -425,3 +431,114 @@ def test_policy_solve_on_card_matches_cpu(kw):
     assert [h["k"] for h in res.history] == [h["k"] for h in ref.history]
     assert (res.converged, res.restarts, res.total_iters) == (ref.converged, ref.restarts,
                                                               ref.total_iters)
+
+
+# df64 kernel vs plain: the pair sums over n run in another order; hold them
+# to the terms' magnitudes times 2^-46 (a pair carries ~2^-48)
+DF_TOL = 2.0 ** -46
+
+
+def _df_close(got, want, scale):
+    assert float((got - want).abs().max()) <= DF_TOL * float(scale.abs().max())
+
+
+def _df_basis(n, rows, m1=31, seed=0):
+    """Pairs of V (m1, n) with `rows` orthonormal rows and the rest zero, of
+    w, and u (fp64, zero past rows), on the card; with V and w in fp64."""
+    V, w = _basis(torch.float64, n, rows, m1, seed)
+    u = torch.zeros(m1, dtype=torch.float64, device="cuda")
+    u[:rows] = V[:rows] @ w
+    return (*eft.split_f64(V), *eft.split_f64(w), u, V, w)
+
+
+@pytest.mark.parametrize("n", [1000, 300_001])
+def test_dia_spmv_df64_bit_equal(n):
+    rng = np.random.default_rng(n)
+    offs = (-517, -1, 0, 1, 517)
+    d64 = torch.tensor(rng.standard_normal((5, n)), device="cuda")
+    x64 = torch.tensor(rng.standard_normal(n), device="cuda")
+    dh, dl = eft.split_f64(d64)
+    xh, xl = eft.split_f64(x64)
+    got = ds.dia_spmv_df64_cuda(dh, dl, offs, xh, xl)
+    want = ds.dia_spmv_df64_plain(dh, dl, offs, xh, xl)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    y64 = sk.dia_spmv_plain(d64, offs, x64)
+    _df_close(eft.merge_f64(*got), y64, sk.dia_spmv_plain(d64.abs(), offs, x64.abs()))
+
+
+@pytest.mark.parametrize("n", [1000, 300_001])
+@pytest.mark.parametrize("rows", [1, 16, 31])
+def test_df64_sweeps(n, rows):
+    Vh, Vl, wh, wl, u, V, w = _df_basis(n, rows, seed=rows)
+    absV, absw = V.abs(), w.abs()
+    got = dk.df_gram_cuda(Vh, Vl, wh, wl, rows)
+    _df_close(got, dk.df_gram_plain(Vh, Vl, wh, wl, rows), absV @ absw)
+    assert not got[rows:].any()
+    for fn in ("df_update_gram", "df_update_sumsq"):
+        gh, gl, gs = getattr(dk, fn + "_cuda")(Vh, Vl, wh, wl, u, rows)
+        ph, pl, ps = getattr(dk, fn + "_plain")(Vh, Vl, wh, wl, u, rows)
+        # the update pass is the plain version's chain, bit for bit
+        assert torch.equal(gh, ph) and torch.equal(gl, pl)
+        sw = absw + u.abs() @ absV
+        _df_close(gs, ps, absV @ sw if fn == "df_update_gram" else (sw * sw).sum())
+    x = torch.tensor(np.random.default_rng(rows).random(n), device="cuda")
+    y = u[:rows].contiguous()
+    got = ou.basis_axpy_pair_cuda(x.clone(), Vh, Vl, y)
+    want = ou.basis_axpy_pair_plain(x.clone(), Vh, Vl, y)
+    _df_close(got, want, x.abs() + y.abs() @ absV[:rows])
+
+
+def test_df64_wrappers_refuse_what_the_kernels_do_not_take():
+    Vh = torch.zeros((4, 100), device="cuda")
+    w = torch.zeros(100, device="cuda")
+    u = torch.zeros(4, dtype=torch.float64, device="cuda")
+    with pytest.raises(TypeError):  # an fp64 basis is not a pair
+        dk.df_gram_cuda(Vh.double(), Vh.double(), w, w, 2)
+    with pytest.raises(ValueError):  # on the CPU
+        dk.df_gram_cuda(Vh.cpu(), Vh.cpu(), w.cpu(), w.cpu(), 2)
+    with pytest.raises(ValueError):  # rows past the basis
+        dk.df_update_sumsq_cuda(Vh, Vh, w, w, u, 5)
+    with pytest.raises(TypeError):  # u must be fp64
+        dk.df_update_gram_cuda(Vh, Vh, w, w, u.float(), 2)
+    with pytest.raises(ValueError):  # a strided vector
+        dk.df_gram_cuda(Vh, Vh, torch.zeros(200, device="cuda")[::2], w, 2)
+    with pytest.raises(TypeError):
+        ds.dia_spmv_df64_cuda(Vh.double(), Vh.double(), (0, 1, 2, 3), w, w)
+    with pytest.raises(ValueError):  # lo bands of another shape
+        ds.dia_spmv_df64_cuda(Vh, Vh[:3], (0, 1, 2, 3), w, w)
+    with pytest.raises(TypeError):  # the iterate must be fp64
+        ou.basis_axpy_pair_cuda(w, Vh, Vh, u[:2])
+    with pytest.raises(ValueError):  # more coefficients than basis rows
+        ou.basis_axpy_pair_cuda(w.double(), Vh, Vh, torch.zeros(5, dtype=torch.float64,
+                                                                 device="cuda"))
+
+
+@pytest.mark.parametrize("orth,low_sync", [("cgs", None), ("cgsr", None), ("mgs", False),
+                                           ("mgs", True)],
+                         ids=["cgs", "cgsr", "mgs-sequential", "mgs-icwy"])
+def test_df64_solve_on_card_matches_cpu(orth, low_sync):
+    # the df64 cycle on DIA: K8 for the SpMV, K9-K11 for the sweeps, K4's
+    # pair mode for the update, K1's residual mode for the outer residual;
+    # none of K1's plain mode, K2, K3, K2x2 or K7
+    A = convection_diffusion_2d(32, beta=2.0)
+    x_true = gmres_tpu_torch.rand_vect(A.n_rows, 42)
+    b = A.to_scipy() @ x_true
+    cfg = gmres_tpu_torch.GmresConfig(
+        precision=gmres_tpu_torch.PrecisionSpec.from_mode("df64"), orth=orth,
+        low_sync_mgs=low_sync, precond="identity", restart_length=30, tol=1e-8,
+        max_restarts=80)
+    reset_launch_counts()
+    res = gmres_tpu_torch.solve(A, b, cfg)
+    counts = launch_counts()
+    assert counts["dia_spmv_df64"] == res.total_iters and counts["df_gram"] > 0, counts
+    assert counts["df_update_sumsq"] > 0 and counts["dia_residual"] > 0, counts
+    assert (counts["df_update_gram"] > 0) == (orth == "cgsr"), counts
+    assert counts["basis_axpy"] == res.restarts, counts
+    idle = {"dia_spmv", "basis_gram", "basis_update_gram", "basis_update_sumsq",
+            "basis_update", "basis_gram2", "basis_mgs", "sell_spmv", "sell_residual"}
+    assert all(counts[k] == 0 for k in idle | ILU_KERNELS), counts
+    ref = gmres_tpu_torch.solve(A, b, cfg, device="cpu")
+    assert res.x.is_cuda and res.converged
+    assert (res.restarts, res.total_iters) == (ref.restarts, ref.total_iters)
+    xr = ref.x.numpy()
+    assert np.linalg.norm(res.x.cpu().numpy() - xr) / np.linalg.norm(xr) <= 1e-10

@@ -46,7 +46,10 @@ def test_port_never_imports_jax_or_gmres_tpu():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     names = {p.relative_to(REPO).as_posix() for p in files}
     assert {"gmres_tpu_torch/ops/cuda/mgs_kernel.py", "gmres_tpu_torch/ops/orth.py",
-            "gmres_tpu_torch/solver/policies.py"} <= names
+            "gmres_tpu_torch/solver/policies.py", "gmres_tpu_torch/ops/df64.py",
+            "gmres_tpu_torch/ops/eft.py", "gmres_tpu_torch/ops/cuda/df64_orth_kernel.py",
+            "gmres_tpu_torch/ops/cuda/df64_spmv_kernel.py",
+            "gmres_tpu_torch/utils/checkpoint.py"} <= names
     assert len(files) > 15
     for path in files:
         for name in _imported_roots(path):
@@ -173,14 +176,16 @@ def test_solve_on_cuda_never_falls_back_to_cpu():
 
 
 @pytest.mark.parametrize("cfg", [
-    dict(orth="cgsr", precond="identity", nan_fallback=True),
+    dict(orth="cgsr", precond="identity",
+         precision=gmres_tpu_torch.PrecisionSpec("float64", "float64", "float64",
+                                                 basis="float32")),
     dict(orth="cgsr", precond="bilu_jacobi"),
     dict(orth="mgs", precond="identity",
          precision=gmres_tpu_torch.PrecisionSpec("float64", "float32", "float32",
                                                  basis="bfloat16")),
     dict(orth="cgsr", precond="identity", axis_name="x"),
     dict(orth="cgsr", precond="identity",
-         precision=gmres_tpu_torch.PrecisionSpec.from_mode("df64")),
+         precision=gmres_tpu_torch.PrecisionSpec("float32", "bfloat16", "bfloat16")),
     dict(orth="cgsr", precond="identity",
          precision=gmres_tpu_torch.PrecisionSpec("float64", "bfloat16", "bfloat16")),
 ])
@@ -189,6 +194,15 @@ def test_unported_options_raise(cfg):
     with pytest.raises(NotImplementedError, match="slice"):
         gmres_tpu_torch.solve(A, np.ones(A.n_rows), gmres_tpu_torch.GmresConfig(**cfg),
                               device="cpu")
+
+
+def test_result_fields_and_defaults_match():
+    # the port's GmresResult has the JAX package's fields that its solves
+    # fill, with the same defaults; fellback_to_fp64 among them
+    ref = {f.name: f.default for f in dataclasses.fields(gmres_tpu.solver.gmres.GmresResult)}
+    port = {f.name: f.default for f in dataclasses.fields(gmres_tpu_torch.GmresResult)}
+    assert "fellback_to_fp64" in port and port["fellback_to_fp64"] is ref["fellback_to_fp64"]
+    assert {k: ref[k] for k in port} == port
 
 
 def test_importing_never_runs_nvcc(tmp_path):

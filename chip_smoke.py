@@ -6,10 +6,10 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels (and the host helper of the ILU
-preconditioners) from the sources in the checkout and drives four paths,
-each through ``gmres_tpu_torch.stage`` and ``solve`` in the ``baseline`` and
-``mixed`` modes (x_true = rand_vect(n, 42), b = A x_true in fp64 numpy,
-CGSR unless said otherwise, restart length 30, tol 1e-8):
+preconditioners) from the sources in the checkout and drives six paths,
+the first five through ``gmres_tpu_torch.stage`` and ``solve`` in the
+``baseline`` and ``mixed`` modes (x_true = rand_vect(n, 42), b = A x_true
+in fp64 numpy, CGSR unless said otherwise, restart length 30, tol 1e-8):
 
 1. the banded path: ``convection_diffusion_2d(1024, beta=2.0)`` (n =
    1,048,576, 5 DIA bands), identity preconditioner, kernels K1-K4, the
@@ -36,7 +36,16 @@ CGSR unless said otherwise, restart length 30, tol 1e-8):
    K9-K11 (pair sweeps) and K4's pair mode, timed interleaved with the
    baseline CGSR solve; then two small phases on the card: the NaN fp64
    fallback (the n = 32 overflow matrix of tests/test_aux.py, mixed) and a
-   checkpointed mixed CGSR solve aborted at 12 restarts and resumed.
+   checkpointed mixed CGSR solve aborted at 12 restarts and resumed;
+6. the distributed path (convdiff-dist): the same convdiff@1M problem split
+   over 4 gloo ranks spawned on this one card (``gmres_tpu_torch.parallel.
+   launch.spawn``; the kernels are built here first and the ranks load
+   them), each rank calling ``solve_distributed``: the distributed dryrun,
+   CGSR in both modes (the reference's 26/780; x within 1e-6 of the first
+   path's single-card x), mixed MGS under the ``low_sync_mgs=None`` rule,
+   MGS sequential and ICWY interleaved (cut at 4 restarts) and ILU-Jacobi(3)
+   mixed at ``convection_diffusion_2d(512)``, through K12 (a rank's halo DIA
+   SpMV and, in residual mode, its outer residual).
 
 Before each path's solves it holds each of the path's kernels against its
 plain PyTorch version at the path's shapes (fp32 and fp64; a 31-row Krylov
@@ -47,16 +56,20 @@ barrier of the same grid) and, where one PyTorch call computes the same
 function, that call's time.  Each path's launch counts are reset just
 before its solves and read just after: the path's own kernels must launch,
 the other paths' SpMV kernels, (without ILU) K6, (without MGS, a policy
-or orth_steps != 2) the MGS kernels and (outside the df64 path) K8-K11
-must not; on the df64 path K1's plain mode, K2, K3, K2x2 and K7 must not.
+or orth_steps != 2) the MGS kernels, (outside the df64 path) K8-K11 and
+(outside the distributed path) K12 must not; on the df64 path K1's plain
+mode, K2, K3, K2x2 and K7 must not; each distributed rank must launch K12
+in both modes and no K1, K5, K6, K7 or K8-K11.
 Any failed check raises and the script exits non-zero; without a CUDA
 device it exits non-zero at once.  Each phase prints its seconds.
 
 Output: the card's name and power limit, versions, build time, per-kernel
 error, timing and bound lines, per-path build/stage and per-mode solve
 lines, K7's grid-size table and the sequential-vs-ICWY MGS walls, the
-df64 step and solve walls; then one JSON line with the 17 kernels (launch
-counts from the solves, measured errors and times, bounds, one-call times);
+df64 step and solve walls, the distributed solves and walls beside the
+single card's; then one JSON line with the 19 kernels (launch counts from
+the solves, the distributed ones summed over the ranks; measured errors and
+times, bounds, one-call times);
 then the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -133,6 +146,21 @@ TOL_REL = {"float32": 1e-5, "float64": 1e-13, "df64": 2.0 ** -46}
 # (results/round4/bench_df64.txt:7) and MGS (results/round5/bench_mgs_seq.txt)
 DF64_HISTORY = (26, 780)
 DF64_WALL_REPS = 3     # interleaved timed solves per form
+# the distributed path (convdiff-dist): gloo ranks sharing the card, each
+# owning a block of rows of convdiff@1M
+DIST_RANKS = 4
+DIST_KERNELS = ("dia_spmv_halo", "dia_residual_halo")
+# what a distributed solve on halo DIA blocks must not launch: K1 (both
+# modes), K5, K6, K7 (distributed sequential MGS is a plain row loop with one
+# collective a row) and K8-K11
+DIST_IDLE = ("dia_spmv", "dia_residual", "sell_spmv", "sell_residual", *ILU_KERNELS,
+             "basis_mgs", *DF64_KERNELS)
+# MGS sequential against ICWY, mixed: this many interleaved solves of each,
+# cut at DIST_MGS_RESTARTS restarts (a step's wall is what the rule needs;
+# a whole sequential solve takes ~50 s there, PERF.md)
+DIST_MGS_REPS = 3
+DIST_MGS_RESTARTS = 4
+DIST_TIMEOUT = 600     # seconds for the spawned ranks, and for each collective
 
 
 def log(*a):
@@ -273,7 +301,7 @@ def csr_tensor(torch, A_csr, dt):
 
 
 def check_residual(torch, record, kname, dt, dt_name, timer, fn_cuda, fn_plain, scale_r,
-                   nbytes, flops):
+                   nbytes, flops, key=None):
     """A residual mode (fp64 operator, norm of r demoted to dt) against its
     plain version: r within the fp64 tolerance of |b| + |A||x|, the sums of
     squares (fp64 accumulation against the plain version's accumulation in
@@ -282,9 +310,10 @@ def check_residual(torch, record, kname, dt, dt_name, timer, fn_cuda, fn_plain, 
     err_r, bound_r, ok_r = compare("float64", got[:1], want[:1], [scale_r])
     ss_err = max(abs(float(g - w_)) / float(w_) for g, w_ in zip(got[1:], want[1:]))
     ss_tol = 1e-5 if dt == torch.float32 else 1e-12
-    log(f"  {kname}[{dt_name} norm] sums of squares rel err {ss_err:.3e} (tol {ss_tol:.0e})")
+    log(f"  {kname}[{key or dt_name} norm] sums of squares rel err {ss_err:.3e} "
+        f"(tol {ss_tol:.0e})")
     record(kname, dt_name, err_r, bound_r, ok_r and ss_err <= ss_tol,
-           timer(fn_cuda), timer(fn_plain), nbytes, flops)
+           timer(fn_cuda), timer(fn_plain), nbytes, flops, key=key)
 
 
 def check_kernels(torch, A_csr, record):
@@ -480,17 +509,19 @@ def run_main_path(torch, label, A_csr, A_dev, expect):
     """Solve the path's problem in both modes on the staged operator, with no
     preconditioner; hold each mode to its expected history
     (`expect(restarts, iters)` returns the failure text or None); return
-    the launch counts of the path's solves."""
+    the launch counts of the path's solves, and x and the median wall of
+    each mode."""
     from gmres_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     other = {k for path, ks in PATH_KERNELS.items() if path != label for k in ks}
-    other |= set(ILU_KERNELS) | set(MGS_KERNELS) | set(DF64_KERNELS)
-    walls = {}
+    other |= set(ILU_KERNELS) | set(MGS_KERNELS) | set(DF64_KERNELS) | set(DIST_KERNELS)
+    walls, xs = {}, {}
     reset_launch_counts()
     for mode in ("baseline", "mixed"):
         before = launch_counts()
         res, walls[mode] = solve_timed(torch, label, mode, A_csr, A_dev,
                                        config(mode, "identity"), 3)
+        xs[mode] = res.x.cpu().numpy()
         after = launch_counts()
         counts = {k: after[k] - before[k] for k in after}
         log(f"  launches {label} {mode}: {counts}")
@@ -503,7 +534,7 @@ def run_main_path(torch, label, A_csr, A_dev, expect):
                 f"({counts})")
     log(f"{label} mixed/baseline wall ratio: {walls['mixed'] / walls['baseline']:.4f} "
         f"(baseline/mixed speedup {walls['baseline'] / walls['mixed']:.4f})")
-    return launch_counts()
+    return launch_counts(), xs, walls
 
 
 def stage_timed(torch, A_csr):
@@ -530,7 +561,7 @@ def convdiff_path(torch, record, A):
             return f"total_iters {iters} not within {RLEN} of {TPU_ITERS}"
         return None
 
-    return run_main_path(torch, "convdiff", A, A_dev, expect), A_dev
+    return (*run_main_path(torch, "convdiff", A, A_dev, expect), A_dev)
 
 
 def mesh3d_path(torch, record):
@@ -554,7 +585,7 @@ def mesh3d_path(torch, record):
             return f"history {restarts}/{iters}, the TPU reference's is {MESH_TPU_HISTORY}"
         return None
 
-    return run_main_path(torch, "mesh3d", A, A_dev, expect)
+    return run_main_path(torch, "mesh3d", A, A_dev, expect)[0]
 
 
 def exact_ilu(A_csr, dt, n_seg=None):
@@ -1223,6 +1254,168 @@ def convdiff_df64_path(torch, record, A, A_dev):
     return counts
 
 
+def check_halo_kernels(torch, A_csr, record):
+    """K12 against its plain versions at the row blocks of convdiff@1M over
+    DIST_RANKS ranks (r = 262,144 rows, 5 bands, offsets +-1 and +-1024,
+    edges of 1024 values): an interior block, the first (its left edge
+    zeros) and the last (its right edge zeros); fp32 and fp64, and residual
+    mode (fp64 operator, the norm of r demoted to fp32 or not).  One call:
+    torch.mv of the block's rows, as a CSR tensor over the window [left | x |
+    right], with that window."""
+    from gmres_tpu_torch.ops.cuda import halo_kernel as hk
+    from gmres_tpu_torch.parallel.halo import HaloDIA, partition_halo
+
+    H = partition_halo(A_csr, DIST_RANKS)
+    r, hl, hr = H.rows_per_shard, H.halo_left, H.halo_right
+    require(isinstance(H, HaloDIA) and (r, hl, hr) == (A_csr.n_rows // DIST_RANKS, NX, NX)
+            and H.offsets == (-NX, -1, 0, 1, NX),
+            f"convdiff@1M halo-partitions into {DIST_RANKS} DIA blocks with edges of {NX}")
+    offs, D = H.offsets, len(H.offsets)
+    rp, ci, v = A_csr.numpy_arrays()
+    rng = np.random.default_rng(10)
+    timer = Timer(torch)
+    for side, s in (("interior", 1), ("first", 0), ("last", DIST_RANKS - 1)):
+        d64 = torch.tensor(H.data[s], device="cuda")
+        x64 = torch.tensor(rng.random(r), device="cuda")
+        l64 = torch.tensor(rng.random(hl) if s > 0 else np.zeros(hl), device="cuda")
+        r64 = torch.tensor(rng.random(hr) if s < DIST_RANKS - 1 else np.zeros(hr), device="cuda")
+        b64 = torch.tensor(rng.standard_normal(r), device="cuda")
+        a, e = int(rp[s * r]), int(rp[(s + 1) * r])
+        win = (torch.tensor((rp[s * r:(s + 1) * r + 1] - a).astype(np.int32), device="cuda"),
+               torch.tensor((ci[a:e] - (s * r - hl)).astype(np.int32), device="cuda"),
+               v[a:e])
+        for dt_name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+            key = dt_name if side == "interior" else f"{dt_name} {side}"
+            sz = dt.itemsize
+            data, x, left, right = (t.to(dt) for t in (d64, x64, l64, r64))
+            got = hk.dia_spmv_halo_cuda(data, offs, x, left, right)
+            want = hk.dia_spmv_halo_plain(data, offs, x, left, right)
+            scale = hk.dia_spmv_halo_plain(data.abs(), offs, x, left, right)
+            W = torch.sparse_csr_tensor(win[0], win[1], torch.tensor(win[2], dtype=dt,
+                                                                     device="cuda"),
+                                        size=(r, hl + r + hr))
+            xx = torch.cat([left, x, right])
+            record("dia_spmv_halo", dt_name, *compare(dt_name, [got], [want], [scale]),
+                   timer(lambda: hk.dia_spmv_halo_cuda(data, offs, x, left, right)),
+                   timer(lambda: hk.dia_spmv_halo_plain(data, offs, x, left, right)),
+                   (D + 2) * r * sz + (hl + hr) * sz, 2 * D * r,
+                   timer(lambda: torch.mv(W, xx)), key=key)
+            check_residual(torch, record, "dia_residual_halo", dt, dt_name, timer,
+                           lambda: hk.dia_residual_halo_cuda(d64, offs, b64, x64, l64, r64, dt),
+                           lambda: hk.dia_residual_halo_plain(d64, offs, b64, x64, l64, r64, dt),
+                           b64.abs() + hk.dia_spmv_halo_plain(d64.abs(), offs, x64, l64, r64),
+                           (D + 3) * r * 8 + (hl + hr) * 8, (2 * D + 5) * r, key=key)
+            del W, xx
+        torch.cuda.synchronize()
+        del d64, x64, l64, r64, b64
+    record.require_ok()
+
+
+def dist_rank(cases):
+    """One rank of the convdiff-dist path, in a spawned process sharing the
+    card: the distributed dryrun, then every case (``run_cases``); returns
+    their results and the launch counts of this rank's solves."""
+    from gmres_tpu_torch.ops.cuda import launch_counts
+    from gmres_tpu_torch.parallel.dist_gmres import dryrun_on_rank, run_cases
+
+    before = launch_counts()
+    t0 = time.perf_counter()
+    dry = dryrun_on_rank("cuda")
+    dry_seconds = time.perf_counter() - t0
+    results = run_cases(cases, "cuda")
+    after = launch_counts()
+    return dict(dryrun=dry, dryrun_seconds=dry_seconds, results=results,
+                launches={k: after[k] - before[k] for k in after})
+
+
+def convdiff_dist_path(torch, record, A, x_single, walls_single):
+    """The distributed path: K12 checked at the row blocks of convdiff@1M,
+    then DIST_RANKS gloo ranks on this card run the dryrun, CGSR in both
+    modes (the reference's 26/780, x against the single-card solve of the
+    first path), mixed MGS under the low_sync_mgs=None rule (26/780), MGS
+    sequential and ICWY interleaved, cut at DIST_MGS_RESTARTS restarts (the
+    evidence for that rule on CUDA), and ILU-Jacobi(3) mixed at
+    convdiff(512); returns the ranks' summed launch counts."""
+    from gmres_tpu_torch import rand_vect
+    from gmres_tpu_torch.io.synth import convection_diffusion_2d
+    from gmres_tpu_torch.parallel import launch
+
+    check_halo_kernels(torch, A, record)
+    A512 = convection_diffusion_2d(NX_262K, beta=2.0)
+    b, b512 = (-csr_residual(M, rand_vect(M.n_rows, 42), np.zeros(M.n_rows))
+               for M in (A, A512))
+    cases = [dict(label=f"cgsr {mode}", A=A, b=b, cfg=config(mode, "identity"))
+             for mode in ("baseline", "mixed")]
+    cases.append(dict(label="mgs default mixed", A=A, b=b,
+                      cfg=config("mixed", "identity", orth="mgs")))
+    for rep in range(DIST_MGS_REPS):
+        forms = ("sequential", "icwy") if rep % 2 == 0 else ("icwy", "sequential")
+        cases += [dict(label=f"mgs {form} mixed cut", A=A, b=b,
+                       cfg=config("mixed", "identity", orth="mgs", low_sync_mgs=form == "icwy")
+                       .with_(max_restarts=DIST_MGS_RESTARTS)) for form in forms]
+    cases.append(dict(label="ilu_jacobi(3) mixed 262K", A=A512, b=b512,
+                      cfg=config("mixed", "ilu_jacobi", jacobi_steps=3)))
+    t0 = time.perf_counter()
+    ranks = launch.spawn(dist_rank, DIST_RANKS, args=(cases,), timeout=DIST_TIMEOUT,
+                         threads=2)
+    log(f"convdiff-dist: {DIST_RANKS} gloo ranks on one card, {len(cases)} solves, "
+        f"{time.perf_counter() - t0:.1f} s from spawn to the last rank's result")
+    log(f"  dryrun (poisson_2d(10), mixed ILU-Jacobi(2)) per rank: "
+        f"{[r['dryrun'] for r in ranks]}, {max(r['dryrun_seconds'] for r in ranks):.2f} s")
+    walls = {}
+    for i, case in enumerate(cases):
+        res = [r["results"][i] for r in ranks]
+        first = res[0]
+        require(all((q["restarts"], q["total_iters"]) == (first["restarts"], first["total_iters"])
+                    and np.array_equal(q["x"], first["x"]) for q in res[1:]),
+                f"dist {case['label']}: every rank holds the same result")
+        M = case["A"]
+        x = first["x"]
+        backward = float(np.linalg.norm(csr_residual(M, x, case["b"]))
+                         / (np.linalg.norm(case["b"])
+                            + np.linalg.norm(M.vals.numpy()) * np.linalg.norm(x)))
+        wall = max(q["seconds"] for q in res)
+        walls.setdefault(case["label"], []).append(wall)
+        log(f"solve dist {case['label']}: converged={first['converged']} "
+            f"restarts={first['restarts']} total_iters={first['total_iters']} wall {wall:.4f} s "
+            f"(ranks {[round(q['seconds'], 4) for q in res]}) backward_err={backward:.3e}")
+        require(x.shape == (M.n_rows,) and np.all(np.isfinite(x)),
+                f"dist {case['label']}: x finite, shape ({M.n_rows},)")
+        if case["label"].endswith("cut"):
+            require(first["aborted"] and first["restarts"] == DIST_MGS_RESTARTS,
+                    f"dist {case['label']}: cut at {DIST_MGS_RESTARTS} restarts")
+            continue
+        require(first["converged"] and backward <= 1e-8,
+                f"dist {case['label']}: converged, backward error {backward:.3e} <= 1e-8")
+        if M is A:
+            want = MGS_HISTORY if case["label"].startswith("mgs") else (26, TPU_ITERS)
+            require(abs(first["restarts"] - want[0]) <= 1,
+                    f"dist {case['label']}: {first['restarts']}/{first['total_iters']} not "
+                    f"within one restart of {want[0]}/{want[1]}")
+        if case["label"].startswith("cgsr"):
+            mode = case["label"].split()[1]
+            diff = float(np.linalg.norm(x - x_single[mode]) / np.linalg.norm(x_single[mode]))
+            log(f"  x against the single-card solve ({mode}): rel diff {diff:.3e}")
+            require(diff <= 1e-6, f"dist cgsr {mode}: x within 1e-6 of the single-card x "
+                                  f"({diff:.3e})")
+    for r, rank in enumerate(ranks):
+        c = rank["launches"]
+        log(f"  launches convdiff-dist rank {r}: {c}")
+        require(all(c[k] > 0 for k in DIST_KERNELS) and all(c[k] == 0 for k in DIST_IDLE),
+                f"dist rank {r}: K12 both modes launched; no K1, K5, K6, K7, K8-K11 ({c})")
+    for mode in ("baseline", "mixed"):
+        log(f"dist wall {mode} cgsr {walls[f'cgsr {mode}'][0]:.4f} s against the single "
+            f"card's {walls_single[mode]:.4f} s (ratio "
+            f"{walls[f'cgsr {mode}'][0] / walls_single[mode]:.4f})")
+    steps = DIST_MGS_RESTARTS * RLEN
+    med = {f: statistics.median(walls[f"mgs {f} mixed cut"]) for f in ("sequential", "icwy")}
+    log(f"dist mgs mixed, {DIST_MGS_REPS} interleaved solves of {steps} steps each (s): "
+        + "; ".join(f"{f} median {med[f]:.4f} {[round(w, 4) for w in walls[f'mgs {f} mixed cut']]}"
+                    f" ({1e3 * med[f] / steps:.2f} ms a step)" for f in med)
+        + f"; icwy/sequential {med['icwy'] / med['sequential']:.4f}")
+    return {k: sum(rank["launches"][k] for rank in ranks) for k in ranks[0]["launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -1259,7 +1452,7 @@ def main() -> int:
     log(f"matrix: convection_diffusion_2d({NX}, beta=2.0) n={A.n_rows:,} "
         f"nnz={A.nnz:,} built in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    convdiff_counts, A_dev = convdiff_path(torch, record, A)
+    convdiff_counts, x_single, walls_single, A_dev = convdiff_path(torch, record, A)
     t1 = time.perf_counter()
     mesh3d_counts = mesh3d_path(torch, record)
     t2 = time.perf_counter()
@@ -1268,13 +1461,18 @@ def main() -> int:
     mgs_counts = convdiff_mgs_path(torch, record, A, A_dev, copy_gbs)
     t4 = time.perf_counter()
     df64_counts = convdiff_df64_path(torch, record, A, A_dev)
+    t5 = time.perf_counter()
+    dist_counts = convdiff_dist_path(torch, record, A, x_single, walls_single)
     log(f"path seconds: convdiff {t1 - t0:.1f}, mesh3d {t2 - t1:.1f}, "
         f"convdiff-ilu {t3 - t2:.1f}, convdiff-mgs {t4 - t3:.1f}, "
-        f"convdiff-df64 {time.perf_counter() - t4:.1f}")
+        f"convdiff-df64 {t5 - t4:.1f}, convdiff-dist {time.perf_counter() - t5:.1f}")
     path_counts = (convdiff_counts, mesh3d_counts, ilu_counts, mgs_counts)
     require(all(c[k] == 0 for c in path_counts for k in DF64_KERNELS),
             f"K8-K11 launched on the df64 path only ({path_counts})")
     path_counts += (df64_counts,)
+    require(all(c[k] == 0 for c in path_counts for k in DIST_KERNELS),
+            f"K12 launched on the distributed path only ({path_counts})")
+    path_counts += (dist_counts,)
     counts = {k: sum(c[k] for c in path_counts) for k in kernel_wrappers()}
     require(all(v > 0 for v in counts.values()), f"every kernel launched on some path ({counts})")
     records = record.records
@@ -1283,8 +1481,9 @@ def main() -> int:
     # JSON numbers are the fp32 variant (the mixed inner loop; for the
     # residual modes the fp64 residual with its fp32-demoted norm; for K7,
     # K2x2 and K3 plain the 31-row basis) and for K8-K11 the df64 variant
-    # (31 rows), the other variants alongside; launches are summed over the
-    # five paths' solves
+    # (31 rows), for K12 the interior block, the other variants alongside;
+    # launches are summed over the six paths' solves (the distributed one's
+    # over its ranks)
     sources = {
         "dia_spmv": ("gmres_tpu_torch/csrc/dia_spmv.cu",
                      "gmres_tpu/ops/pallas/spmv_kernel.py:88"),
@@ -1320,6 +1519,10 @@ def main() -> int:
                            "gmres_tpu/ops/pallas/df64_kernel.py:602"),
         "df_update_sumsq": ("gmres_tpu_torch/csrc/df64_sweep.cu",
                             "gmres_tpu/ops/pallas/df64_kernel.py:656"),
+        "dia_spmv_halo": ("gmres_tpu_torch/csrc/dia_halo.cu",
+                          "gmres_tpu/ops/pallas/spmv_kernel.py:88"),
+        "dia_residual_halo": ("gmres_tpu_torch/csrc/dia_halo.cu",
+                              "gmres_tpu/ops/pallas/df64_kernel.py:243"),
     }
     require(set(sources) == set(kernel_wrappers()), "every kernel has a JSON entry")
     kernels = []

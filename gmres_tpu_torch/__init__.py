@@ -11,6 +11,9 @@ reference; this package imports neither JAX nor ``gmres_tpu``.
                                       orth="cgsr", precond="identity"))
 
 ``solve`` runs on ``device="cuda"`` unless told ``device="cpu"``.
+``solve_distributed`` splits the rows over the ranks of a
+``torch.distributed`` group, each rank calling it alike
+(``parallel/launch.py`` starts the ranks).
 """
 
 from gmres_tpu_torch.config import (
@@ -24,6 +27,7 @@ from gmres_tpu_torch.config import (
 from gmres_tpu_torch.io.rng import rand_vect
 from gmres_tpu_torch.ops.dia import DIAMatrix
 from gmres_tpu_torch.ops.sell import SELLMatrix, sell_from_csr
+from gmres_tpu_torch.parallel.dist_gmres import solve_distributed
 from gmres_tpu_torch.solver.gmres import GmresResult, solve, stage
 from gmres_tpu_torch.sparse import CSRMatrix, csr_from_coo, csr_from_dense
 
@@ -43,5 +47,6 @@ __all__ = [
     "rand_vect",
     "sell_from_csr",
     "solve",
+    "solve_distributed",
     "stage",
 ]

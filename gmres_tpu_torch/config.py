@@ -186,15 +186,18 @@ class GmresConfig:
         return dataclasses.replace(self, **kw)
 
 
-def use_lowsync_mgs(cfg: GmresConfig, device_type: str) -> bool:
+def use_lowsync_mgs(cfg: GmresConfig, device_type: str, distributed: bool = False) -> bool:
     """Whether an MGS solve runs the one-reduce ICWY step instead of the
     sequential recurrence.  ``low_sync_mgs=True`` or ``False`` forces the
     form on every device; ``None`` takes ``LOWSYNC_MGS_DEFAULT`` (or, for a
-    df64 cycle, ``LOWSYNC_MGS_DF64_DEFAULT``) for the device type."""
+    df64 cycle, ``LOWSYNC_MGS_DF64_DEFAULT``; for a distributed cycle,
+    ``LOWSYNC_MGS_DIST_DEFAULT`` by inner dtype) for the device type."""
     if cfg.orth != Orth.MGS:
         return False
     if cfg.low_sync_mgs is not None:
         return bool(cfg.low_sync_mgs)
+    if distributed:
+        return LOWSYNC_MGS_DIST_DEFAULT[device_type][cfg.precision.inner]
     table = LOWSYNC_MGS_DF64_DEFAULT if cfg.precision.df64_inner else LOWSYNC_MGS_DEFAULT
     return table[device_type]
 
@@ -216,3 +219,15 @@ LOWSYNC_MGS_DEFAULT = {"cpu": False, "cuda": False}
 # wall against ICWY's 0.3248, and whole solves 2.9628 s against 1.5394
 # (medians of 3 interleaved; chip_smoke.py, PERF.md).
 LOWSYNC_MGS_DF64_DEFAULT = {"cpu": False, "cuda": True}
+
+# The same for distributed cycles, by inner dtype.  CPU: the JAX package's
+# rule, ICWY for non-fp64 cycles and sequential for fp64 ones
+# (gmres_tpu/solver/gmres.py:204-208).  CUDA: ICWY in both.  Distributed
+# sequential MGS sums each of its k+1 dots over the ranks before the next
+# row can start (one collective a row, in plain torch), where ICWY sums
+# twice a step: with 4 gloo ranks sharing one H100 at convdiff@1M, whole
+# solves took 52.83 s sequential against 10.09 s ICWY in mixed and 59.56 s
+# against 11.79 s in baseline (medians of 3 and 2 interleaved, 26/780 each;
+# chip_smoke.py, PERF.md).
+LOWSYNC_MGS_DIST_DEFAULT = {"cpu": {"float32": True, "float64": False},
+                            "cuda": {"float32": True, "float64": True}}

@@ -16,6 +16,7 @@ def kernel_wrappers() -> dict:
         df_update_sumsq_cuda,
     )
     from gmres_tpu_torch.ops.cuda.df64_spmv_kernel import dia_spmv_df64_cuda
+    from gmres_tpu_torch.ops.cuda.halo_kernel import dia_residual_halo_cuda, dia_spmv_halo_cuda
     from gmres_tpu_torch.ops.cuda.mgs_kernel import mgs_cuda
     from gmres_tpu_torch.ops.cuda.orth_kernel import (
         gram2_cuda,
@@ -50,6 +51,8 @@ def kernel_wrappers() -> dict:
         "df_gram": df_gram_cuda,
         "df_update_gram": df_update_gram_cuda,
         "df_update_sumsq": df_update_sumsq_cuda,
+        "dia_spmv_halo": dia_spmv_halo_cuda,
+        "dia_residual_halo": dia_residual_halo_cuda,
     }
 
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from gmres_tpu_torch.ops.blas import all_reduce
 from gmres_tpu_torch.ops.cuda._build import check, kernel_dtype, library
 
 
@@ -167,14 +168,17 @@ def update_sumsq(V, w, u, rows: int):
             else update_sumsq_plain(V, w, u, rows))
 
 
-def cgsr2(V, w, rows: int):
+def cgsr2(V, w, rows: int, comm=None):
     """One CGSR step (two CGS passes) in three basis sweeps:
 
         u1 = V w;  (w1, u2) = update_gram;  (w2, ss) = update_sumsq
 
     Returns (h = u1 + u2, w2, ||w2||), the norm exact for the returned
-    vector (``orth_kernel.py:cgsr2_pallas``)."""
-    u1 = gram(V, w, rows)
+    vector (``orth_kernel.py:cgsr2_pallas``).  With ``comm`` each sweep's
+    reduction (u1, u2, ss) is summed over the ranks before the next sweep
+    uses it (``orth_kernel.py:248-256``)."""
+    u1 = all_reduce(gram(V, w, rows), comm)
     w1, u2 = update_gram(V, w, u1, rows)
+    u2 = all_reduce(u2, comm)
     w2, ss = update_sumsq(V, w1, u2, rows)
-    return u1 + u2, w2, torch.sqrt(ss)
+    return u1 + u2, w2, torch.sqrt(all_reduce(ss, comm))

@@ -5,8 +5,9 @@ PyTorch version.
 
 Replaces ``gmres_tpu/ops/pallas/df64_kernel.py``'s ``residual_df64`` and
 ``axpy_df64``, and ``gmres_tpu/ops/pallas/sell_kernel.py``'s
-``sell_spmv_df64`` where it computes the outer residual.  On the TPU these
-carried every fp64 value as a double-float pair of fp32s (hi + lo, about
+``sell_spmv_df64`` where it computes the outer residual (and, through K12
+for a rank's block of a halo DIA operator, ``residual_df64_halo``).  On the
+TPU these carried every fp64 value as a double-float pair of fp32s (hi + lo, about
 2^-48 relative), because the TPU has no fp64 units and XLA emulates fp64
 in software.  The H100 has fp64 units, so the pair disappears: x, b and r
 are plain fp64 tensors and the kernels compute in native fp64.  That is also what the JAX package computes on the CPU, so
@@ -23,22 +24,31 @@ from gmres_tpu_torch.ops.cuda.spmv_kernel import dia_residual_cuda, dia_residual
 from gmres_tpu_torch.ops.dia import DIAMatrix
 from gmres_tpu_torch.ops.sell import SELLMatrix
 from gmres_tpu_torch.ops.spmv import spmv
+from gmres_tpu_torch.parallel.halo import LocalHaloDIA, halo_residual
 
 
-def outer_residual(A, b: torch.Tensor, x: torch.Tensor, inner_dtype: torch.dtype):
+def outer_residual(A, b: torch.Tensor, x: torch.Tensor, inner_dtype: torch.dtype, comm=None):
     """(r, ||r'||^2, ||x||^2) for r = b - A x in the outer dtype, r' = r
     rounded to the inner dtype (sums as fp64 0-d tensors).  On the card a
-    DIA operator takes K1's residual mode and a SELL operator K5's; a CPU
-    operator, or a CSR one, the plain version."""
+    DIA operator takes K1's residual mode, a SELL operator K5's and a
+    rank's block of a halo DIA operator K12's; a CPU operator, or a CSR
+    one, the plain version.  With ``comm`` the rows are the rank's and the
+    two sums are summed over the ranks in one collective."""
     if isinstance(A, DIAMatrix):
         fn = dia_residual_cuda if A.data.is_cuda else dia_residual_plain
         return fn(A.data, A.offsets, b, x, inner_dtype)
     if isinstance(A, SELLMatrix):
         fn = sell_residual_cuda if A.vals.is_cuda else sell_residual_plain
         return fn(A.vals, A.cols, A.slice_ptr, b, x, inner_dtype)
-    r = b - spmv(A, x)
-    ri = r.to(inner_dtype)
-    return r, torch.dot(ri, ri).to(torch.float64), torch.dot(x, x).to(torch.float64)
+    if isinstance(A, LocalHaloDIA):
+        r, r_ss, x_ss = halo_residual(A, b, x, inner_dtype, comm)
+    else:
+        r = b - spmv(A, x, comm)
+        ri = r.to(inner_dtype)
+        r_ss, x_ss = torch.dot(ri, ri).to(torch.float64), torch.dot(x, x).to(torch.float64)
+    if comm is not None:
+        r_ss, x_ss = comm.all_reduce_sum(torch.stack([r_ss, x_ss])).unbind()
+    return r, r_ss, x_ss
 
 
 def basis_axpy_plain(x: torch.Tensor, V: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

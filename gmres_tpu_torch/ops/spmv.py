@@ -7,6 +7,11 @@ over the precomputed row ids, as the JAX package leaves its CSR path to
 XLA.  A double-float ``DF64Dia`` takes an fp64 x through split, kernel K8
 and merge (``gmres_tpu/ops/spmv.py:66-70``).  The JAX package's ``DF64Sell``
 has no counterpart: the port's fp64 SELL operator runs K5 in native fp64.
+
+In a distributed solve (``comm`` given) a rank's block of a halo operator
+goes to ``parallel/halo.py:halo_spmv`` (K12 on the card for a DIA block);
+any other operator is the rank's row block with global columns, and the
+operand is all-gathered first (``gmres_tpu/ops/spmv.py:gather_operand``).
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch
 from gmres_tpu_torch.ops.dia import DF64Dia, DIAMatrix, dia_spmv, dia_spmv_df64
 from gmres_tpu_torch.ops.eft import merge_f64, split_f64
 from gmres_tpu_torch.ops.sell import SELLMatrix, sell_spmv
+from gmres_tpu_torch.parallel.halo import LocalHaloCSR, LocalHaloDIA, halo_spmv
 from gmres_tpu_torch.sparse import CSRMatrix
 
 
@@ -26,9 +32,14 @@ def csr_spmv(A: CSRMatrix, x: torch.Tensor) -> torch.Tensor:
     return y.index_add_(0, A.row_ids, prod)
 
 
-def spmv(A, x: torch.Tensor) -> torch.Tensor:
+def spmv(A, x: torch.Tensor, comm=None) -> torch.Tensor:
     """y = A @ x in A's dtype; x is cast to A's dtype first (fp64 for a
-    ``DF64Dia``)."""
+    ``DF64Dia``).  With ``comm``, this rank's rows of y from its block of
+    x."""
+    if isinstance(A, (LocalHaloDIA, LocalHaloCSR)):
+        return halo_spmv(A, x, comm)
+    if comm is not None:
+        x = comm.all_gather(x)
     if isinstance(A, DIAMatrix):
         return dia_spmv(A, x)
     if isinstance(A, SELLMatrix):

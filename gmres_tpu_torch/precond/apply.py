@@ -14,6 +14,10 @@ Each sweep is one SpMV (K1 on DIA factors, K5 on sliced-ELL ones) and
 elementwise torch ops.  The exact-ILU DIA form goes to kernel K6 (its
 simplified U sweep x <- D^-1 (b' - U_s x), ``trisolve_kernel.py:32-36``) on
 a CUDA tensor and to K6's plain versions on a CPU one.
+
+In a distributed solve ``w`` is the rank's block and ``comm`` reaches each
+sweep's SpMV (a halo exchange or an allgather, ``ops/spmv.py``); Jacobi
+needs none.
 """
 
 from __future__ import annotations
@@ -31,13 +35,13 @@ from gmres_tpu_torch.precond.build import (
 from gmres_tpu_torch.precond.level_ilu import LevelILUPrec, level_ilu_apply
 
 
-def _ilu_jacobi_apply(M: ILUJacobiPrec, w: torch.Tensor) -> torch.Tensor:
+def _ilu_jacobi_apply(M: ILUJacobiPrec, w: torch.Tensor, comm=None) -> torch.Tensor:
     x = w
     for _ in range(M.steps):
-        x = w - spmv(M.lower, x)
+        x = w - spmv(M.lower, x, comm)
     b2 = x
     for _ in range(M.steps):
-        x = x + M.inv_diag * (b2 - spmv(M.upper, x))
+        x = x + M.inv_diag * (b2 - spmv(M.upper, x, comm))
     return x
 
 
@@ -50,14 +54,16 @@ def _exact_ilu_apply(M: ExactILUDIAPrec, w: torch.Tensor) -> torch.Tensor:
     return fn(*args, M.steps_l, M.steps_u)
 
 
-def apply_preconditioner(M, w: torch.Tensor) -> torch.Tensor:
+def apply_preconditioner(M, w: torch.Tensor, comm=None) -> torch.Tensor:
     """M^{-1} w in M's dtype."""
     if isinstance(M, IdentityPrec):
         return w
     if isinstance(M, JacobiPrec):
         return M.inv_diag * w
     if isinstance(M, ILUJacobiPrec):
-        return _ilu_jacobi_apply(M, w)
+        return _ilu_jacobi_apply(M, w, comm)
+    if comm is not None:
+        raise TypeError(f"{type(M).__name__} has no distributed apply")
     if isinstance(M, ExactILUDIAPrec):
         return _exact_ilu_apply(M, w)
     if isinstance(M, LevelILUPrec):
@@ -65,11 +71,11 @@ def apply_preconditioner(M, w: torch.Tensor) -> torch.Tensor:
     raise TypeError(f"unknown preconditioner {type(M).__name__}")
 
 
-def typesafe_apply(M, w: torch.Tensor) -> torch.Tensor:
+def typesafe_apply(M, w: torch.Tensor, comm=None) -> torch.Tensor:
     """Apply M in its own dtype, round-tripping w if needed."""
     if isinstance(M, IdentityPrec):
         return w
     m_dtype = M.inv_diag.dtype
     if w.dtype == m_dtype:
-        return apply_preconditioner(M, w)
-    return apply_preconditioner(M, w.to(m_dtype)).to(w.dtype)
+        return apply_preconditioner(M, w, comm)
+    return apply_preconditioner(M, w.to(m_dtype), comm).to(w.dtype)

@@ -312,12 +312,16 @@ def build_preconditioner(A, cfg: GmresConfig):
     """Build the preconditioner in the configured dtype from the (fp64)
     assembled matrix; the result lies on the CPU."""
     dtype = cfg.precision.precond_dtype
+    if cfg.precond == Precond.BILU_JACOBI:
+        # the JAX package's refusal, word for word (gmres_tpu/precond/build.py:487-493)
+        raise ValueError(
+            "precond='bilu_jacobi' is the distributed block-Jacobi ILU "
+            "(each shard factors its diagonal block — precond/bilu.py); "
+            "use solve_distributed, or precond='ilu_jacobi' for "
+            "single-device solves"
+        )
     if cfg.precond == Precond.IDENTITY:
         return IdentityPrec()
-    if cfg.precond == Precond.BILU_JACOBI:
-        raise NotImplementedError(
-            "precond='bilu_jacobi' is the distributed block-Jacobi ILU, slice 7 "
-            "of the port")
     if dtype not in _NUMPY_DTYPE:
         raise NotImplementedError(
             f"a {dtype} preconditioner is slice 5b of the port (bf16 tier)")

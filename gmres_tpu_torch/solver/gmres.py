@@ -73,7 +73,7 @@ import torch
 
 from gmres_tpu_torch.config import GmresConfig, PrecisionSpec, RestartPolicy, use_lowsync_mgs
 from gmres_tpu_torch.ops import df64
-from gmres_tpu_torch.ops.blas import nrm2
+from gmres_tpu_torch.ops.blas import all_reduce, nrm2
 from gmres_tpu_torch.ops.cuda.orth_kernel import gram
 from gmres_tpu_torch.ops.cuda.outer_kernel import basis_axpy, basis_axpy_pair, outer_residual
 from gmres_tpu_torch.ops.dia import DF64Dia, DIAMatrix, from_csr
@@ -146,26 +146,28 @@ class _NativeBasis:
     shape (m+1, n), swept by K2/K3 (CGS, CGSR), K7 (sequential MGS) or
     K2x2 and K3 (ICWY MGS, with its coupling matrix L in the same dtype)."""
 
-    def __init__(self, cfg: GmresConfig, A_in, M, w0: torch.Tensor, beta: torch.Tensor):
-        self.cfg, self.A_in, self.M = cfg, A_in, M
+    def __init__(self, cfg: GmresConfig, A_in, M, w0: torch.Tensor, beta: torch.Tensor,
+                 comm=None):
+        self.cfg, self.A_in, self.M, self.comm = cfg, A_in, M, comm
         self.dtype = cfg.precision.inner_dtype
         m, dev = cfg.m, w0.device
         self.V = torch.zeros((m + 1, w0.shape[0]), dtype=self.dtype, device=dev)
         self.V[0] = torch.where(beta != 0, w0 / beta, torch.zeros_like(w0))
-        self.lowsync = use_lowsync_mgs(cfg, dev.type)
+        self.lowsync = use_lowsync_mgs(cfg, dev.type, distributed=comm is not None)
         self.L = (torch.zeros((m + 1, m + 1), dtype=self.dtype, device=dev)
                   if self.lowsync else None)
 
     def step(self, k: int):
         """Arnoldi step k: w = M^{-1} A v_k orthogonalized against rows
         0..k, normalized into row k+1.  Returns (h_col, ||w||)."""
-        V, cfg = self.V, self.cfg
-        w = typesafe_apply(self.M, spmv(self.A_in, V[k]))
+        V, cfg, comm = self.V, self.cfg, self.comm
+        w = typesafe_apply(self.M, spmv(self.A_in, V[k], comm), comm)
         if self.lowsync:
-            h_col, w, ss, self.L = mgs_lowsync_step(V, k, w, self.L)
+            h_col, w, ss, self.L = mgs_lowsync_step(V, k, w, self.L, comm)
             h_next = torch.sqrt(ss)
         else:
-            h_col, w, h_next = orthonormalize_step(cfg.orth.value, V, k, w, cfg.orth_steps)
+            h_col, w, h_next = orthonormalize_step(cfg.orth.value, V, k, w, cfg.orth_steps,
+                                                   comm)
         # the reference divides unconditionally (Orthogonalization.hpp:59);
         # a zero h(k+1,k) gives a zero vector instead of NaNs
         V[k + 1] = torch.where(h_next != 0, w / h_next, torch.zeros_like(w))
@@ -173,7 +175,7 @@ class _NativeBasis:
 
     def gram_next(self, k: int) -> torch.Tensor:
         """<v_j, v_{k+1}> for j <= k: K2 over rows 0..k leaves row k+1 out."""
-        return gram(self.V, self.V[k + 1], k + 1)
+        return all_reduce(gram(self.V, self.V[k + 1], k + 1), self.comm)
 
     def update(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return basis_axpy(x, self.V, y)
@@ -275,21 +277,27 @@ def _inner_cycle(cfg: GmresConfig, basis, beta: torch.Tensor, steps: int, restar
 
 
 def restart_cycle(cfg: GmresConfig, A_out, A_in, M, b, x, b_norm, minvb_norm,
-                  a_norm, pstate: PolicyState, pending: torch.Tensor | None = None):
+                  a_norm, pstate: PolicyState, pending: torch.Tensor | None = None,
+                  comm=None):
     """One outer iteration: the residual and the check_initial quantities,
     read to the host together with ``pending`` (the previous cycle's
     k_final and |s(k+1)|) in the cycle's one host read; then unless
     converged the inner loop and the in-place solution update.  Returns
-    (x, CycleInfo)."""
+    (x, CycleInfo).
+
+    With ``comm`` (a distributed solve, ``parallel/dist_gmres.py``) the
+    operators, M, b and x are the rank's blocks and every reduction is
+    summed over the ranks, so the scalars read here are the same on every
+    rank; the df64 tier does not run distributed."""
     in_dt = cfg.precision.inner_dtype
-    r, r_ss, x_ss = outer_residual(A_out, b, x, in_dt)
+    r, r_ss, x_ss = outer_residual(A_out, b, x, in_dt, comm)
     if cfg.precision.df64_inner:
         # the fp64 residual split into a pair is the df64 start vector
         w0h, w0l = df64.typesafe_apply_df64(M, *df64.split_f64(r))
         beta = df64.df_norm(w0h, w0l)
     else:
-        w0 = typesafe_apply(M, r.to(in_dt))
-        beta = nrm2(w0)
+        w0 = typesafe_apply(M, r.to(in_dt), comm)
+        beta = nrm2(w0, comm)
     r_norm = torch.sqrt(r_ss)
     rel_initial = r_norm / (b_norm + a_norm * torch.sqrt(x_ss))
     prec_rel0 = beta.to(_f64) / minvb_norm
@@ -311,7 +319,7 @@ def restart_cycle(cfg: GmresConfig, A_out, A_in, M, b, x, b_norm, minvb_norm,
     restart_tol = cycle_threshold(cfg, pstate, prec)
     steps = cycle_steps(cfg, pstate)
     basis = (_PairBasis(cfg, A_in, M, w0h, w0l, beta) if cfg.precision.df64_inner
-             else _NativeBasis(cfg, A_in, M, w0, beta))
+             else _NativeBasis(cfg, A_in, M, w0, beta, comm))
     H, Q, kdim, k_fin, arn = _inner_cycle(cfg, basis, beta, steps, restart_tol, pstate,
                                           minvb_norm)
     # solution_update (gmres.cpp:276-303): y = H[:k,:k]^{-1} s[:k] with
@@ -430,7 +438,9 @@ def _require_supported(cfg: GmresConfig) -> None:
         raise NotImplementedError(
             "the compressed-basis and bf16 precision tiers are slice 5b of the port")
     if cfg.axis_name is not None:
-        raise NotImplementedError("distributed solves (axis_name) are slice 7 of the port")
+        raise NotImplementedError(
+            "axis_name names the JAX package's mesh axis; a distributed solve is "
+            "gmres_tpu_torch.solve_distributed, called on every rank")
 
 
 def _format(A, cfg: GmresConfig):

@@ -3,8 +3,10 @@ at small and ragged sizes (n not a multiple of the block, tile, slice or
 segment; n below one tile; empty rows; a long row; n_cols != n_rows;
 one-sided factors; identity tail segments; rows < m+1), K7 bit for bit
 across grid sizes and forms, the df64 kernels K8-K11 and K4's pair mode
-(K8 and the updated pair of K10/K11 bit for bit), and small DIA, SELL, ILU,
-MGS and df64 solves on the card against the same solves on the CPU.
+(K8 and the updated pair of K10/K11 bit for bit), K12 (a rank's halo DIA
+block) in plain and residual modes at interior and boundary shards, and
+small DIA, SELL, ILU, MGS, df64 and distributed (two gloo ranks sharing the
+card) solves on the card against the same solves on the CPU.
 
 These need an NVIDIA GPU with the CUDA toolkit: they carry the ``cuda``
 marker and skip elsewhere.  On the card:
@@ -226,6 +228,7 @@ PATH_KERNELS = {"dia": {"dia_spmv", "dia_residual"}, "sell": {"sell_spmv", "sell
 ILU_KERNELS = {"ilu_trisolve_fused", "ilu_trisolve_segmented"}
 MGS_KERNELS = {"basis_mgs", "basis_gram2", "basis_update"}  # MGS and orth_steps != 2 only
 DF64_KERNELS = {"dia_spmv_df64", "df_gram", "df_update_gram", "df_update_sumsq"}  # df64 only
+DIST_KERNELS = {"dia_spmv_halo", "dia_residual_halo"}  # distributed halo DIA only
 
 
 @pytest.mark.parametrize("fmt", ["dia", "sell"])
@@ -245,7 +248,7 @@ def test_solve_on_card_matches_cpu(mode, fmt):
     res = gmres_tpu_torch.solve(A, b, cfg)
     counts = launch_counts()
     other = (PATH_KERNELS["sell" if fmt == "dia" else "dia"] | ILU_KERNELS | MGS_KERNELS
-             | DF64_KERNELS)
+             | DF64_KERNELS | DIST_KERNELS)
     assert all(counts[k] > 0 for k in counts if k not in other), counts
     assert all(counts[k] == 0 for k in other), counts
     ref = gmres_tpu_torch.solve(A, b, cfg, device="cpu")
@@ -542,3 +545,80 @@ def test_df64_solve_on_card_matches_cpu(orth, low_sync):
     assert (res.restarts, res.total_iters) == (ref.restarts, ref.total_iters)
     xr = ref.x.numpy()
     assert np.linalg.norm(res.x.cpu().numpy() - xr) / np.linalg.norm(xr) <= 1e-10
+
+
+@DTYPES
+@pytest.mark.parametrize("r,hl,hr", [(1000, 0, 0), (1000, 128, 0), (70001, 128, 128),
+                                     (70001, 256, 128)])
+@pytest.mark.parametrize("side", ["interior", "first", "last"])
+def test_dia_halo_spmv_and_residual(dt, r, hl, hr, side):
+    # K12 over a block of r rows and received edges of hl and hr values (the
+    # first and last ranks receive zeros on their open side); the outer
+    # offsets reach to the ends of the edges, or past the block where an
+    # edge is empty
+    from gmres_tpu_torch.ops.cuda import halo_kernel as hk
+
+    offsets = (-max(hl, 2), -1, 0, 1, max(hr, 2))
+    rng = np.random.default_rng(r + hl + hr)
+    data = torch.tensor(rng.standard_normal((len(offsets), r)), dtype=dt, device="cuda")
+    x = torch.tensor(rng.standard_normal(r), dtype=dt, device="cuda")
+    left = torch.tensor(rng.standard_normal(hl), dtype=dt, device="cuda")
+    right = torch.tensor(rng.standard_normal(hr), dtype=dt, device="cuda")
+    if side == "first":
+        left.zero_()
+    elif side == "last":
+        right.zero_()
+    reset_launch_counts()
+    _close(hk.dia_spmv_halo_cuda(data, offsets, x, left, right),
+           hk.dia_spmv_halo_plain(data, offsets, x, left, right), dt)
+    d64, x64, l64, r64 = (t.double() for t in (data, x, left, right))
+    b = torch.tensor(rng.standard_normal(r), device="cuda")
+    got = hk.dia_residual_halo_cuda(d64, offsets, b, x64, l64, r64, dt)
+    want = hk.dia_residual_halo_plain(d64, offsets, b, x64, l64, r64, dt)
+    _close(got[0], want[0], torch.float64)
+    for g, w in zip(got[1:], want[1:]):
+        assert abs(float(g - w)) <= 1e-5 * float(w)
+    assert launch_counts()["dia_spmv_halo"] == launch_counts()["dia_residual_halo"] == 1
+
+
+def test_dia_halo_wrappers_refuse_what_the_kernel_does_not_take():
+    from gmres_tpu_torch.ops.cuda import halo_kernel as hk
+
+    data = torch.ones((3, 64), device="cuda")
+    x, edge = torch.ones(64, device="cuda"), torch.ones(8, device="cuda")
+    with pytest.raises(TypeError):
+        hk.dia_spmv_halo_cuda(data.half(), (-1, 0, 1), x.half(), edge.half(), edge.half())
+    with pytest.raises(ValueError):  # an edge on the CPU
+        hk.dia_spmv_halo_cuda(data, (-1, 0, 1), x, edge.cpu(), edge)
+    with pytest.raises(ValueError):  # x of the wrong length
+        hk.dia_spmv_halo_cuda(data, (-1, 0, 1), x[:63], edge, edge)
+    with pytest.raises(ValueError):  # offsets do not match the bands
+        hk.dia_spmv_halo_cuda(data, (-1, 0), x, edge, edge)
+
+
+@pytest.mark.parametrize("mode", ["baseline", "mixed"])
+def test_distributed_solve_on_card_matches_cpu(mode):
+    # two gloo ranks sharing the card: the halo DIA blocks go through K12 in
+    # both modes, and no rank launches K1, K5, K6, K7 or K8-K11
+    from gmres_tpu_torch.ops.cuda._build import library
+    from gmres_tpu_torch.parallel import launch
+    from gmres_tpu_torch.parallel.dist_gmres import run_cases
+
+    library()  # built here, so that the ranks load it
+    A = convection_diffusion_2d(32, beta=2.0)
+    b = A.to_scipy() @ gmres_tpu_torch.rand_vect(A.n_rows, 42)
+    cfg = gmres_tpu_torch.GmresConfig(
+        precision=gmres_tpu_torch.PrecisionSpec.from_mode(mode), orth="cgsr",
+        precond="identity", restart_length=30, tol=1e-8, max_restarts=80)
+    cases = [dict(A=A, b=b, cfg=cfg)]
+    card = launch.spawn(run_cases, 2, args=(cases, "cuda"))
+    cpu = launch.spawn(run_cases, 2, args=(cases, "cpu"))
+    idle = (PATH_KERNELS["dia"] | PATH_KERNELS["sell"] | ILU_KERNELS | DF64_KERNELS
+            | {"basis_mgs"})
+    for (got,), (ref,) in zip(card, cpu):
+        c = got["launches"]
+        assert all(c[k] > 0 for k in DIST_KERNELS) and all(c[k] == 0 for k in idle), c
+        assert got["converged"] and (got["restarts"], got["total_iters"]) == (
+            ref["restarts"], ref["total_iters"])
+        tol = 1e-9 if mode == "baseline" else 1e-5
+        assert np.linalg.norm(got["x"] - ref["x"]) / np.linalg.norm(ref["x"]) <= tol

@@ -49,7 +49,10 @@ def test_port_never_imports_jax_or_gmres_tpu():
             "gmres_tpu_torch/solver/policies.py", "gmres_tpu_torch/ops/df64.py",
             "gmres_tpu_torch/ops/eft.py", "gmres_tpu_torch/ops/cuda/df64_orth_kernel.py",
             "gmres_tpu_torch/ops/cuda/df64_spmv_kernel.py",
-            "gmres_tpu_torch/utils/checkpoint.py"} <= names
+            "gmres_tpu_torch/utils/checkpoint.py", "gmres_tpu_torch/parallel/dist_gmres.py",
+            "gmres_tpu_torch/parallel/halo.py", "gmres_tpu_torch/parallel/comm.py",
+            "gmres_tpu_torch/parallel/launch.py", "gmres_tpu_torch/parallel/partition.py",
+            "gmres_tpu_torch/ops/cuda/halo_kernel.py"} <= names
     assert len(files) > 15
     for path in files:
         for name in _imported_roots(path):
@@ -179,21 +182,65 @@ def test_solve_on_cuda_never_falls_back_to_cpu():
     dict(orth="cgsr", precond="identity",
          precision=gmres_tpu_torch.PrecisionSpec("float64", "float64", "float64",
                                                  basis="float32")),
-    dict(orth="cgsr", precond="bilu_jacobi"),
+    # distributed: the df64 tier (no ranks needed, it raises first)
+    dict(orth="cgsr", precond="identity", distributed=True,
+         precision=gmres_tpu_torch.PrecisionSpec.from_mode("df64")),
     dict(orth="mgs", precond="identity",
          precision=gmres_tpu_torch.PrecisionSpec("float64", "float32", "float32",
                                                  basis="bfloat16")),
-    dict(orth="cgsr", precond="identity", axis_name="x"),
+    # distributed: checkpoint=
+    dict(orth="cgsr", precond="identity", distributed=True, checkpoint=True),
     dict(orth="cgsr", precond="identity",
          precision=gmres_tpu_torch.PrecisionSpec("float32", "bfloat16", "bfloat16")),
     dict(orth="cgsr", precond="identity",
          precision=gmres_tpu_torch.PrecisionSpec("float64", "bfloat16", "bfloat16")),
 ])
 def test_unported_options_raise(cfg):
+    from gmres_tpu_torch.utils.checkpoint import CheckpointSpec
+
     A = synth.convection_diffusion_2d(8)
+    cfg = dict(cfg)
+    distributed = cfg.pop("distributed", False)
+    kw = {"checkpoint": CheckpointSpec(path="unused.ckpt")} if cfg.pop("checkpoint", False) else {}
+    fn = gmres_tpu_torch.solve_distributed if distributed else gmres_tpu_torch.solve
     with pytest.raises(NotImplementedError, match="slice"):
-        gmres_tpu_torch.solve(A, np.ones(A.n_rows), gmres_tpu_torch.GmresConfig(**cfg),
+        fn(A, np.ones(A.n_rows), gmres_tpu_torch.GmresConfig(**cfg), device="cpu", **kw)
+
+
+def test_single_device_bilu_jacobi_raises_the_references_value_error():
+    # block-Jacobi ILU is distributed-only in both packages, with one message
+    from gmres_tpu.precond.build import build_preconditioner as jax_build
+    from gmres_tpu_torch.precond.build import build_preconditioner
+
+    jax_A = jax_synth.convection_diffusion_2d(8)
+    errors = []
+    for build, A, pkg in ((jax_build, jax_A, gmres_tpu), (build_preconditioner,
+                                                         synth.convection_diffusion_2d(8),
+                                                         gmres_tpu_torch)):
+        with pytest.raises(ValueError, match="distributed block-Jacobi ILU") as e:
+            build(A, pkg.GmresConfig(orth="cgsr", precond="bilu_jacobi"))
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
+    with pytest.raises(ValueError, match="distributed block-Jacobi ILU"):
+        gmres_tpu_torch.solve(synth.convection_diffusion_2d(8), np.ones(64),
+                              gmres_tpu_torch.GmresConfig(orth="cgsr", precond="bilu_jacobi"),
                               device="cpu")
+
+
+def test_single_device_solve_refuses_axis_name():
+    A = synth.convection_diffusion_2d(8)
+    with pytest.raises(NotImplementedError, match="solve_distributed"):
+        gmres_tpu_torch.solve(A, np.ones(A.n_rows), gmres_tpu_torch.GmresConfig(
+            orth="cgsr", precond="identity", axis_name="x"), device="cpu")
+
+
+def test_kernel_registry_lists_every_kernel():
+    from gmres_tpu_torch.ops.cuda import kernel_wrappers, launch_counts, reset_launch_counts
+
+    names = set(kernel_wrappers())
+    assert {"dia_spmv_halo", "dia_residual_halo"} <= names and len(names) == 19
+    reset_launch_counts()
+    assert set(launch_counts().values()) == {0}
 
 
 def test_result_fields_and_defaults_match():

@@ -49,11 +49,17 @@ in fp64 numpy, CGSR unless said otherwise, restart length 30, tol 1e-8):
 
 Before each path's solves it holds each of the path's kernels against its
 plain PyTorch version at the path's shapes (fp32 and fp64; a 31-row Krylov
-basis) and times both, beside the kernel's bound (the larger of its bytes
-over the copy yardstick, its operations over the card's peak, and for the
-cooperative kernels K6 and K7 its grid barriers times one measured empty
-barrier of the same grid) and, where one PyTorch call computes the same
-function, that call's time.  Each path's launch counts are reset just
+basis) and times both (the card kept busy while the host enqueues the
+timed call, so that the events hold device time), beside the kernel's
+bound (the larger of its bytes over the copy yardstick, its operations
+over the card's peak, and for K7 its grid barriers and for K6 its levels'
+barriers times one measured empty barrier of the same sync) and, where
+one PyTorch call computes the same function, that call's time (K6: two
+CSR torch.triangular_solve calls).  K2 is also timed on 1-4 blocks per
+SM (the same bits on each) and shown to be one device kernel a call; K6
+is held bit for bit to its plain version, fused and segmented to each
+other, and timed on each sync candidate (one block, clusters, cooperative
+grids, each empty barrier measured) beside the old design's floor.  Each path's launch counts are reset just
 before its solves and read just after: the path's own kernels must launch,
 the other paths' SpMV kernels, (without ILU) K6, (without MGS, a policy
 or orth_steps != 2) the MGS kernels, (outside the df64 path) K8-K11 and
@@ -65,7 +71,8 @@ device it exits non-zero at once.  Each phase prints its seconds.
 
 Output: the card's name and power limit, versions, build time, per-kernel
 error, timing and bound lines, per-path build/stage and per-mode solve
-lines, K7's grid-size table and the sequential-vs-ICWY MGS walls, the
+lines, K2's grid table, K6's sync candidates, the exact-ILU solve walls,
+K7's grid-size table and the sequential-vs-ICWY MGS walls, the
 df64 step and solve walls, the distributed solves and walls beside the
 single card's; then one JSON line with the 19 kernels (launch counts from
 the solves, the distributed ones summed over the ranks; measured errors and
@@ -93,6 +100,7 @@ TPU_ITERS = 780    # the reference's history on convdiff (BENCH_r05.json)
 # both modes: (restarts, iterations)
 MESH_TPU_HISTORY = (1, 30)
 REPS = 20          # timed launches per kernel and per plain version
+GUARD_CYCLES = 400_000  # ~0.2 ms of the card spinning before each timed call
 # the kernels each path's SpMV runs; K2-K4 (the basis sweeps and the update)
 # serve every path, K6 only the ILU path
 PATH_KERNELS = {"convdiff": ("dia_spmv", "dia_residual"),
@@ -103,14 +111,17 @@ ILU_KERNELS = ("ilu_trisolve_fused", "ilu_trisolve_segmented")
 # convection_diffusion_2d(512, beta=2.0) (results/round5/bench_ilu_exact.txt)
 ILU_JACOBI_HISTORY = {"baseline": (54, 1620), "mixed": (63, 1890)}
 EXACT_262K_HISTORY = (8, 240)
-# Restart bounds for ILU-Jacobi(3) at convdiff@1M.  Baseline: within one of
-# the reference.  Mixed, widened (PERF.md, section 6): from 3 below the fp64
-# baseline's 54 to 1 above the reference's 63.  Once the residual nears
-# 1e-7 the restarted fp32 iteration turns non-monotone and rounding order
-# picks the count: on the CPU the JAX package and the port, identical in
-# baseline, differ in mixed by 1 restart at convection_diffusion_2d(128) and
-# by 3 at (256), the port lower.
-ILU_JACOBI_RESTARTS = {"baseline": (53, 55), "mixed": (51, 64)}
+# Restart bounds for ILU-Jacobi(3) at convdiff@1M.  The iteration stalls
+# just above the tolerance for its last restarts, so the order in which the
+# basis sweeps sum picks the count.  Baseline: from 2 below the reference's
+# 54 to 1 above: the one-launch K2 sums its fp64 tiles in another order than
+# the per-block partials and torch.sum it replaced, and the same solve then
+# takes 52 restarts where it took 54 (scripts/port_walls.py --precond
+# ilu_jacobi on both, one card; PERF.md, section 6).  Mixed: from 3 below
+# the fp64 baseline's 54 to 1 above the reference's 63 (on the CPU the JAX
+# package and the port, identical in baseline, differ in mixed by 1 restart
+# at convection_diffusion_2d(128) and by 3 at (256), the port lower).
+ILU_JACOBI_RESTARTS = {"baseline": (52, 55), "mixed": (51, 64)}
 NX_262K = 512
 TRISOLVE_REPS = 5        # timed K6 launches (one apply is ~4000 dependent sweeps)
 TRISOLVE_PLAIN_REPS = 2  # the plain version is thousands of torch launches
@@ -137,6 +148,11 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "df64": 33.5e12}
 # df_add 11, rounded to 20), per (row, column) and sweep
 DF_OPS = 20
 SYNC_PROBE = 2000      # barriers per timed empty cooperative launch
+GRAM_GRID_BLOCKS_PER_SM = (1, 2, 3, 4)   # K2 grids measured
+# K6's sync candidates (mode, blocks of 1024 threads), each empty barrier
+# measured and the kernel timed on each at convdiff@1M
+LEVEL_SYNCS = (("block", 1), ("cluster", 2), ("cluster", 4), ("cluster", 8), ("grid", 8),
+               ("grid", 132))
 # Kernel vs plain tolerance, relative to the same computation on absolute
 # values (the scale of the standard summation error bound): the two sum in
 # different orders (per-block partials, FMA contraction) over up to n terms.
@@ -190,10 +206,15 @@ def nvcc_version():
 class Timer:
     """Median device time of a callable, one CUDA-event pair per launch,
     with the 50 MB L2 flushed before each launch (the main path streams the
-    basis through L2 between two calls of any kernel)."""
+    basis through L2 between two calls of any kernel).  With `guard`, the
+    card spins GUARD_CYCLES after the flush, so that the host has enqueued
+    the timed call before its start event fires: the events then hold the
+    device's time and no host enqueue gap (without it a wrapper's Python
+    work lands inside the events whenever the flush ends first)."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, guard=True):
         self.torch = torch
+        self.guard = guard
         self.flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
 
     def __call__(self, fn, reps=REPS):
@@ -203,6 +224,8 @@ class Timer:
         times = []
         for _ in range(reps):
             self.flush.zero_()
+            if self.guard:
+                torch.cuda._sleep(GUARD_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -316,6 +339,44 @@ def check_residual(torch, record, kname, dt, dt_name, timer, fn_cuda, fn_plain, 
            timer(fn_cuda), timer(fn_plain), nbytes, flops, key=key)
 
 
+def device_kernels(torch, fn):
+    """Names of the device kernels one call of fn launches (torch.profiler),
+    or None when the profiler saw no device activity at all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return names or None
+
+
+def gram_grid_table(torch, timer, V, w, ref, dt_name, copy_gbs):
+    """K2 at the 31-row basis on grids of GRAM_GRID_BLOCKS_PER_SM blocks per
+    SM: bits equal to `ref`, time and share of copy; and the device kernels
+    one wrapper call launches (one)."""
+    from gmres_tpu_torch.ops.cuda import orth_kernel as ok_
+
+    rows, n = V.shape
+    nbytes = (rows + 1) * n * V.element_size()
+    for per_sm in GRAM_GRID_BLOCKS_PER_SM:
+        out = ok_.gram_cuda(V, w, rows, per_sm)
+        grid = ok_.gram_cuda.grid
+        require(torch.equal(out, ref), f"K2 {dt_name}: the same bits on {grid} blocks")
+        ms = timer(lambda: ok_.gram_cuda(V, w, rows, per_sm))
+        log(f"  K2 {dt_name} blocks/SM {per_sm}: {grid} blocks, {ms:.4f} ms, "
+            f"{nbytes / (ms * 1e-3) / 1e9 / copy_gbs:.3f} of copy; bits equal")
+    names = device_kernels(torch, lambda: ok_.gram_cuda(V, w, rows))
+    if names is None:
+        log(f"  K2 {dt_name} device kernels a call: not measured (the profiler saw none)")
+    else:
+        log(f"  K2 {dt_name} device kernels a call: {len(names)} {names}")
+        require(len(names) == 1, f"K2 {dt_name}: one launch a call ({names})")
+
+
 def check_kernels(torch, A_csr, record):
     """K1-K4 against their plain versions at the banded path's shapes, with
     the one PyTorch call that computes the same function where there is
@@ -376,6 +437,7 @@ def check_kernels(torch, A_csr, record):
                timer(lambda: ok_.gram_cuda(V, w, m1)),
                timer(lambda: ok_.gram_plain(V, w, m1)), (m1 + 1) * n * s, 2 * m1 * n,
                timer(lambda: torch.mv(V[:m1], w)))
+        gram_grid_table(torch, timer, V, w, got, dt_name, record.copy_gbs)
 
         # K3 update + gram
         got = ok_.update_gram_cuda(V, w, u, m1)
@@ -605,21 +667,83 @@ def exact_ilu(A_csr, dt, n_seg=None):
     return M
 
 
+def level_barrier_ms(torch, timer, mode, blocks):
+    """Device time of one empty barrier of K6's sync mode `mode` on `blocks`
+    blocks of 1024 threads (SYNC_PROBE barriers in one launch)."""
+    from gmres_tpu_torch.ops.cuda.trisolve_kernel import level_sync_probe
+
+    return timer(lambda: level_sync_probe(mode, blocks, SYNC_PROBE), 5) / SYNC_PROBE
+
+
+def substitution_flops(torch, M):
+    """Operations of one exact substitution on M's bands: a multiply and an
+    add per stored nonzero whose column is in range, a subtraction a row in
+    each phase and the U phase's multiply by D^-1."""
+    n = M.inv_diag.shape[0]
+    nnz = 0
+    for bands, offs in ((M.lower_bands, M.offs_l), (M.upper_bands, M.offs_u)):
+        for d, off in enumerate(offs):
+            lo, hi = max(0, -off), min(n, n - off)
+            nnz += int((bands[d, lo:hi] != 0).sum())
+    return 2 * nnz + (n if M.offs_l else 0) + 2 * n
+
+
+def trisolve_library(torch, timer, A_csr, dt, w, x_kernel):
+    """One-call yardstick of K6: two CSR torch.triangular_solve calls (L
+    unitriangular, then U with its diagonal) on the factors of A in dt; its
+    time, or None (with the reason) where torch refuses.  The port never
+    calls it."""
+    from gmres_tpu_torch.precond import build as pb
+
+    _, _, _, lower, upper, _ = pb._factors(A_csr, dt)
+    Lt, Ut = csr_tensor(torch, lower, dt), csr_tensor(torch, upper, dt)
+    W = w.view(-1, 1)
+
+    def two():
+        y = torch.triangular_solve(W, Lt, upper=False, unitriangular=True).solution
+        return torch.triangular_solve(y, Ut, upper=True).solution
+
+    try:
+        x = two().view(-1)
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"  torch.triangular_solve on CSR factors ({dt}): refused ({str(e)[:160]})")
+        return None
+    diff = float((x - x_kernel).abs().max() / x_kernel.abs().max())
+    log(f"  torch.triangular_solve x2 ({dt}): max rel diff to K6 {diff:.3e}")
+    return timer(two, TRISOLVE_REPS)
+
+
 def check_trisolve_kernels(torch, A_csr, record):
     """K6 fused and segmented (2 segments, as the fp64 solve at 1M) against
-    their plain versions at convdiff@1M's factor shapes, fp32 and fp64.  The
+    their plain versions at convdiff@1M's factor shapes, fp32 and fp64: bit
+    for bit (each row once from final inputs, every product and sum rounded
+    once), fused and segmented the same bits, a repeat the same bits.  The
     tolerance scale is the same recurrence on absolute values: -|bands|,
-    |D^-1| and |w| (every term added)."""
+    |D^-1| and |w| (every term added).  Beside the bound: the old design's
+    floor (every level a barrier of the resident 256-thread cooperative
+    grid, plus one) and each sync candidate's empty barrier and kernel time."""
     from gmres_tpu_torch.ops.cuda import trisolve_kernel as tk
 
     n = A_csr.n_rows
     w_np = np.random.default_rng(2).standard_normal(n)
     timer = Timer(torch)
+    props = torch.cuda.get_device_properties(0)
+    resident = props.multi_processor_count * (props.max_threads_per_multi_processor // 256)
+    old_sync = barrier_ms(torch, timer, resident)
+    syncs = {}
+    for mode, blocks in LEVEL_SYNCS:
+        syncs[(mode, blocks)] = level_barrier_ms(torch, timer, mode, blocks)
+        log(f"  K6 sync candidate {mode} x {blocks} blocks of 1024: empty barrier "
+            f"{1e3 * syncs[(mode, blocks)]:.3f} us")
+    log(f"  old design's barrier: grid.sync() of the resident grid of {resident} blocks of "
+        f"256: {1e3 * old_sync:.3f} us")
     for dt_name, dt in (("float32", torch.float32), ("float64", torch.float64)):
         w = torch.tensor(w_np, dtype=dt, device="cuda")
+        outs = {}
         for kname, M in (("ilu_trisolve_fused", exact_ilu(A_csr, dt)),
                          ("ilu_trisolve_segmented", exact_ilu(A_csr, dt, n_seg=2))):
             M = M.to("cuda")
+            S = M.schedule
             fn_cuda = getattr(tk, kname + "_cuda")
             fn_plain = getattr(tk, kname + "_plain")
             steps = ((M.steps_l_segs, M.steps_u_segs, M.seg) if M.seg
@@ -627,33 +751,52 @@ def check_trisolve_kernels(torch, A_csr, record):
             args = (M.lower_bands, M.upper_bands, M.inv_diag, w, M.offs_l, M.offs_u, *steps)
             abs_args = (-M.lower_bands.abs(), -M.upper_bands.abs(), M.inv_diag.abs(), w.abs(),
                         M.offs_l, M.offs_u, *steps)
-            got, want = fn_cuda(*args), fn_plain(*args)
+            got, want = fn_cuda(*args, schedule=S), fn_plain(*args)
+            bit = torch.equal(got, want)
+            require(torch.equal(fn_cuda(*args, schedule=S), got), f"{kname} {dt_name}: repeats")
+            outs[kname] = got
             scale = fn_plain(*abs_args)
-            ms = timer(lambda: fn_cuda(*args), TRISOLVE_REPS)
-            steps_l, steps_u = ((M.steps_l_segs, M.steps_u_segs) if M.seg
-                                else ((M.steps_l,), (M.steps_u,)))
-            seg = M.seg or n
-            segs = [min(seg, n - a) for a in range(0, n, seg)]
+            ms = timer(lambda: fn_cuda(*args, schedule=S), TRISOLVE_REPS)
+            mode, blocks = fn_cuda.grid
+            sync = syncs.get((mode, blocks)) or level_barrier_ms(torch, timer, mode, blocks)
             d_l, d_u = len(M.offs_l), len(M.offs_u)
-            sweeps = sum(steps_l) + sum(steps_u)
-            # the kernel's grid barriers (csrc/ilu_trisolve.cu): one per L
-            # sweep, one between the phases, one per U sweep
-            barriers = sum(steps_l) * (d_l > 0) + 1 + sum(steps_u) * (d_u > 0)
-            sync_ms = barrier_ms(torch, timer, fn_cuda.grid)
-            log(f"  {kname} {dt_name}: {sweeps} sweeps in one launch of {fn_cuda.grid} blocks, "
-                f"{1e3 * ms / sweeps:.2f} us a sweep, {barriers} barriers of "
-                f"{1e3 * sync_ms:.3f} us each" + (f", segments of {M.seg}" if M.seg else ""))
-            # bytes: the bands, D^-1 and w read once and x written once (b'
-            # is scratch; each sweep re-reads them from L2); operations: each
-            # sweep's multiply-adds over its rows
+            levels = (S.nlev_l if d_l else 0) + S.nlev_u
+            # one barrier after every level but the last (csrc/ilu_trisolve.cu)
+            barriers = levels - 1
+            sweeps = (sum(M.steps_l_segs) + sum(M.steps_u_segs) if M.seg
+                      else M.steps_l + M.steps_u)
+            old_floor = (sweeps + 1) * old_sync
+            log(f"  {kname} {dt_name}: {levels} levels (widest {max(S.width_l, S.width_u)} "
+                f"rows) in one launch on {mode} x {blocks}, {1e3 * ms / levels:.3f} us a level, "
+                f"{barriers} barriers of {1e3 * sync:.3f} us; bit-equal to the plain version: "
+                f"{bit}; old design's floor {sweeps + 1} x {1e3 * old_sync:.3f} us = "
+                f"{old_floor:.4f} ms, kernel/floor {ms / old_floor:.3f}"
+                + (f"; segments of {M.seg}" if M.seg else ""))
+            # bytes: the bands, D^-1 and w read once and x written once;
+            # operations: one substitution's
             nbytes = (d_l + d_u + 3) * n * dt.itemsize
-            flops = sum(t * (2 * d_l + 1) * r for t, r in zip(steps_l, segs)) + \
-                sum(t * (2 * d_u + 2) * r for t, r in zip(steps_u, segs))
-            record(kname, dt_name, *compare(dt_name, [got], [want], [scale]), ms,
-                   timer(lambda: fn_plain(*args), TRISOLVE_PLAIN_REPS), nbytes, flops,
-                   barrier_ms=barriers * sync_ms)
+            lib_ms = trisolve_library(torch, timer, A_csr, dt, w, got)
+            err, tol, ok = compare(dt_name, [got], [want], [scale])
+            record(kname, dt_name, err, tol, ok and bit, ms,
+                   timer(lambda: fn_plain(*args), TRISOLVE_PLAIN_REPS), nbytes,
+                   substitution_flops(torch, M), lib_ms, barrier_ms=barriers * sync)
             torch.cuda.synchronize()
-            del M, got, want, scale
+            del got, want, scale
+        require(torch.equal(outs["ilu_trisolve_fused"], outs["ilu_trisolve_segmented"]),
+                f"K6 {dt_name}: fused and segmented give the same bits")
+        # the fused form on each sync candidate: the same bits, its time
+        M = exact_ilu(A_csr, dt).to("cuda")
+        args = (M.lower_bands, M.upper_bands, M.inv_diag, w, M.offs_l, M.offs_u, M.steps_l,
+                M.steps_u)
+        for cand in LEVEL_SYNCS:
+            out = tk.ilu_trisolve_fused_cuda(*args, schedule=M.schedule, sync=cand)
+            require(torch.equal(out, outs["ilu_trisolve_fused"]),
+                    f"K6 {dt_name} on {cand}: the same bits")
+            ms = timer(lambda: tk.ilu_trisolve_fused_cuda(*args, schedule=M.schedule,
+                                                          sync=cand), TRISOLVE_REPS)
+            log(f"  K6 fused {dt_name} on {cand[0]} x {tk.ilu_trisolve_fused_cuda.grid[1]}: "
+                f"{ms:.4f} ms; bits equal")
+        del M, outs
     record.require_ok()
 
 
@@ -717,6 +860,7 @@ def convdiff_ilu_path(torch, record, A, A_dev):
         require(lo <= res.restarts <= hi,
                 f"ilu_jacobi {mode}: {res.restarts}/{res.total_iters} restarts not in "
                 f"{lo}..{hi} (the reference's {want[0]}/{want[1]})")
+    exact_walls = []
     for label, A_csr, A_staged in (("convdiff@262K ilu", A262, A262_dev),
                                    ("convdiff@1M ilu", A, A_dev)):
         for mode in ("baseline", "mixed"):
@@ -724,8 +868,10 @@ def convdiff_ilu_path(torch, record, A, A_dev):
             cfg = config(mode, "ilu")
             M = build_m(label, A_csr, cfg)
             require(isinstance(M, ExactILUDIAPrec), f"{label} {mode}: exact ILU on K6")
-            res, _ = solve_timed(torch, label, mode, A_csr, A_staged, cfg, 1, M=M,
-                                 history=True)
+            res, wall = solve_timed(torch, label, mode, A_csr, A_staged, cfg, 1, M=M,
+                                    history=True)
+            exact_walls.append(f"{label} {mode} {wall:.4f} s ({res.restarts}/{res.total_iters}"
+                               f", {'segmented' if M.seg else 'fused'})")
             if A_csr is A262 and mode == "mixed":
                 want = EXACT_262K_HISTORY
                 log(f"  vs the reference's {want[0]}/{want[1]}: restarts "
@@ -734,6 +880,8 @@ def convdiff_ilu_path(torch, record, A, A_dev):
                         f"{label} mixed: {res.restarts}/{res.total_iters} not within one "
                         f"restart of {want[0]}/{want[1]}")
             log(f"  phase {time.perf_counter() - t0:.1f} s")
+    log("exact ILU solve walls (restarts/iterations; the reference's 8/240 at 262K mixed): "
+        + "; ".join(exact_walls))
     counts = launch_counts()
     log(f"  launches convdiff-ilu: {counts}")
     require(all(counts[k] > 0 for k in ILU_KERNELS + PATH_KERNELS["convdiff"]),

@@ -4,8 +4,10 @@
 //
 // Every cross-thread sum is a fixed tree (warp shuffles, then one warp over
 // the per-warp values), and every cross-block sum is written as per-block
-// partials that the Python wrapper finishes with torch.sum.  No atomics, so
-// a run repeats bit for bit.
+// (or per-tile) partials that the Python wrapper finishes with torch.sum,
+// or that the last block of the launch adds in a fixed order (K2: a ticket
+// counter orders the blocks, no atomics touch the values).  So a run
+// repeats bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -86,6 +86,31 @@ void ilu_host_levels(int64_t n, const int64_t* row_ptr, const int64_t* col_idx,
   }
 }
 
+// Per-row dependency levels of one strict triangle stored as DIA bands:
+// row i depends on row i + offs[d] wherever nonzero[d * n + i] and that row
+// lies in [0, n).  A lower triangle (every offset < 0) is walked forward, an
+// upper one (every offset > 0) backward, so each dependency's level is known
+// when its row is reached.  Returns the level count (max level + 1; 1 for no
+// bands), or -1 when an offset has the wrong sign for the direction.
+int64_t ilu_host_dia_levels(int64_t n, int64_t n_diags, const int64_t* offs,
+                            const uint8_t* nonzero, int upper, int64_t* lev) {
+  for (int64_t d = 0; d < n_diags; ++d)
+    if (upper ? offs[d] <= 0 : offs[d] >= 0) return -1;
+  int64_t top = 0;
+  for (int64_t t = 0; t < n; ++t) {
+    const int64_t i = upper ? n - 1 - t : t;
+    int64_t lv = 0;
+    for (int64_t d = 0; d < n_diags; ++d) {
+      const int64_t j = i + offs[d];
+      if (j < 0 || j >= n || !nonzero[d * n + i]) continue;
+      if (lev[j] + 1 > lv) lv = lev[j] + 1;
+    }
+    lev[i] = lv;
+    if (lv > top) top = lv;
+  }
+  return top + 1;
+}
+
 // Exact sequential substitution on the combined factor: unit-lower forward,
 // then upper backward (the reference's ilusv).  x is in-out, fp64.
 void ilu_host_trisolve(int64_t n, const int64_t* row_ptr, const int64_t* col_idx,

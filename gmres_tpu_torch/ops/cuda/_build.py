@@ -55,8 +55,8 @@ _SIGNATURES = {
     "gmres_sell_spmv_f64": (_P, _P, _P, _P, _P, _I, _P),
     "gmres_sell_residual_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "gmres_sell_residual_f64": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-    "gmres_basis_gram_f32": (_P, _P, _P, _I, _I, _I, _P),
-    "gmres_basis_gram_f64": (_P, _P, _P, _I, _I, _I, _P),
+    "gmres_basis_gram_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "gmres_basis_gram_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "gmres_basis_gram2_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     "gmres_basis_gram2_f64": (_P, _P, _P, _P, _I, _I, _I, _P),
     "gmres_basis_update_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -76,10 +76,11 @@ _SIGNATURES = {
     "gmres_basis_mgs_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "gmres_basis_mgs_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "gmres_grid_sync_probe": (_I, _I, _P),
-    "gmres_ilu_trisolve_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P,
-                               _P),
-    "gmres_ilu_trisolve_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P,
-                               _P),
+    "gmres_ilu_levels_f32": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
+                             _I, _I, _P, _P),
+    "gmres_ilu_levels_f64": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
+                             _I, _I, _P, _P),
+    "gmres_level_sync_probe": (_I, _I, _I, _P, _P),
 }
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -229,6 +230,8 @@ def host_library() -> ctypes.CDLL:
             lib.ilu_host_levels.restype = None
             lib.ilu_host_trisolve.argtypes = (i64, _P, _P, _P, _P, _P)
             lib.ilu_host_trisolve.restype = None
+            lib.ilu_host_dia_levels.argtypes = (i64, i64, _P, _P, _I, _P)
+            lib.ilu_host_dia_levels.restype = i64
             _HOST = lib
         return _HOST
 

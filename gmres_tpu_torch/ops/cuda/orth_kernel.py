@@ -21,10 +21,18 @@ fp64), as in the TPU kernels for fp32.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from gmres_tpu_torch.ops.blas import all_reduce
 from gmres_tpu_torch.ops.cuda._build import check, kernel_dtype, library
+
+# K2's tile width (csrc/basis_sweep.cu: kGramTileCols) and the blocks per SM
+# of its persistent grid (4 fit an SM; the fastest in the grid table of
+# chip_smoke.py, PERF.md)
+GRAM_TILE = 2048
+GRAM_BLOCKS_PER_SM = 4
 
 
 def _rows_ok(V: torch.Tensor, rows: int) -> None:
@@ -55,17 +63,86 @@ def gram_plain(V: torch.Tensor, w: torch.Tensor, rows: int) -> torch.Tensor:
     return u
 
 
-def gram_cuda(V: torch.Tensor, w: torch.Tensor, rows: int) -> torch.Tensor:
-    """K2: u = V w from per-block partials."""
-    lib, sfx, m1, n, nb = _sweep_args("gram", V, rows, w=(w, V.shape[1]))
-    partials = torch.empty((nb, m1), dtype=V.dtype, device=V.device)
-    lib.call(f"gmres_basis_gram_{sfx}", V.data_ptr(), w.data_ptr(), partials.data_ptr(),
-             n, rows, m1)
+@dataclasses.dataclass(frozen=True)
+class GramPlan:
+    """K2's launch geometry: fixed tiles of ``tile`` columns (the last may
+    be partial), walked by a persistent grid of ``grid`` blocks, block b
+    taking tiles b, b + grid, ..."""
+
+    n: int
+    tile: int
+    n_tiles: int
+    grid: int
+
+    def tiles_of(self, block: int) -> range:
+        return range(block, self.n_tiles, self.grid)
+
+    def columns(self, t: int) -> range:
+        return range(t * self.tile, min((t + 1) * self.tile, self.n))
+
+
+def gram_plan(n: int, itemsize: int, sms: int, blocks_per_sm: int = GRAM_BLOCKS_PER_SM,
+              threads: int = 256) -> GramPlan:
+    """Tiles of GRAM_TILE columns (each thread covering GRAM_TILE / (threads
+    x 16 / itemsize) 16-byte chunks of one), and a grid of blocks_per_sm
+    blocks on each SM, no more than there are tiles."""
+    if GRAM_TILE % (threads * (16 // itemsize)):
+        raise ValueError(f"K2: tile of {GRAM_TILE} columns for {threads} threads")
+    n_tiles = -(-n // GRAM_TILE)
+    return GramPlan(n=n, tile=GRAM_TILE, n_tiles=n_tiles,
+                    grid=max(1, min(n_tiles, sms * blocks_per_sm)))
+
+
+def tile_row_split(cols: int, phase: int, vec: int, threads: int = 256):
+    """How K2's general form splits one row's tile of ``cols`` columns whose
+    first 16-byte aligned column is ``phase``: (starts of the vec-column
+    vector loads, columns read one by one).  Thread t reads head column t <
+    phase and chunks phase + (u*threads + t)*vec for u < GRAM_TILE / (threads
+    x vec), in scalars where a chunk crosses the tile's end."""
+    vector, scalar = [], [c for c in range(min(phase, threads)) if c < cols]
+    for k in range(GRAM_TILE // vec):
+        cc = phase + k * vec
+        if cc + vec <= cols:
+            vector.append(cc)
+        else:
+            scalar += [c for c in range(cc, cc + vec) if c < cols]
+    return vector, scalar
+
+
+_SMS: dict = {}
+_TICKETS: dict = {}
+
+
+def _gram_state(device: torch.device):
+    """(SM count, the zeroed ticket counter K2 leaves zeroed) of a card.  One
+    counter a card: K2 launches on one stream at a time."""
+    if device not in _TICKETS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+        _TICKETS[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _SMS[device], _TICKETS[device]
+
+
+def gram_cuda(V: torch.Tensor, w: torch.Tensor, rows: int,
+              blocks_per_sm: int | None = None) -> torch.Tensor:
+    """K2: u = V w in one launch (the last block adds the tiles' partials);
+    ``blocks_per_sm`` overrides GRAM_BLOCKS_PER_SM.  The bits do not depend
+    on the grid."""
+    lib, sfx, m1, n, _ = _sweep_args("gram", V, rows, w=(w, V.shape[1]))
+    sms, ticket = _gram_state(V.device)
+    plan = gram_plan(n, V.element_size(), sms, blocks_per_sm or GRAM_BLOCKS_PER_SM,
+                     lib.threads)
+    u = torch.empty(m1, dtype=V.dtype, device=V.device)
+    partials = torch.empty(rows * plan.n_tiles, dtype=V.dtype, device=V.device)
+    lib.call(f"gmres_basis_gram_{sfx}", V.data_ptr(), w.data_ptr(), u.data_ptr(),
+             partials.data_ptr(), ticket.data_ptr(), n, rows, m1, plan.tile, plan.n_tiles,
+             plan.grid)
     gram_cuda.launches += 1
-    return partials.sum(dim=0)
+    gram_cuda.grid = plan.grid
+    return u
 
 
 gram_cuda.launches = 0
+gram_cuda.grid = 0
 
 
 def gram2_plain(V: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor, rows: int):

@@ -1,5 +1,6 @@
 """K6 wrappers: the exact-ILU triangular-solve kernel (``csrc/ilu_trisolve.cu``)
-in its fused and segmented forms, each beside its plain PyTorch version.
+in its fused and segmented forms, each beside its plain PyTorch version,
+and the level schedule the kernel runs.
 
 Replaces ``gmres_tpu/ops/pallas/trisolve_kernel.py``'s ``ilu_trisolve_fused``
 and ``ilu_trisolve_segmented``.  With strictly-triangular DIA bands ``ld``
@@ -15,23 +16,37 @@ segment by segment in forward order and the U sweeps in reverse order, rows
 other segments keep their values (final ones, for the neighbour a triangle
 reads).  ``w`` may be shorter than ``width`` (the JAX package's lane-padded
 factors): it is padded with zeros and the result cut back to its length.
+The step counts are the triangles' dependency-level counts (per segment:
+the intra-segment ones), at which the sweeps reach the exact substitution.
 
-The ``*_cuda`` wrappers take CUDA tensors only, make one cooperative launch
-per apply and raise on anything the kernel does not take or a refused
-launch; the ``*_plain`` versions run on any device (double-buffered sweeps
-in torch ops) and are what the CPU path and the on-card comparisons use.
+The kernel computes that exact result with each row once, level by level,
+from a ``LevelSchedule`` built once per preconditioner on the host
+(``level_schedule``): each row is computed from final inputs in band order,
+which is the value the sweeps leave in it, so the kernel, its plain
+versions and the level-ordered twin ``ilu_trisolve_levels_plain`` give the
+same bits, and the fused and segmented forms are one launch of the same
+schedule (the global levels: fewer steps than a segment's own).
+
+The ``*_cuda`` wrappers take CUDA tensors only, gather w into level order
+and make one kernel launch per apply, and raise on anything the kernel does
+not take or a refused launch; the ``*_plain`` versions run on any device
+(double-buffered sweeps in torch ops) and are what the CPU path and the
+on-card comparisons use.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
+import numpy as np
 import torch
 
-from gmres_tpu_torch.ops.cuda._build import check, kernel_dtype, library
+from gmres_tpu_torch.ops.cuda._build import check, host_library, kernel_dtype, library
 
-MAX_BANDS = 64       # bands per triangle (kMaxTriDiags in the source)
-MAX_SEGMENTS = 256   # segments of the segmented form (kMaxSegs)
+LEVEL_THREADS = 1024      # threads per block (kLevelThreads)
+MAX_CLUSTER_BLOCKS = 8    # portable thread-block cluster (kMaxClusterBlocks)
+SYNC_MODES = {"block": 0, "cluster": 1, "grid": 2}
 
 
 def _padded(w: torch.Tensor, width: int) -> torch.Tensor:
@@ -85,8 +100,144 @@ def ilu_trisolve_fused_plain(ld, ud, invd, w, offs_l, offs_u, steps_l: int,
                                         (steps_u,), max(width, 1))
 
 
-def _launch(name, ld, ud, invd, w, offs_l, offs_u, seg, steps_l_segs, steps_u_segs):
-    """Validate (before anything is built), launch once, return x."""
+# ------------------------------------------------------------ level schedule
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelSchedule:
+    """Each triangle's rows in dependency-level order (``rows_*``, int32),
+    its level pointers (``ptr_*``, int32, levels + 1), its bands repacked in
+    that order (``bands_*[d, p] = bands[d, rows_*[p]]``) and the level-order
+    position of each band's row (``dep_*[d, p]``, int32; -1 where that row
+    is outside the width); ``upos_l`` is the U position of the row at each L
+    position and ``invd_u`` D^-1 in the U order.  ``nlev_*`` and ``width_*``
+    (the widest level) are host ints, which size the kernel's grid."""
+
+    rows_l: torch.Tensor
+    ptr_l: torch.Tensor
+    bands_l: torch.Tensor
+    dep_l: torch.Tensor
+    rows_u: torch.Tensor
+    ptr_u: torch.Tensor
+    bands_u: torch.Tensor
+    dep_u: torch.Tensor
+    upos_l: torch.Tensor
+    invd_u: torch.Tensor
+    nlev_l: int
+    nlev_u: int
+    width_l: int
+    width_u: int
+
+    def to(self, device) -> "LevelSchedule":
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
+
+def band_levels(bands: np.ndarray, offs, upper: bool) -> tuple[np.ndarray, int]:
+    """Per-row dependency levels of one strict triangle from its DIA bands
+    (row i depends on i + offs[d] where bands[d, i] != 0 and that row lies
+    in the band width) and the level count, through the host helper."""
+    width = bands.shape[1]
+    nonzero = np.ascontiguousarray(bands[: len(offs)] != 0, dtype=np.uint8)
+    offs64 = np.ascontiguousarray(offs, dtype=np.int64)
+    lev = np.empty(width, dtype=np.int64)
+    count = host_library().ilu_host_dia_levels(width, len(offs), offs64.ctypes.data,
+                                               nonzero.ctypes.data, int(upper),
+                                               lev.ctypes.data)
+    if count < 0:
+        raise ValueError(f"{'upper' if upper else 'lower'} band offsets {tuple(offs)} are "
+                         "not all on that side of the diagonal")
+    return lev, int(count)
+
+
+def _level_order(lev: np.ndarray, count: int):
+    """(rows in level order, ties by row; level pointers; widest level)."""
+    rows = np.argsort(lev, kind="stable")
+    sizes = np.bincount(lev, minlength=count)
+    ptr = np.zeros(count + 1, dtype=np.int64)
+    np.cumsum(sizes, out=ptr[1:])
+    return rows, ptr, int(sizes.max())
+
+
+def level_schedule(ld, ud, invd, offs_l, offs_u) -> LevelSchedule:
+    """The level schedule of the factors (host, setup time; CPU tensors).
+    Built from the bands themselves, so that a converted JAX state
+    (lane-padded width, identity tail segments) gets one too."""
+    width = invd.shape[0]
+    if width >= 2 ** 31:
+        raise ValueError(f"level schedule: {width} rows do not fit int32 indices")
+    out = {}
+    for tag, bands, offs, upper in (("l", ld, offs_l, False), ("u", ud, offs_u, True)):
+        b = bands.cpu().numpy()[: len(offs)]
+        lev, count = band_levels(b, offs, upper)
+        rows, ptr, widest = _level_order(lev, count)
+        pos = np.empty(width, dtype=np.int64)
+        pos[rows] = np.arange(width)
+        dep = np.full((len(offs), width), -1, dtype=np.int32)
+        for d, off in enumerate(offs):
+            j = rows + off
+            live = (j >= 0) & (j < width)
+            dep[d, live] = pos[j[live]]
+        out[f"pos_{tag}"] = pos
+        out[f"rows_{tag}"] = torch.from_numpy(rows.astype(np.int32))
+        out[f"ptr_{tag}"] = torch.from_numpy(ptr.astype(np.int32))
+        out[f"bands_{tag}"] = torch.from_numpy(np.ascontiguousarray(b[:, rows]))
+        out[f"dep_{tag}"] = torch.from_numpy(dep)
+        out[f"nlev_{tag}"] = count
+        out[f"width_{tag}"] = widest
+    out["invd_u"] = torch.from_numpy(np.ascontiguousarray(
+        invd.cpu().numpy()[out["rows_u"].numpy()]))
+    out["upos_l"] = torch.from_numpy(out.pop("pos_u")[out["rows_l"].numpy()].astype(np.int32))
+    del out["pos_l"]
+    return LevelSchedule(**out)
+
+
+def ilu_trisolve_levels_plain(S: LevelSchedule, w: torch.Tensor) -> torch.Tensor:
+    """The kernel's data path in torch ops, level by level on schedule S:
+    xl = w in L order; each L level r = xl[p] - sum_d bands_l[d, p] xl[dep_l[d,
+    p]] into xl[p] and xu[upos_l[p]]; each U level r = invd_u[p] (xu[p] - sum_d
+    bands_u[d, p] xu[dep_u[d, p]]) into xu[p] and x[rows_u[p]]; terms with no
+    neighbour (-1) left out.  The same bits as the sweeps."""
+    width = S.invd_u.shape[0]
+    n_in = w.shape[0]
+    xl = _padded(w, width)[S.rows_l.long()]
+    xu = torch.empty_like(xl)
+    x = torch.empty_like(xl)
+
+    def phase(ptr, bands, dep, out, invd, xs, xo):
+        ptr = ptr.tolist()
+        for k in range(len(ptr) - 1):
+            p = slice(ptr[k], ptr[k + 1])
+            acc = torch.zeros(ptr[k + 1] - ptr[k], dtype=xs.dtype, device=xs.device)
+            for d in range(bands.shape[0]):
+                q = dep[d, p].long()
+                acc = torch.where(q >= 0, acc + bands[d, p] * xs[q.clamp(min=0)], acc)
+            r = xs[p] - acc if invd is None else invd[p] * (xs[p] - acc)
+            xs[p] = r
+            xo[out[p].long()] = r
+
+    phase(S.ptr_l, S.bands_l, S.dep_l, S.upos_l, None, xl, xu)
+    phase(S.ptr_u, S.bands_u, S.dep_u, S.rows_u, S.invd_u, xu, x)
+    return x[:n_in]
+
+
+def level_grid(widest: int) -> tuple[str, int]:
+    """The kernel's sync mode and blocks for a widest level of this many
+    rows: one block while it fits one, a cluster up to MAX_CLUSTER_BLOCKS,
+    else a cooperative grid (cut to the resident blocks at launch)."""
+    blocks = max(1, -(-widest // LEVEL_THREADS))
+    if blocks == 1:
+        return "block", 1
+    return ("cluster" if blocks <= MAX_CLUSTER_BLOCKS else "grid"), blocks
+
+
+# ------------------------------------------------------------------- launch
+
+
+def _launch(name, ld, ud, invd, w, offs_l, offs_u, schedule, sync):
+    """Validate (before anything is built), launch once, return x and the
+    grid it ran on."""
     sfx = kernel_dtype(name, invd)
     width = invd.shape[0] if invd.dim() == 1 else 0
     dev = invd.device
@@ -95,57 +246,88 @@ def _launch(name, ld, ud, invd, w, offs_l, offs_u, seg, steps_l_segs, steps_u_se
         raise ValueError(f"{name}: {w.shape[0]} rows of w for factors of width {width}")
     check("w", w, invd.dtype, (w.shape[0],), dev)
     for label, bands, offs in (("ld", ld, offs_l), ("ud", ud, offs_u)):
-        if len(offs) > MAX_BANDS or bands.dim() != 2 or bands.shape[0] < len(offs):
+        if bands.dim() != 2 or bands.shape[0] < len(offs):
             raise ValueError(f"{name}: {label} of shape {tuple(bands.shape)} for "
-                             f"{len(offs)} offsets; the kernel takes up to {MAX_BANDS}")
+                             f"{len(offs)} offsets")
         check(label, bands, invd.dtype, (bands.shape[0], width), dev)
-    n_seg = -(-width // seg)
-    if not (0 < n_seg <= MAX_SEGMENTS and len(steps_l_segs) == len(steps_u_segs) == n_seg):
-        raise ValueError(f"{name}: {n_seg} segments of {seg} rows and "
-                         f"{len(steps_l_segs)}/{len(steps_u_segs)} step counts; the "
-                         f"kernel takes up to {MAX_SEGMENTS}")
+    S = schedule or level_schedule(ld, ud, invd, offs_l, offs_u).to(dev)
+    for tag, d in (("l", len(offs_l)), ("u", len(offs_u))):
+        nlev = getattr(S, f"nlev_{tag}")
+        check(f"rows_{tag}", getattr(S, f"rows_{tag}"), torch.int32, (width,), dev)
+        check(f"ptr_{tag}", getattr(S, f"ptr_{tag}"), torch.int32, (nlev + 1,), dev)
+        check(f"bands_{tag}", getattr(S, f"bands_{tag}"), invd.dtype, (d, width), dev)
+        check(f"dep_{tag}", getattr(S, f"dep_{tag}"), torch.int32, (d, width), dev)
+    check("invd_u", S.invd_u, invd.dtype, (width,), dev)
+    check("upos_l", S.upos_l, torch.int32, (width,), dev)
+    mode, blocks = sync or level_grid(max(S.width_l if offs_l else 0, S.width_u))
+    if mode not in SYNC_MODES:
+        raise ValueError(f"{name}: sync mode {mode!r} not in {tuple(SYNC_MODES)}")
     lib = library()
-    w = _padded(w, width)
-    x = torch.empty(width, dtype=invd.dtype, device=dev)
-    b2 = torch.empty(width if offs_u else 1, dtype=invd.dtype, device=dev)
-
-    def ints(v):
-        return (ctypes.c_int * max(len(v), 1))(*v)
-
-    blocks = ctypes.c_int(0)
-    lib.call(f"gmres_ilu_trisolve_{sfx}", ld.data_ptr(), ud.data_ptr(), invd.data_ptr(),
-             w.data_ptr(), x.data_ptr(), b2.data_ptr(), width, len(offs_l), ints(offs_l),
-             len(offs_u), ints(offs_u), seg, n_seg, ints(steps_l_segs),
-             ints(steps_u_segs), ctypes.addressof(blocks))
-    return x, blocks.value
+    # w in L order (the kernel's own values), scratch for the U order, x
+    xl = _padded(w, width).index_select(0, S.rows_l)
+    xu = torch.empty_like(xl)
+    x = torch.empty_like(xl)
+    grid = ctypes.c_int(blocks)
+    lib.call(f"gmres_ilu_levels_{sfx}", S.ptr_l.data_ptr(), S.bands_l.data_ptr(),
+             S.dep_l.data_ptr(), S.upos_l.data_ptr(), S.nlev_l, len(offs_l),
+             S.ptr_u.data_ptr(), S.bands_u.data_ptr(), S.dep_u.data_ptr(), S.rows_u.data_ptr(),
+             S.invd_u.data_ptr(), S.nlev_u, len(offs_u), xl.data_ptr(), xu.data_ptr(),
+             x.data_ptr(), width, SYNC_MODES[mode], ctypes.addressof(grid))
+    return x, (mode, grid.value)
 
 
-def ilu_trisolve_fused_cuda(ld, ud, invd, w, offs_l, offs_u, steps_l: int,
-                            steps_u: int) -> torch.Tensor:
-    """K6, fused: one cooperative launch over the whole vector."""
-    width = invd.shape[0]
-    x, ilu_trisolve_fused_cuda.grid = _launch(
-        "ilu_trisolve_fused", ld, ud, invd, w, offs_l, offs_u, max(width, 1),
-        (steps_l,), (steps_u,))
+def _exact_steps(name, S, offs_l, steps_l, steps_u):
+    # the schedule computes the exact solve, which the sweeps reach at the
+    # level count; fewer sweeps are not that solve
+    if S is not None and ((offs_l and steps_l < S.nlev_l) or steps_u < S.nlev_u):
+        raise ValueError(f"{name}: {steps_l}/{steps_u} sweeps for {S.nlev_l}/{S.nlev_u} "
+                         "dependency levels")
+
+
+def ilu_trisolve_fused_cuda(ld, ud, invd, w, offs_l, offs_u, steps_l: int, steps_u: int,
+                            schedule: LevelSchedule | None = None,
+                            sync: tuple | None = None) -> torch.Tensor:
+    """K6, fused: one launch of the level schedule (the preconditioner's
+    ``schedule``; without one it is built for this call).  ``sync`` =
+    (mode, blocks) overrides the grid ``level_grid`` picks; the grid it ran
+    on is left in ``ilu_trisolve_fused_cuda.grid``."""
+    _exact_steps("ilu_trisolve_fused", schedule, offs_l, steps_l, steps_u)
+    x, ilu_trisolve_fused_cuda.grid = _launch("ilu_trisolve_fused", ld, ud, invd, w, offs_l,
+                                              offs_u, schedule, sync)
     ilu_trisolve_fused_cuda.launches += 1
     return x[: w.shape[0]]
 
 
 ilu_trisolve_fused_cuda.launches = 0
-ilu_trisolve_fused_cuda.grid = 0
+ilu_trisolve_fused_cuda.grid = ("block", 0)
 
 
 def ilu_trisolve_segmented_cuda(ld, ud, invd, w, offs_l, offs_u, steps_l_segs,
-                                steps_u_segs, seg: int) -> torch.Tensor:
-    """K6, segmented: one cooperative launch sweeping segment by segment."""
-    if seg < 1:
-        raise ValueError(f"ilu_trisolve_segmented: segment of {seg} rows")
-    x, ilu_trisolve_segmented_cuda.grid = _launch(
-        "ilu_trisolve_segmented", ld, ud, invd, w, offs_l, offs_u, seg,
-        tuple(steps_l_segs), tuple(steps_u_segs))
+                                steps_u_segs, seg: int,
+                                schedule: LevelSchedule | None = None,
+                                sync: tuple | None = None) -> torch.Tensor:
+    """K6, segmented: the same launch as the fused form (the global levels
+    give the segment-by-segment sweeps' bits in fewer steps)."""
+    width = invd.shape[0] if invd.dim() == 1 else 0
+    n_seg = -(-width // seg) if seg >= 1 else 0
+    if not (0 < n_seg and len(steps_l_segs) == len(steps_u_segs) == n_seg):
+        raise ValueError(f"ilu_trisolve_segmented: {n_seg} segments of {seg} rows and "
+                         f"{len(steps_l_segs)}/{len(steps_u_segs)} step counts")
+    x, ilu_trisolve_segmented_cuda.grid = _launch("ilu_trisolve_segmented", ld, ud, invd, w,
+                                                  offs_l, offs_u, schedule, sync)
     ilu_trisolve_segmented_cuda.launches += 1
     return x[: w.shape[0]]
 
 
 ilu_trisolve_segmented_cuda.launches = 0
-ilu_trisolve_segmented_cuda.grid = 0
+ilu_trisolve_segmented_cuda.grid = ("block", 0)
+
+
+def level_sync_probe(mode: str, blocks: int, syncs: int) -> int:
+    """Launch ``syncs`` empty barriers of sync mode ``mode`` on ``blocks``
+    blocks of LEVEL_THREADS (for timing one barrier); returns the blocks
+    used (a cooperative grid is cut to the resident blocks)."""
+    out = ctypes.c_int(0)
+    library().call("gmres_level_sync_probe", SYNC_MODES[mode], blocks, syncs,
+                   ctypes.addressof(out))
+    return out.value

@@ -47,11 +47,12 @@ def _ilu_jacobi_apply(M: ILUJacobiPrec, w: torch.Tensor, comm=None) -> torch.Ten
 
 def _exact_ilu_apply(M: ExactILUDIAPrec, w: torch.Tensor) -> torch.Tensor:
     args = (M.lower_bands, M.upper_bands, M.inv_diag, w, M.offs_l, M.offs_u)
-    if M.seg:
-        fn = tk.ilu_trisolve_segmented_cuda if w.is_cuda else tk.ilu_trisolve_segmented_plain
-        return fn(*args, M.steps_l_segs, M.steps_u_segs, M.seg)
-    fn = tk.ilu_trisolve_fused_cuda if w.is_cuda else tk.ilu_trisolve_fused_plain
-    return fn(*args, M.steps_l, M.steps_u)
+    steps = (M.steps_l_segs, M.steps_u_segs, M.seg) if M.seg else (M.steps_l, M.steps_u)
+    if w.is_cuda:
+        fn = tk.ilu_trisolve_segmented_cuda if M.seg else tk.ilu_trisolve_fused_cuda
+        return fn(*args, *steps, schedule=M.schedule)
+    fn = tk.ilu_trisolve_segmented_plain if M.seg else tk.ilu_trisolve_fused_plain
+    return fn(*args, *steps)
 
 
 def apply_preconditioner(M, w: torch.Tensor, comm=None) -> torch.Tensor:

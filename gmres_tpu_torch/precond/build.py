@@ -11,11 +11,12 @@ Exact ILU (``build_ilu_exact``) keeps ``gmres_tpu``'s routing
 - a factor with at most ``_SHALLOW_LEVELS`` dependency levels is that many
   plain Jacobi sweeps (``ILUJacobiPrec``);
 - banded factors become ``ExactILUDIAPrec``, applied by kernel K6 in fp32
-  and in fp64 (the TPU kernel was fp32-only and sent fp64 to sweeps).
-  Fused when the working set ``(D_l + D_u + 5) * itemsize * n`` fits
-  ``_TRISOLVE_L2_BYTES``, else segmented into as few equal segments as
-  keep each within it; the budget stands for Hopper's 50 MB L2, where the
-  TPU's was v5e's VMEM, and was set from K6's times on the card (PERF.md);
+  and in fp64 (the TPU kernel was fp32-only and sent fp64 to sweeps), with
+  the level schedule K6 runs built here once.  Fused when the working set
+  ``(D_l + D_u + 5) * itemsize * n`` fits ``_TRISOLVE_L2_BYTES``, else
+  segmented into as few equal segments as keep each within it.  On the
+  card both forms are one launch of the same schedule (the same bits and
+  time, PERF.md), so the split decides only the plain versions' form;
 - otherwise full sweeps within ``_SWEEP_WORK_BUDGET``, then the
   level-scheduled ``LevelILUPrec``, then refusal.
 
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from gmres_tpu_torch.config import GmresConfig, Precond
-from gmres_tpu_torch.ops.cuda.trisolve_kernel import MAX_BANDS, MAX_SEGMENTS
+from gmres_tpu_torch.ops.cuda.trisolve_kernel import LevelSchedule, level_schedule
 from gmres_tpu_torch.ops.dia import from_csr
 from gmres_tpu_torch.ops.sell import sell_from_csr
 from gmres_tpu_torch.precond import level_ilu
@@ -47,9 +48,10 @@ from gmres_tpu_torch.sparse import CSRMatrix, csr_from_arrays
 
 _NUMPY_DTYPE = {torch.float64: np.float64, torch.float32: np.float32}
 
-# Bytes of factor bands and vectors that one fused K6 launch may sweep; a
-# larger working set takes the segmented form.  On one H100 (PERF.md) fused
-# won at 36 MiB (fp32, 1M rows) and two segments at 72 MiB (fp64, 1M).
+# Bytes of factor bands and vectors of the fused form; a larger working set
+# takes the segmented form (set when each K6 sweep re-read the working set
+# from L2: fused won at 36 MiB, fp32 1M rows, and two segments at 72 MiB,
+# fp64 1M; the level-scheduled K6 runs both forms alike).
 _TRISOLVE_L2_BYTES = 48 * 1024 * 1024
 
 # At or below this many dependency levels the exact solve is that many
@@ -108,7 +110,8 @@ class ExactILUDIAPrec:
 
     ``seg > 0`` selects the segmented form: segments of ``seg`` rows (the
     last may be partial), each sweeping its own intra-segment level count
-    (``steps_l_segs``/``steps_u_segs``)."""
+    (``steps_l_segs``/``steps_u_segs``).  ``schedule`` is the level schedule
+    the kernel runs, built once with the preconditioner."""
 
     lower_bands: torch.Tensor   # (>= D_l, width) strictly-lower bands
     upper_bands: torch.Tensor   # (>= D_u, width) strictly-upper bands
@@ -120,11 +123,13 @@ class ExactILUDIAPrec:
     seg: int = 0
     steps_l_segs: tuple = ()
     steps_u_segs: tuple = ()
+    schedule: LevelSchedule | None = None
 
     def to(self, device) -> "ExactILUDIAPrec":
         return dataclasses.replace(self, lower_bands=self.lower_bands.to(device),
                                    upper_bands=self.upper_bands.to(device),
-                                   inv_diag=self.inv_diag.to(device))
+                                   inv_diag=self.inv_diag.to(device),
+                                   schedule=self.schedule and self.schedule.to(device))
 
 
 def _safeguarded_inverse(dv: np.ndarray, row_abs: np.ndarray, dtype) -> torch.Tensor:
@@ -226,31 +231,32 @@ def _segment_level_counts(rp, ci, diag, seg: int):
 
 
 def _exact_dia(rp, ci, diag, lower, upper, inv_diag, steps_l, steps_u, ndt):
-    """ExactILUDIAPrec when both triangles repack to DIA within K6's band
-    limit, fused or segmented by the working set; else None."""
+    """ExactILUDIAPrec when both triangles repack to DIA, fused or
+    segmented by the working set; else None."""
     lo_dia, up_dia = from_csr(lower), from_csr(upper)
     if lo_dia is None or up_dia is None or 0 not in up_dia.offsets:
         return None
     offs_l = lo_dia.offsets
     offs_u = tuple(o for o in up_dia.offsets if o > 0)
-    if max(len(offs_l), len(offs_u)) > MAX_BANDS:
-        return None
     n = lower.n_rows
     up_rows = [up_dia.offsets.index(o) for o in offs_u]
-    prec = ExactILUDIAPrec(lower_bands=lo_dia.data, upper_bands=up_dia.data[up_rows],
-                           inv_diag=torch.from_numpy(inv_diag), offs_l=offs_l,
-                           offs_u=offs_u, steps_l=steps_l, steps_u=steps_u)
+    lower_bands, upper_bands = lo_dia.data, up_dia.data[up_rows]
+    inv_diag = torch.from_numpy(inv_diag)
+    prec = ExactILUDIAPrec(lower_bands=lower_bands, upper_bands=upper_bands,
+                           inv_diag=inv_diag, offs_l=offs_l, offs_u=offs_u, steps_l=steps_l,
+                           steps_u=steps_u,
+                           schedule=level_schedule(lower_bands, upper_bands, inv_diag,
+                                                   offs_l, offs_u))
     working_set = (len(offs_l) + len(offs_u) + 5) * np.dtype(ndt).itemsize * n
     if working_set <= _TRISOLVE_L2_BYTES:
         return prec
     # as few equal segments as keep each one's share of the working set
-    # within the budget (on the card a segment's sweep costs a grid barrier
-    # like a whole-vector one, so more segments cost more), in multiples of
-    # 1024 rows; a segment must be at least as wide as the bands
+    # within the budget, in multiples of 1024 rows; a segment must be at
+    # least as wide as the bands
     n_seg = -(-working_set // _TRISOLVE_L2_BYTES)
     seg = -(-n // (n_seg * 1024)) * 1024
     band = max(abs(o) for o in offs_l + offs_u)
-    if seg < max(band, 1024) or -(-n // seg) > MAX_SEGMENTS:
+    if seg < max(band, 1024):
         return None
     sl, su = _segment_level_counts(rp, ci, diag, seg)
     return dataclasses.replace(prec, seg=seg, steps_l_segs=sl, steps_u_segs=su)

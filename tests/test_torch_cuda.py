@@ -94,6 +94,33 @@ def test_basis_sweeps(dt, n, rows):
     _close(ou.basis_axpy_cuda(x.clone(), V, y), ou.basis_axpy_plain(x.clone(), V, y), dt)
 
 
+@DTYPES
+@pytest.mark.parametrize("n", [1, 3, 1023, 1025, 4096, 70_001, 2 ** 20 + 3])
+@pytest.mark.parametrize("shift", [0, 1], ids=["aligned", "unaligned_base"])
+def test_gram_one_launch_bits_independent_of_grid(dt, n, shift):
+    # K2 against gram_plain at ragged n (rows 16-byte aligned only where n is
+    # a multiple of the vector width) and at a V and w that start one value
+    # past a 16-byte boundary; the bits repeat and do not depend on the grid
+    m1 = 31
+    rng = np.random.default_rng(n + shift)
+    Vb = torch.tensor(rng.standard_normal(m1 * n + shift), dtype=dt, device="cuda")
+    wb = torch.tensor(rng.standard_normal(n + shift), dtype=dt, device="cuda")
+    V, w = Vb[shift:].view(m1, n), wb[shift:]
+    for rows in (1, 7, 8, 9, 16, m1):
+        reset_launch_counts()
+        got = ok.gram_cuda(V, w, rows)
+        assert launch_counts()["basis_gram"] == 1
+        scale = ok.gram_plain(V.abs(), w.abs(), rows)
+        assert float((got - ok.gram_plain(V, w, rows)).abs().max()) <= \
+            TOL[dt] * float(scale.max())
+        assert not got[rows:].any()
+        grids = {ok.gram_cuda.grid}
+        for per_sm in (1, 4, None):
+            assert torch.equal(ok.gram_cuda(V, w, rows, blocks_per_sm=per_sm), got)
+            grids.add(ok.gram_cuda.grid)
+        assert n < 2 ** 20 or len(grids) > 1, grids  # more tiles than one grid has blocks
+
+
 def _basis(dt, n, rows, m1=31, seed=0):
     """V (m1, n) with its first `rows` rows orthonormal and the rest zero,
     and a vector w, on the card."""
@@ -270,14 +297,16 @@ def _exact(nx, dt, n_seg=None, monkeypatch=None):
     return M.to("cuda")
 
 
-def _k6(M, w):
-    """K6 and its plain version on the same CUDA tensors."""
+def _k6(M, w, sync=None):
+    """K6 (on M's level schedule) and its plain version on the same CUDA
+    tensors."""
     args = (M.lower_bands, M.upper_bands, M.inv_diag, w, M.offs_l, M.offs_u)
     if M.seg:
         steps = (M.steps_l_segs, M.steps_u_segs, M.seg)
-        return tk.ilu_trisolve_segmented_cuda(*args, *steps), \
+        return tk.ilu_trisolve_segmented_cuda(*args, *steps, schedule=M.schedule, sync=sync), \
             tk.ilu_trisolve_segmented_plain(*args, *steps)
-    return tk.ilu_trisolve_fused_cuda(*args, M.steps_l, M.steps_u), \
+    return tk.ilu_trisolve_fused_cuda(*args, M.steps_l, M.steps_u, schedule=M.schedule,
+                                      sync=sync), \
         tk.ilu_trisolve_fused_plain(*args, M.steps_l, M.steps_u)
 
 
@@ -285,12 +314,60 @@ def _k6(M, w):
 @pytest.mark.parametrize("nx,n_seg", [(7, None), (45, None), (45, 2), (60, 4), (60, 2)])
 def test_ilu_trisolve(dt, nx, n_seg, monkeypatch):
     # n = 49, 2025, 3600: no multiple of the block; several segments with a
-    # partial last one; the result repeats bit for bit
+    # partial last one; the result repeats bit for bit and equals the plain
+    # sweeps' bits (each row once from final inputs, every product and sum
+    # rounded once as the torch ops round)
     M = _exact(nx, dt, n_seg, monkeypatch)
     w = torch.tensor(np.random.default_rng(nx).standard_normal(nx * nx), dtype=dt, device="cuda")
     got, want = _k6(M, w)
     _close(got, want, dt)
+    assert torch.equal(got, want)
     assert torch.equal(_k6(M, w)[0], got)
+
+
+@DTYPES
+@pytest.mark.parametrize("nx,n_seg", [(64, 2), (256, 4), (512, 2)])
+def test_ilu_trisolve_levels_same_bits_every_form_and_grid(dt, nx, n_seg, monkeypatch):
+    # fused and segmented run one schedule; one block, clusters and
+    # cooperative grids compute each row from the same inputs
+    Mf = _exact(nx, dt)
+    Ms = _exact(nx, dt, n_seg, monkeypatch)
+    w = torch.tensor(np.random.default_rng(nx).standard_normal(nx * nx), dtype=dt, device="cuda")
+    got, want = _k6(Mf, w)
+    assert torch.equal(got, want)
+    assert tk.ilu_trisolve_fused_cuda.grid == ("block", 1)  # widest level nx <= 1024
+    assert torch.equal(_k6(Ms, w)[0], got)
+    for sync in (("cluster", 2), ("cluster", 8), ("grid", 4), ("grid", 10_000)):
+        assert torch.equal(_k6(Mf, w, sync)[0], got), sync
+        assert torch.equal(_k6(Ms, w, sync)[0], got), sync
+
+
+def _random_bands(n, d, seed, dt):
+    """Random strictly-lower and strictly-upper bands (d each, offsets in
+    no particular order, about half of the stored values zero) and an
+    inverse diagonal, on the CPU."""
+    rng = np.random.default_rng(seed)
+    offs_l = tuple(int(o) for o in -rng.choice(np.arange(1, n), size=d, replace=False))
+    offs_u = tuple(int(o) for o in rng.choice(np.arange(1, n), size=d, replace=False))
+    ld, ud = (torch.tensor(0.3 / d * rng.standard_normal((d, n)) * (rng.random((d, n)) < 0.5),
+                           dtype=dt) for _ in range(2))
+    invd = torch.tensor(1.0 / (2.0 + rng.random(n)), dtype=dt)
+    return ld, ud, invd, offs_l, offs_u
+
+
+@DTYPES
+@pytest.mark.parametrize("n,d", [(300, 3), (1000, 17), (1500, 64)])
+def test_ilu_trisolve_random_bands(dt, n, d):
+    # up to 64 bands per triangle: past the 4 a thread prefetches
+    ld, ud, invd, offs_l, offs_u = _random_bands(n, d, n + d, dt)
+    S = tk.level_schedule(ld, ud, invd, offs_l, offs_u)
+    ld, ud, invd, S = ld.cuda(), ud.cuda(), invd.cuda(), S.to("cuda")
+    w = torch.tensor(np.random.default_rng(d).standard_normal(n), dtype=dt, device="cuda")
+    args = (ld, ud, invd, w, offs_l, offs_u, S.nlev_l, S.nlev_u)
+    got = tk.ilu_trisolve_fused_cuda(*args, schedule=S)
+    assert torch.equal(got, tk.ilu_trisolve_fused_plain(*args))
+    assert torch.equal(tk.ilu_trisolve_fused_cuda(*args), got)  # schedule built for the call
+    assert torch.equal(tk.ilu_trisolve_fused_cuda(*args, schedule=S, sync=("grid", 3)), got)
 
 
 @DTYPES
@@ -322,7 +399,8 @@ def test_ilu_trisolve_identity_tail_segments(dt, monkeypatch):
         M, lower_bands=torch.nn.functional.pad(M.lower_bands, (0, pad)),
         upper_bands=torch.nn.functional.pad(M.upper_bands, (0, pad)),
         inv_diag=torch.nn.functional.pad(M.inv_diag, (0, pad), value=1.0),
-        steps_l_segs=M.steps_l_segs + (1, 1), steps_u_segs=M.steps_u_segs + (1, 1))
+        steps_l_segs=M.steps_l_segs + (1, 1), steps_u_segs=M.steps_u_segs + (1, 1),
+        schedule=None)  # built for the call from the widened bands
     w = torch.tensor(np.random.default_rng(3).standard_normal(45 * 45), dtype=dt, device="cuda")
     got, _ = _k6(Mp, w)
     assert got.shape == w.shape
@@ -356,9 +434,9 @@ def test_cuda_tensor_reaches_k6_or_raises(monkeypatch):
     with pytest.raises(TypeError):
         tk.ilu_trisolve_fused_cuda(M.lower_bands.half(), M.upper_bands.half(),
                                    M.inv_diag.half(), w.half(), M.offs_l, M.offs_u, 1, 1)
-    with pytest.raises(ValueError):  # more segments than the kernel takes
+    with pytest.raises(ValueError):  # step counts for another number of segments
         tk.ilu_trisolve_segmented_cuda(M.lower_bands, M.upper_bands, M.inv_diag, w,
-                                       M.offs_l, M.offs_u, (1,) * 400, (1,) * 400, 1)
+                                       M.offs_l, M.offs_u, (1,) * 399, (1,) * 399, 1)
     Ms = _exact(45, torch.float32, 2, monkeypatch)
     apply_preconditioner(Ms, torch.ones(2025, device="cuda"))
     assert launch_counts()["ilu_trisolve_segmented"] == 1

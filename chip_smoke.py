@@ -20,7 +20,9 @@ in fp64 numpy, CGSR unless said otherwise, restart length 30, tol 1e-8):
 3. the ILU path (convdiff-ilu): the same convdiff@1M operator with M built
    on the host from the CSR matrix and passed as ``M=``: ILU-Jacobi(3) (DIA
    factors, K1 per sweep; the reference's 54/1620 baseline and 63/1890
-   mixed), exact ILU (K6; converges, backward error <= 1e-8), and exact ILU
+   mixed; the baseline count also held to the same solve with K2's plain
+   version in its place), exact ILU (K6; converges, backward error <=
+   1e-8), and exact ILU
    on ``convection_diffusion_2d(512, beta=2.0)`` (the reference's 8/240 in
    mixed).  The fused K6 form serves 262K and the segmented one 1M fp64;
 4. the MGS and policy path (convdiff-mgs): the same convdiff@1M operator,
@@ -58,8 +60,9 @@ one PyTorch call computes the same function, that call's time (K6: two
 CSR torch.triangular_solve calls).  K2 is also timed on 1-4 blocks per
 SM (the same bits on each) and shown to be one device kernel a call; K6
 is held bit for bit to its plain version, fused and segmented to each
-other, and timed on each sync candidate (one block, clusters, cooperative
-grids, each empty barrier measured) beside the old design's floor.  Each path's launch counts are reset just
+other, and timed on one block and on cooperative grids beside the empty
+barrier of each sync candidate (clusters too) and the old design's floor.
+Each path's launch counts are reset just
 before its solves and read just after: the path's own kernels must launch,
 the other paths' SpMV kernels, (without ILU) K6, (without MGS, a policy
 or orth_steps != 2) the MGS kernels, (outside the df64 path) K8-K11 and
@@ -112,12 +115,13 @@ ILU_KERNELS = ("ilu_trisolve_fused", "ilu_trisolve_segmented")
 ILU_JACOBI_HISTORY = {"baseline": (54, 1620), "mixed": (63, 1890)}
 EXACT_262K_HISTORY = (8, 240)
 # Restart bounds for ILU-Jacobi(3) at convdiff@1M.  The iteration stalls
-# just above the tolerance for its last restarts, so the order in which the
-# basis sweeps sum picks the count.  Baseline: from 2 below the reference's
-# 54 to 1 above: the one-launch K2 sums its fp64 tiles in another order than
-# the per-block partials and torch.sum it replaced, and the same solve then
-# takes 52 restarts where it took 54 (scripts/port_walls.py --precond
-# ilu_jacobi on both, one card; PERF.md, section 6).  Mixed: from 3 below
+# just above the tolerance for its last restarts, so the rounding of the
+# basis sweeps picks the count.  Baseline: from 2 below the reference's 54
+# to 1 above, and the count must equal that of the same solve with K2's
+# plain version (torch.mv) in its place, in the same run.  The one-launch K2
+# takes 52 restarts where the per-block partials and torch.sum it replaced
+# took 54; torch.mv's order and a compensated (near-exact) K2 take 52 too
+# (scripts/port_k2.py, one card; PERF.md, section 6).  Mixed: from 3 below
 # the fp64 baseline's 54 to 1 above the reference's 63 (on the CPU the JAX
 # package and the port, identical in baseline, differ in mixed by 1 restart
 # at convection_diffusion_2d(128) and by 3 at (256), the port lower).
@@ -150,7 +154,8 @@ DF_OPS = 20
 SYNC_PROBE = 2000      # barriers per timed empty cooperative launch
 GRAM_GRID_BLOCKS_PER_SM = (1, 2, 3, 4)   # K2 grids measured
 # K6's sync candidates (mode, blocks of 1024 threads), each empty barrier
-# measured and the kernel timed on each at convdiff@1M
+# measured, and the kernel timed at convdiff@1M on those of its own two
+# forms (one block, a cooperative grid; the kernel has no cluster form)
 LEVEL_SYNCS = (("block", 1), ("cluster", 2), ("cluster", 4), ("cluster", 8), ("grid", 8),
                ("grid", 132))
 # Kernel vs plain tolerance, relative to the same computation on absolute
@@ -206,15 +211,14 @@ def nvcc_version():
 class Timer:
     """Median device time of a callable, one CUDA-event pair per launch,
     with the 50 MB L2 flushed before each launch (the main path streams the
-    basis through L2 between two calls of any kernel).  With `guard`, the
-    card spins GUARD_CYCLES after the flush, so that the host has enqueued
-    the timed call before its start event fires: the events then hold the
-    device's time and no host enqueue gap (without it a wrapper's Python
-    work lands inside the events whenever the flush ends first)."""
+    basis through L2 between two calls of any kernel).  The card spins
+    GUARD_CYCLES after the flush, so that the host has enqueued the timed
+    call before its start event fires: the events then hold the device's
+    time and no host enqueue gap (without it a wrapper's Python work lands
+    inside the events whenever the flush ends first)."""
 
-    def __init__(self, torch, guard=True):
+    def __init__(self, torch):
         self.torch = torch
-        self.guard = guard
         self.flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
 
     def __call__(self, fn, reps=REPS):
@@ -224,8 +228,7 @@ class Timer:
         times = []
         for _ in range(reps):
             self.flush.zero_()
-            if self.guard:
-                torch.cuda._sleep(GUARD_CYCLES)
+            torch.cuda._sleep(GUARD_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -560,6 +563,22 @@ def solve_timed(torch, label, mode, A_csr, A_dev, cfg, timed, M=None, history=Fa
     return res, wall
 
 
+def solve_with_plain_gram(torch, A_csr, A_dev, cfg, M):
+    """One solve as solve_timed's with K2's wrapper swapped for its plain
+    version (torch.mv on the card): the history that K2's own rounding is
+    held to."""
+    from gmres_tpu_torch import rand_vect, solve
+    from gmres_tpu_torch.ops.cuda import orth_kernel as ok_
+
+    b = -csr_residual(A_csr, rand_vect(A_csr.n_rows, 42), np.zeros(A_csr.n_rows))
+    kernel = ok_.gram_cuda
+    ok_.gram_cuda = lambda V, w, rows: ok_.gram_plain(V, w, rows)
+    try:
+        return solve(A_dev, torch.tensor(b, device="cuda"), cfg, M=M)
+    finally:
+        ok_.gram_cuda = kernel
+
+
 def config(mode, precond, orth="cgsr", **kw):
     from gmres_tpu_torch import GmresConfig, PrecisionSpec
 
@@ -721,7 +740,8 @@ def check_trisolve_kernels(torch, A_csr, record):
     tolerance scale is the same recurrence on absolute values: -|bands|,
     |D^-1| and |w| (every term added).  Beside the bound: the old design's
     floor (every level a barrier of the resident 256-thread cooperative
-    grid, plus one) and each sync candidate's empty barrier and kernel time."""
+    grid, plus one), each sync candidate's empty barrier and the kernel's
+    time on its two forms."""
     from gmres_tpu_torch.ops.cuda import trisolve_kernel as tk
 
     n = A_csr.n_rows
@@ -784,11 +804,11 @@ def check_trisolve_kernels(torch, A_csr, record):
             del got, want, scale
         require(torch.equal(outs["ilu_trisolve_fused"], outs["ilu_trisolve_segmented"]),
                 f"K6 {dt_name}: fused and segmented give the same bits")
-        # the fused form on each sync candidate: the same bits, its time
+        # the fused form on each of its sync forms: the same bits, its time
         M = exact_ilu(A_csr, dt).to("cuda")
         args = (M.lower_bands, M.upper_bands, M.inv_diag, w, M.offs_l, M.offs_u, M.steps_l,
                 M.steps_u)
-        for cand in LEVEL_SYNCS:
+        for cand in (c for c in LEVEL_SYNCS if c[0] in tk.SYNC_MODES):
             out = tk.ilu_trisolve_fused_cuda(*args, schedule=M.schedule, sync=cand)
             require(torch.equal(out, outs["ilu_trisolve_fused"]),
                     f"K6 {dt_name} on {cand}: the same bits")
@@ -860,6 +880,13 @@ def convdiff_ilu_path(torch, record, A, A_dev):
         require(lo <= res.restarts <= hi,
                 f"ilu_jacobi {mode}: {res.restarts}/{res.total_iters} restarts not in "
                 f"{lo}..{hi} (the reference's {want[0]}/{want[1]})")
+        if mode == "baseline":
+            twin = solve_with_plain_gram(torch, A, A_dev, cfg, M)
+            log(f"  the same solve with K2's plain version (torch.mv): "
+                f"{twin.restarts}/{twin.total_iters}")
+            require((twin.restarts, twin.total_iters) == (res.restarts, res.total_iters),
+                    f"ilu_jacobi baseline: {res.restarts}/{res.total_iters} on K2, "
+                    f"{twin.restarts}/{twin.total_iters} on its plain version")
     exact_walls = []
     for label, A_csr, A_staged in (("convdiff@262K ilu", A262, A262_dev),
                                    ("convdiff@1M ilu", A, A_dev)):

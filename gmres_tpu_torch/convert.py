@@ -11,7 +11,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gmres_tpu_torch.ops.cuda.trisolve_kernel import level_schedule
 from gmres_tpu_torch.ops.dia import DF64Dia, DIAMatrix
 from gmres_tpu_torch.precond.build import ExactILUDIAPrec, ILUJacobiPrec, JacobiPrec
 from gmres_tpu_torch.precond.level_ilu import LevelILUPrec
@@ -71,16 +70,14 @@ def exact_ilu_from_numpy(lower_bands, upper_bands, inv_diag, offs_l, offs_u,
                          steps_l: int, steps_u: int, seg: int = 0, steps_l_segs=(),
                          steps_u_segs=(), device="cpu") -> ExactILUDIAPrec:
     """From the arrays of a JAX ``ExactILUDIAPrec``, lane-padded bands
-    (and, when segmented, their ``steps_*_segs``) as they are, with the
-    level schedule K6 runs built from those bands."""
-    ld, ud, invd = (_tensor(a, "cpu") for a in (lower_bands, upper_bands, inv_diag))
-    offs_l, offs_u = tuple(int(o) for o in offs_l), tuple(int(o) for o in offs_u)
+    (and, when segmented, their ``steps_*_segs``) as they are; on a CUDA
+    device with the level schedule K6 runs, built from those bands."""
     return ExactILUDIAPrec(
-        lower_bands=ld, upper_bands=ud, inv_diag=invd, offs_l=offs_l, offs_u=offs_u,
-        steps_l=int(steps_l), steps_u=int(steps_u), seg=int(seg),
-        steps_l_segs=tuple(int(s) for s in steps_l_segs),
-        steps_u_segs=tuple(int(s) for s in steps_u_segs),
-        schedule=level_schedule(ld, ud, invd, offs_l, offs_u)).to(device)
+        lower_bands=_tensor(lower_bands, "cpu"), upper_bands=_tensor(upper_bands, "cpu"),
+        inv_diag=_tensor(inv_diag, "cpu"), offs_l=tuple(int(o) for o in offs_l),
+        offs_u=tuple(int(o) for o in offs_u), steps_l=int(steps_l), steps_u=int(steps_u),
+        seg=int(seg), steps_l_segs=tuple(int(s) for s in steps_l_segs),
+        steps_u_segs=tuple(int(s) for s in steps_u_segs)).to(device)
 
 
 def level_ilu_from_numpy(l_rows_max: int, u_rows_max: int, n: int, device="cpu",

@@ -90,10 +90,12 @@ void ilu_host_levels(int64_t n, const int64_t* row_ptr, const int64_t* col_idx,
 // row i depends on row i + offs[d] wherever nonzero[d * n + i] and that row
 // lies in [0, n).  A lower triangle (every offset < 0) is walked forward, an
 // upper one (every offset > 0) backward, so each dependency's level is known
-// when its row is reached.  Returns the level count (max level + 1; 1 for no
-// bands), or -1 when an offset has the wrong sign for the direction.
+// when its row is reached.  With seg > 0 only dependencies within a row's
+// segment of seg rows count (the segmented solve's intra-segment levels).
+// Returns the level count (max level + 1; 1 for no bands), or -1 when an
+// offset has the wrong sign for the direction.
 int64_t ilu_host_dia_levels(int64_t n, int64_t n_diags, const int64_t* offs,
-                            const uint8_t* nonzero, int upper, int64_t* lev) {
+                            const uint8_t* nonzero, int upper, int64_t seg, int64_t* lev) {
   for (int64_t d = 0; d < n_diags; ++d)
     if (upper ? offs[d] <= 0 : offs[d] >= 0) return -1;
   int64_t top = 0;
@@ -102,7 +104,7 @@ int64_t ilu_host_dia_levels(int64_t n, int64_t n_diags, const int64_t* offs,
     int64_t lv = 0;
     for (int64_t d = 0; d < n_diags; ++d) {
       const int64_t j = i + offs[d];
-      if (j < 0 || j >= n || !nonzero[d * n + i]) continue;
+      if (j < 0 || j >= n || !nonzero[d * n + i] || (seg > 0 && j / seg != i / seg)) continue;
       if (lev[j] + 1 > lv) lv = lev[j] + 1;
     }
     lev[i] = lv;

@@ -34,10 +34,12 @@
 //   threads while the widest level fits it (1024 rows at convdiff@1M), with
 //   a __syncthreads() barrier and the last kRing results kept in a
 //   shared-memory ring, so a neighbour's value is a shared-memory read;
-//   else one thread-block cluster of up to 8 blocks (cluster.sync()), else
-//   a cooperative grid (grid.sync()), neighbours read from L2 (__ldcg).
-//   chip_smoke.py measures each candidate's empty barrier and the kernel on
-//   each.
+//   else a cooperative grid (grid.sync()), neighbours read from L2
+//   (__ldcg).  chip_smoke.py measures the empty barrier of each candidate
+//   (one block, a thread-block cluster, a cooperative grid) and the kernel
+//   on both forms.  A cluster (cluster.sync()) beat the grid at 2-8 blocks
+//   in that table, but no workload has levels wider than one block, so the
+//   kernel has no cluster form; the probe keeps its barrier measured.
 // - The values live in level order (xl for L, xu for U; the wrapper gathers
 //   w into L order, the L phase writes each result to its U position too,
 //   the U phase to its row), and the schedule gives each band's neighbour
@@ -58,7 +60,7 @@ using namespace gmres;
 namespace {
 
 constexpr int kLevelThreads = 1024;  // threads per block
-constexpr int kMaxClusterBlocks = 8; // portable cluster size
+constexpr int kMaxClusterBlocks = 8; // portable cluster size (the barrier probe)
 constexpr int kStageBands = 2;       // bands a row stages in shared memory
 constexpr int kSlots = 4;            // staged levels: the current one and 3 ahead
 // One block keeps the x values of the last kRing positions in shared
@@ -68,7 +70,8 @@ constexpr int kSlots = 4;            // staged levels: the current one and 3 ahe
 constexpr int kRing = 2048;
 constexpr int kMaxSmem = 232448;     // an H100 block's shared memory
 
-enum SyncMode { kBlockSync = 0, kClusterSync = 1, kGridSync = 2 };
+// the kernel's two forms; the cluster barrier is measured by the probe only
+enum SyncMode { kBlockSync = 0, kGridSync = 1, kClusterProbe = 2 };
 
 // One triangle's schedule, everything in level order (position p)
 template <typename T>
@@ -156,7 +159,7 @@ __device__ __forceinline__ T load_x(const T* p) {
 template <int kMode>
 __device__ __forceinline__ void level_barrier() {
   if constexpr (kMode == kBlockSync) __syncthreads();
-  else if constexpr (kMode == kClusterSync) cg::this_cluster().sync();
+  else if constexpr (kMode == kClusterProbe) cg::this_cluster().sync();
   else cg::this_grid().sync();
 }
 
@@ -264,35 +267,16 @@ __global__ void __launch_bounds__(kLevelThreads) level_sync_probe_kernel(int syn
   for (int i = 0; i < syncs; ++i) level_barrier<kMode>();
 }
 
-// Launch `kernel` with `args` in sync mode `mode` on `*blocks` blocks of
-// kLevelThreads: one plain block, one cluster, or a cooperative grid (cut to
-// the resident blocks; the grid used is left in *blocks).
+// Launch `args` in sync mode `mode`: block_fn on one block, or grid_fn as
+// a cooperative grid of *blocks blocks of kLevelThreads (cut to the resident
+// blocks; the grid used is left in *blocks).
 template <typename... Args>
-int launch_mode(void (*block_fn)(Args...), void (*cluster_fn)(Args...),
-                void (*grid_fn)(Args...), int mode, int* blocks, size_t smem, void* stream,
-                Args... args) {
+int launch_mode(void (*block_fn)(Args...), void (*grid_fn)(Args...), int mode, int* blocks,
+                size_t smem, void* stream, Args... args) {
   cudaStream_t s = (cudaStream_t)stream;
   if (mode == kBlockSync) {
     if (*blocks != 1) return (int)cudaErrorInvalidValue;
     block_fn<<<1, kLevelThreads, smem, s>>>(args...);
-    return (int)cudaGetLastError();
-  }
-  if (mode == kClusterSync) {
-    if (*blocks < 1 || *blocks > kMaxClusterBlocks) return (int)cudaErrorInvalidValue;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(*blocks);
-    cfg.blockDim = dim3(kLevelThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = s;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = *blocks;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    cudaError_t err = cudaLaunchKernelEx(&cfg, cluster_fn, args...);
-    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
   }
   if (mode != kGridSync || *blocks < 1) return (int)cudaErrorInvalidValue;
@@ -342,14 +326,13 @@ int launch_levels(const int* ptr_l, const T* bands_l, const int* dep_l, const in
   const size_t ptr_bytes = (size_t)(nlev_l + 1 + nlev_u + 1) * sizeof(int);
   a.shared_ptr = smem_fixed<T>() + ptr_bytes <= (size_t)kMaxSmem;
   const size_t smem = smem_fixed<T>() + (a.shared_ptr ? ptr_bytes : 0);
-  void (*fns[3])(LevelParams<T>) = {ilu_levels_kernel<T, kBlockSync>,
-                                    ilu_levels_kernel<T, kClusterSync>,
+  void (*fns[2])(LevelParams<T>) = {ilu_levels_kernel<T, kBlockSync>,
                                     ilu_levels_kernel<T, kGridSync>};
-  if (mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+  if (mode != kBlockSync && mode != kGridSync) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute((const void*)fns[mode],
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  return launch_mode(fns[0], fns[1], fns[2], mode, blocks, smem, stream, a);
+  return launch_mode(fns[0], fns[1], mode, blocks, smem, stream, a);
 }
 
 }  // namespace
@@ -359,8 +342,8 @@ extern "C" {
 // K6 over the level schedule of both triangles (ops/cuda/
 // trisolve_kernel.py:LevelSchedule): xl holds w in L order (and is
 // overwritten), xu is scratch, x receives the solve in row order; mode 0
-// one block, 1 a cluster, 2 a cooperative grid of *blocks blocks (the grid
-// used is left in *blocks)
+// one block, 1 a cooperative grid of *blocks blocks (the grid used is left
+// in *blocks)
 int gmres_ilu_levels_f32(const int* ptr_l, const float* bands_l, const int* dep_l,
                          const int* upos_l, int nlev_l, int d_l, const int* ptr_u,
                          const float* bands_u, const int* dep_u, const int* rows_u,
@@ -382,11 +365,28 @@ int gmres_ilu_levels_f64(const int* ptr_l, const double* bands_l, const int* dep
 
 // `syncs` barriers of sync mode `mode` on `blocks` blocks of kLevelThreads
 // and nothing else: one empty barrier of each candidate for K6's levels
+// (mode 0 one block, 1 a cooperative grid, 2 a thread-block cluster)
 int gmres_level_sync_probe(int mode, int blocks, int syncs, int* blocks_out, void* stream) {
   if (syncs < 0) return (int)cudaErrorInvalidValue;
   *blocks_out = blocks;
-  return launch_mode(level_sync_probe_kernel<kBlockSync>, level_sync_probe_kernel<kClusterSync>,
-                     level_sync_probe_kernel<kGridSync>, mode, blocks_out, 0, stream, syncs);
+  if (mode != kClusterProbe)
+    return launch_mode(level_sync_probe_kernel<kBlockSync>, level_sync_probe_kernel<kGridSync>,
+                       mode, blocks_out, 0, stream, syncs);
+  if (blocks < 1 || blocks > kMaxClusterBlocks) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kLevelThreads);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, level_sync_probe_kernel<kClusterProbe>, syncs);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

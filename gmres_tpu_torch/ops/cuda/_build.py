@@ -230,7 +230,7 @@ def host_library() -> ctypes.CDLL:
             lib.ilu_host_levels.restype = None
             lib.ilu_host_trisolve.argtypes = (i64, _P, _P, _P, _P, _P)
             lib.ilu_host_trisolve.restype = None
-            lib.ilu_host_dia_levels.argtypes = (i64, i64, _P, _P, _I, _P)
+            lib.ilu_host_dia_levels.argtypes = (i64, i64, _P, _P, _I, i64, _P)
             lib.ilu_host_dia_levels.restype = i64
             _HOST = lib
         return _HOST

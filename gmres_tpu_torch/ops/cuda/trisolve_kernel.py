@@ -21,15 +21,18 @@ the intra-segment ones), at which the sweeps reach the exact substitution.
 
 The kernel computes that exact result with each row once, level by level,
 from a ``LevelSchedule`` built once per preconditioner on the host
-(``level_schedule``): each row is computed from final inputs in band order,
+(``level_schedule``, when ``ExactILUDIAPrec.to`` moves it to the card):
+each row is computed from final inputs in band order,
 which is the value the sweeps leave in it, so the kernel, its plain
 versions and the level-ordered twin ``ilu_trisolve_levels_plain`` give the
 same bits, and the fused and segmented forms are one launch of the same
 schedule (the global levels: fewer steps than a segment's own).
 
-The ``*_cuda`` wrappers take CUDA tensors only, gather w into level order
-and make one kernel launch per apply, and raise on anything the kernel does
-not take or a refused launch; the ``*_plain`` versions run on any device
+The ``*_cuda`` wrappers take CUDA tensors and the schedule only, gather w
+into level order and make one kernel launch per apply, and raise on step
+counts short of the schedule's levels (the sweeps would stop short of the
+exact solve the kernel computes), on anything the kernel does not take and
+on a refused launch; the ``*_plain`` versions run on any device
 (double-buffered sweeps in torch ops) and are what the CPU path and the
 on-card comparisons use.
 """
@@ -45,8 +48,9 @@ import torch
 from gmres_tpu_torch.ops.cuda._build import check, host_library, kernel_dtype, library
 
 LEVEL_THREADS = 1024      # threads per block (kLevelThreads)
-MAX_CLUSTER_BLOCKS = 8    # portable thread-block cluster (kMaxClusterBlocks)
-SYNC_MODES = {"block": 0, "cluster": 1, "grid": 2}
+SYNC_MODES = {"block": 0, "grid": 1}
+# the barriers level_sync_probe measures: the kernel's two and a cluster's
+PROBE_MODES = {**SYNC_MODES, "cluster": 2}
 
 
 def _padded(w: torch.Tensor, width: int) -> torch.Tensor:
@@ -111,7 +115,9 @@ class LevelSchedule:
     position of each band's row (``dep_*[d, p]``, int32; -1 where that row
     is outside the width); ``upos_l`` is the U position of the row at each L
     position and ``invd_u`` D^-1 in the U order.  ``nlev_*`` and ``width_*``
-    (the widest level) are host ints, which size the kernel's grid."""
+    (the widest level) are host ints, which size the kernel's grid; with
+    ``seg`` > 0, ``seg_levels_*`` are the level counts within each segment of
+    ``seg`` rows (the segmented sweeps' exact step counts)."""
 
     rows_l: torch.Tensor
     ptr_l: torch.Tensor
@@ -127,6 +133,9 @@ class LevelSchedule:
     nlev_u: int
     width_l: int
     width_u: int
+    seg: int = 0
+    seg_levels_l: tuple = ()
+    seg_levels_u: tuple = ()
 
     def to(self, device) -> "LevelSchedule":
         return dataclasses.replace(self, **{
@@ -134,16 +143,17 @@ class LevelSchedule:
             if isinstance(getattr(self, f.name), torch.Tensor)})
 
 
-def band_levels(bands: np.ndarray, offs, upper: bool) -> tuple[np.ndarray, int]:
+def band_levels(bands: np.ndarray, offs, upper: bool, seg: int = 0) -> tuple[np.ndarray, int]:
     """Per-row dependency levels of one strict triangle from its DIA bands
     (row i depends on i + offs[d] where bands[d, i] != 0 and that row lies
-    in the band width) and the level count, through the host helper."""
+    in the band width and, with seg > 0, in row i's segment of seg rows) and
+    the level count, through the host helper."""
     width = bands.shape[1]
     nonzero = np.ascontiguousarray(bands[: len(offs)] != 0, dtype=np.uint8)
     offs64 = np.ascontiguousarray(offs, dtype=np.int64)
     lev = np.empty(width, dtype=np.int64)
     count = host_library().ilu_host_dia_levels(width, len(offs), offs64.ctypes.data,
-                                               nonzero.ctypes.data, int(upper),
+                                               nonzero.ctypes.data, int(upper), seg,
                                                lev.ctypes.data)
     if count < 0:
         raise ValueError(f"{'upper' if upper else 'lower'} band offsets {tuple(offs)} are "
@@ -160,17 +170,22 @@ def _level_order(lev: np.ndarray, count: int):
     return rows, ptr, int(sizes.max())
 
 
-def level_schedule(ld, ud, invd, offs_l, offs_u) -> LevelSchedule:
-    """The level schedule of the factors (host, setup time; CPU tensors).
-    Built from the bands themselves, so that a converted JAX state
-    (lane-padded width, identity tail segments) gets one too."""
+def level_schedule(ld, ud, invd, offs_l, offs_u, seg: int = 0) -> LevelSchedule:
+    """The level schedule of the factors (host, setup time), with each
+    segment's own level counts for segments of ``seg`` rows.  Built from the
+    bands themselves, so that a converted JAX state (lane-padded width,
+    identity tail segments) gets one too."""
     width = invd.shape[0]
     if width >= 2 ** 31:
         raise ValueError(f"level schedule: {width} rows do not fit int32 indices")
-    out = {}
+    out = {"seg": seg}
     for tag, bands, offs, upper in (("l", ld, offs_l, False), ("u", ud, offs_u, True)):
         b = bands.cpu().numpy()[: len(offs)]
         lev, count = band_levels(b, offs, upper)
+        if seg > 0:
+            seg_lev, _ = band_levels(b, offs, upper, seg)
+            out[f"seg_levels_{tag}"] = tuple(
+                int(c) + 1 for c in np.maximum.reduceat(seg_lev, np.arange(0, width, seg)))
         rows, ptr, widest = _level_order(lev, count)
         pos = np.empty(width, dtype=np.int64)
         pos[rows] = np.arange(width)
@@ -224,20 +239,20 @@ def ilu_trisolve_levels_plain(S: LevelSchedule, w: torch.Tensor) -> torch.Tensor
 
 def level_grid(widest: int) -> tuple[str, int]:
     """The kernel's sync mode and blocks for a widest level of this many
-    rows: one block while it fits one, a cluster up to MAX_CLUSTER_BLOCKS,
-    else a cooperative grid (cut to the resident blocks at launch)."""
+    rows: one block while it fits one, else a cooperative grid (cut to the
+    resident blocks at launch)."""
     blocks = max(1, -(-widest // LEVEL_THREADS))
-    if blocks == 1:
-        return "block", 1
-    return ("cluster" if blocks <= MAX_CLUSTER_BLOCKS else "grid"), blocks
+    return ("block", 1) if blocks == 1 else ("grid", blocks)
 
 
 # ------------------------------------------------------------------- launch
 
 
-def _launch(name, ld, ud, invd, w, offs_l, offs_u, schedule, sync):
+def _launch(name, ld, ud, invd, w, offs_l, offs_u, S, sync, steps_l, steps_u, seg=0):
     """Validate (before anything is built), launch once, return x and the
-    grid it ran on."""
+    grid it ran on.  The step counts (one a segment of ``seg`` rows, or one
+    for the whole triangle) must reach the schedule's level counts: the
+    kernel computes the exact solve, and fewer sweeps are not that solve."""
     sfx = kernel_dtype(name, invd)
     width = invd.shape[0] if invd.dim() == 1 else 0
     dev = invd.device
@@ -250,7 +265,17 @@ def _launch(name, ld, ud, invd, w, offs_l, offs_u, schedule, sync):
             raise ValueError(f"{name}: {label} of shape {tuple(bands.shape)} for "
                              f"{len(offs)} offsets")
         check(label, bands, invd.dtype, (bands.shape[0], width), dev)
-    S = schedule or level_schedule(ld, ud, invd, offs_l, offs_u).to(dev)
+    if not isinstance(S, LevelSchedule):
+        raise TypeError(f"{name}: schedule is the preconditioner's LevelSchedule "
+                        f"(M.schedule), not {type(S).__name__}")
+    if S.seg != seg:
+        raise ValueError(f"{name}: a schedule for segments of {S.seg} rows, not {seg}")
+    levels_l, levels_u = ((S.seg_levels_l, S.seg_levels_u) if seg
+                          else ((S.nlev_l,), (S.nlev_u,)))
+    short_l = bool(offs_l) and any(s < k for s, k in zip(steps_l, levels_l))
+    if short_l or any(s < k for s, k in zip(steps_u, levels_u)):
+        raise ValueError(f"{name}: sweeps {tuple(steps_l)}/{tuple(steps_u)} short of the "
+                         f"dependency levels {levels_l}/{levels_u}")
     for tag, d in (("l", len(offs_l)), ("u", len(offs_u))):
         nlev = getattr(S, f"nlev_{tag}")
         check(f"rows_{tag}", getattr(S, f"rows_{tag}"), torch.int32, (width,), dev)
@@ -273,29 +298,19 @@ def _launch(name, ld, ud, invd, w, offs_l, offs_u, schedule, sync):
              S.ptr_u.data_ptr(), S.bands_u.data_ptr(), S.dep_u.data_ptr(), S.rows_u.data_ptr(),
              S.invd_u.data_ptr(), S.nlev_u, len(offs_u), xl.data_ptr(), xu.data_ptr(),
              x.data_ptr(), width, SYNC_MODES[mode], ctypes.addressof(grid))
-    return x, (mode, grid.value)
+    return x[: w.shape[0]], (mode, grid.value)
 
 
-def _exact_steps(name, S, offs_l, steps_l, steps_u):
-    # the schedule computes the exact solve, which the sweeps reach at the
-    # level count; fewer sweeps are not that solve
-    if S is not None and ((offs_l and steps_l < S.nlev_l) or steps_u < S.nlev_u):
-        raise ValueError(f"{name}: {steps_l}/{steps_u} sweeps for {S.nlev_l}/{S.nlev_u} "
-                         "dependency levels")
-
-
-def ilu_trisolve_fused_cuda(ld, ud, invd, w, offs_l, offs_u, steps_l: int, steps_u: int,
-                            schedule: LevelSchedule | None = None,
-                            sync: tuple | None = None) -> torch.Tensor:
-    """K6, fused: one launch of the level schedule (the preconditioner's
-    ``schedule``; without one it is built for this call).  ``sync`` =
-    (mode, blocks) overrides the grid ``level_grid`` picks; the grid it ran
-    on is left in ``ilu_trisolve_fused_cuda.grid``."""
-    _exact_steps("ilu_trisolve_fused", schedule, offs_l, steps_l, steps_u)
+def ilu_trisolve_fused_cuda(ld, ud, invd, w, offs_l, offs_u, steps_l: int, steps_u: int, *,
+                            schedule: LevelSchedule, sync: tuple | None = None) -> torch.Tensor:
+    """K6, fused: one launch of the preconditioner's level ``schedule``.
+    ``sync`` = (mode, blocks) overrides the grid ``level_grid`` picks (for
+    timing the kernel's two forms); the grid it ran on is left in
+    ``ilu_trisolve_fused_cuda.grid``."""
     x, ilu_trisolve_fused_cuda.grid = _launch("ilu_trisolve_fused", ld, ud, invd, w, offs_l,
-                                              offs_u, schedule, sync)
+                                              offs_u, schedule, sync, (steps_l,), (steps_u,))
     ilu_trisolve_fused_cuda.launches += 1
-    return x[: w.shape[0]]
+    return x
 
 
 ilu_trisolve_fused_cuda.launches = 0
@@ -303,20 +318,23 @@ ilu_trisolve_fused_cuda.grid = ("block", 0)
 
 
 def ilu_trisolve_segmented_cuda(ld, ud, invd, w, offs_l, offs_u, steps_l_segs,
-                                steps_u_segs, seg: int,
-                                schedule: LevelSchedule | None = None,
-                                sync: tuple | None = None) -> torch.Tensor:
+                                steps_u_segs, seg: int, *,
+                                schedule: LevelSchedule) -> torch.Tensor:
     """K6, segmented: the same launch as the fused form (the global levels
-    give the segment-by-segment sweeps' bits in fewer steps)."""
+    give the segment-by-segment sweeps' bits in fewer steps), on a schedule
+    built for segments of ``seg`` rows, whose own level counts the step
+    counts are held to."""
+    name = "ilu_trisolve_segmented"
     width = invd.shape[0] if invd.dim() == 1 else 0
     n_seg = -(-width // seg) if seg >= 1 else 0
     if not (0 < n_seg and len(steps_l_segs) == len(steps_u_segs) == n_seg):
-        raise ValueError(f"ilu_trisolve_segmented: {n_seg} segments of {seg} rows and "
+        raise ValueError(f"{name}: {n_seg} segments of {seg} rows and "
                          f"{len(steps_l_segs)}/{len(steps_u_segs)} step counts")
-    x, ilu_trisolve_segmented_cuda.grid = _launch("ilu_trisolve_segmented", ld, ud, invd, w,
-                                                  offs_l, offs_u, schedule, sync)
+    x, ilu_trisolve_segmented_cuda.grid = _launch(name, ld, ud, invd, w, offs_l, offs_u,
+                                                  schedule, None, steps_l_segs, steps_u_segs,
+                                                  seg)
     ilu_trisolve_segmented_cuda.launches += 1
-    return x[: w.shape[0]]
+    return x
 
 
 ilu_trisolve_segmented_cuda.launches = 0
@@ -328,6 +346,6 @@ def level_sync_probe(mode: str, blocks: int, syncs: int) -> int:
     blocks of LEVEL_THREADS (for timing one barrier); returns the blocks
     used (a cooperative grid is cut to the resident blocks)."""
     out = ctypes.c_int(0)
-    library().call("gmres_level_sync_probe", SYNC_MODES[mode], blocks, syncs,
+    library().call("gmres_level_sync_probe", PROBE_MODES[mode], blocks, syncs,
                    ctypes.addressof(out))
     return out.value

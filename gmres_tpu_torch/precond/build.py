@@ -11,10 +11,12 @@ Exact ILU (``build_ilu_exact``) keeps ``gmres_tpu``'s routing
 - a factor with at most ``_SHALLOW_LEVELS`` dependency levels is that many
   plain Jacobi sweeps (``ILUJacobiPrec``);
 - banded factors become ``ExactILUDIAPrec``, applied by kernel K6 in fp32
-  and in fp64 (the TPU kernel was fp32-only and sent fp64 to sweeps), with
-  the level schedule K6 runs built here once.  Fused when the working set
-  ``(D_l + D_u + 5) * itemsize * n`` fits ``_TRISOLVE_L2_BYTES``, else
-  segmented into as few equal segments as keep each within it.  On the
+  and in fp64 (the TPU kernel was fp32-only and sent fp64 to sweeps), the
+  level schedule K6 runs built once when ``.to`` moves the preconditioner
+  to the card (a CPU solve runs the plain sweeps and needs none).  Fused
+  when the working set ``(D_l + D_u + 5) * itemsize * n`` fits
+  ``_TRISOLVE_L2_BYTES``, else segmented into as few equal segments as
+  keep each within it.  On the
   card both forms are one launch of the same schedule (the same bits and
   time, PERF.md), so the split decides only the plain versions' form;
 - otherwise full sweeps within ``_SWEEP_WORK_BUDGET``, then the
@@ -111,7 +113,8 @@ class ExactILUDIAPrec:
     ``seg > 0`` selects the segmented form: segments of ``seg`` rows (the
     last may be partial), each sweeping its own intra-segment level count
     (``steps_l_segs``/``steps_u_segs``).  ``schedule`` is the level schedule
-    the kernel runs, built once with the preconditioner."""
+    the kernel runs: ``.to`` a CUDA device builds it (once: a preconditioner
+    that has one keeps it), and only the kernel reads it."""
 
     lower_bands: torch.Tensor   # (>= D_l, width) strictly-lower bands
     upper_bands: torch.Tensor   # (>= D_u, width) strictly-upper bands
@@ -126,10 +129,23 @@ class ExactILUDIAPrec:
     schedule: LevelSchedule | None = None
 
     def to(self, device) -> "ExactILUDIAPrec":
-        return dataclasses.replace(self, lower_bands=self.lower_bands.to(device),
-                                   upper_bands=self.upper_bands.to(device),
-                                   inv_diag=self.inv_diag.to(device),
-                                   schedule=self.schedule and self.schedule.to(device))
+        moved = dataclasses.replace(self, lower_bands=self.lower_bands.to(device),
+                                    upper_bands=self.upper_bands.to(device),
+                                    inv_diag=self.inv_diag.to(device))
+        if moved.inv_diag.is_cuda:
+            moved = dataclasses.replace(moved, schedule=self.with_schedule().schedule.to(device))
+        elif self.schedule is not None:
+            moved = dataclasses.replace(moved, schedule=self.schedule.to(device))
+        return moved
+
+    def with_schedule(self) -> "ExactILUDIAPrec":
+        """This preconditioner with its level schedule (built on the host
+        from the bands, for segments of ``seg`` rows, where it has none)."""
+        if self.schedule is not None:
+            return self
+        return dataclasses.replace(self, schedule=level_schedule(
+            self.lower_bands, self.upper_bands, self.inv_diag, self.offs_l, self.offs_u,
+            self.seg))
 
 
 def _safeguarded_inverse(dv: np.ndarray, row_abs: np.ndarray, dtype) -> torch.Tensor:
@@ -240,13 +256,9 @@ def _exact_dia(rp, ci, diag, lower, upper, inv_diag, steps_l, steps_u, ndt):
     offs_u = tuple(o for o in up_dia.offsets if o > 0)
     n = lower.n_rows
     up_rows = [up_dia.offsets.index(o) for o in offs_u]
-    lower_bands, upper_bands = lo_dia.data, up_dia.data[up_rows]
-    inv_diag = torch.from_numpy(inv_diag)
-    prec = ExactILUDIAPrec(lower_bands=lower_bands, upper_bands=upper_bands,
-                           inv_diag=inv_diag, offs_l=offs_l, offs_u=offs_u, steps_l=steps_l,
-                           steps_u=steps_u,
-                           schedule=level_schedule(lower_bands, upper_bands, inv_diag,
-                                                   offs_l, offs_u))
+    prec = ExactILUDIAPrec(lower_bands=lo_dia.data, upper_bands=up_dia.data[up_rows],
+                           inv_diag=torch.from_numpy(inv_diag), offs_l=offs_l,
+                           offs_u=offs_u, steps_l=steps_l, steps_u=steps_u)
     working_set = (len(offs_l) + len(offs_u) + 5) * np.dtype(ndt).itemsize * n
     if working_set <= _TRISOLVE_L2_BYTES:
         return prec

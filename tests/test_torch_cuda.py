@@ -298,12 +298,12 @@ def _exact(nx, dt, n_seg=None, monkeypatch=None):
 
 
 def _k6(M, w, sync=None):
-    """K6 (on M's level schedule) and its plain version on the same CUDA
-    tensors."""
+    """K6 (on M's level schedule; the fused form on the grid ``sync``) and
+    its plain version on the same CUDA tensors."""
     args = (M.lower_bands, M.upper_bands, M.inv_diag, w, M.offs_l, M.offs_u)
     if M.seg:
         steps = (M.steps_l_segs, M.steps_u_segs, M.seg)
-        return tk.ilu_trisolve_segmented_cuda(*args, *steps, schedule=M.schedule, sync=sync), \
+        return tk.ilu_trisolve_segmented_cuda(*args, *steps, schedule=M.schedule), \
             tk.ilu_trisolve_segmented_plain(*args, *steps)
     return tk.ilu_trisolve_fused_cuda(*args, M.steps_l, M.steps_u, schedule=M.schedule,
                                       sync=sync), \
@@ -328,8 +328,8 @@ def test_ilu_trisolve(dt, nx, n_seg, monkeypatch):
 @DTYPES
 @pytest.mark.parametrize("nx,n_seg", [(64, 2), (256, 4), (512, 2)])
 def test_ilu_trisolve_levels_same_bits_every_form_and_grid(dt, nx, n_seg, monkeypatch):
-    # fused and segmented run one schedule; one block, clusters and
-    # cooperative grids compute each row from the same inputs
+    # fused and segmented run one schedule; one block and cooperative
+    # grids compute each row from the same inputs
     Mf = _exact(nx, dt)
     Ms = _exact(nx, dt, n_seg, monkeypatch)
     w = torch.tensor(np.random.default_rng(nx).standard_normal(nx * nx), dtype=dt, device="cuda")
@@ -337,9 +337,9 @@ def test_ilu_trisolve_levels_same_bits_every_form_and_grid(dt, nx, n_seg, monkey
     assert torch.equal(got, want)
     assert tk.ilu_trisolve_fused_cuda.grid == ("block", 1)  # widest level nx <= 1024
     assert torch.equal(_k6(Ms, w)[0], got)
-    for sync in (("cluster", 2), ("cluster", 8), ("grid", 4), ("grid", 10_000)):
+    for sync in (("grid", 2), ("grid", 4), ("grid", 10_000)):
         assert torch.equal(_k6(Mf, w, sync)[0], got), sync
-        assert torch.equal(_k6(Ms, w, sync)[0], got), sync
+        assert tk.ilu_trisolve_fused_cuda.grid[0] == "grid"
 
 
 def _random_bands(n, d, seed, dt):
@@ -366,8 +366,9 @@ def test_ilu_trisolve_random_bands(dt, n, d):
     args = (ld, ud, invd, w, offs_l, offs_u, S.nlev_l, S.nlev_u)
     got = tk.ilu_trisolve_fused_cuda(*args, schedule=S)
     assert torch.equal(got, tk.ilu_trisolve_fused_plain(*args))
-    assert torch.equal(tk.ilu_trisolve_fused_cuda(*args), got)  # schedule built for the call
     assert torch.equal(tk.ilu_trisolve_fused_cuda(*args, schedule=S, sync=("grid", 3)), got)
+    with pytest.raises(TypeError):  # no schedule is built for a call
+        tk.ilu_trisolve_fused_cuda(*args, schedule=None)
 
 
 @DTYPES
@@ -384,7 +385,8 @@ def test_ilu_trisolve_one_sided(dt, upper):
     empty = torch.zeros((0, n), dtype=dt, device="cuda")
     ld, ud = (empty, bands.cuda()) if upper else (bands.cuda(), empty)
     args = (ld, ud, invd, w, () if upper else offs, offs if upper else (), n, n)
-    _close(tk.ilu_trisolve_fused_cuda(*args), tk.ilu_trisolve_fused_plain(*args), dt)
+    S = tk.level_schedule(*args[:3], *args[4:6]).to("cuda")
+    _close(tk.ilu_trisolve_fused_cuda(*args, schedule=S), tk.ilu_trisolve_fused_plain(*args), dt)
 
 
 @DTYPES
@@ -400,7 +402,7 @@ def test_ilu_trisolve_identity_tail_segments(dt, monkeypatch):
         upper_bands=torch.nn.functional.pad(M.upper_bands, (0, pad)),
         inv_diag=torch.nn.functional.pad(M.inv_diag, (0, pad), value=1.0),
         steps_l_segs=M.steps_l_segs + (1, 1), steps_u_segs=M.steps_u_segs + (1, 1),
-        schedule=None)  # built for the call from the widened bands
+        schedule=None).to("cuda")  # the schedule of the widened bands
     w = torch.tensor(np.random.default_rng(3).standard_normal(45 * 45), dtype=dt, device="cuda")
     got, _ = _k6(Mp, w)
     assert got.shape == w.shape
@@ -431,15 +433,24 @@ def test_cuda_tensor_reaches_k6_or_raises(monkeypatch):
     assert launch_counts()["ilu_trisolve_fused"] == 1
     with pytest.raises(ValueError):  # factors on the CPU, w on the card
         apply_preconditioner(M.to("cpu"), w)
+    args = (M.lower_bands, M.upper_bands, M.inv_diag, w, M.offs_l, M.offs_u)
     with pytest.raises(TypeError):
-        tk.ilu_trisolve_fused_cuda(M.lower_bands.half(), M.upper_bands.half(),
-                                   M.inv_diag.half(), w.half(), M.offs_l, M.offs_u, 1, 1)
+        tk.ilu_trisolve_fused_cuda(*(a.half() for a in args[:4]), M.offs_l, M.offs_u,
+                                   M.steps_l, M.steps_u, schedule=M.schedule)
+    with pytest.raises(TypeError):  # the wrapper builds no schedule
+        tk.ilu_trisolve_fused_cuda(*args, M.steps_l, M.steps_u, schedule=None)
+    with pytest.raises(ValueError, match="short of"):  # fewer sweeps: not the exact solve
+        tk.ilu_trisolve_fused_cuda(*args, M.steps_l, M.steps_u - 1, schedule=M.schedule)
     with pytest.raises(ValueError):  # step counts for another number of segments
-        tk.ilu_trisolve_segmented_cuda(M.lower_bands, M.upper_bands, M.inv_diag, w,
-                                       M.offs_l, M.offs_u, (1,) * 399, (1,) * 399, 1)
+        tk.ilu_trisolve_segmented_cuda(*args, (1,) * 399, (1,) * 399, 1, schedule=M.schedule)
     Ms = _exact(45, torch.float32, 2, monkeypatch)
     apply_preconditioner(Ms, torch.ones(2025, device="cuda"))
     assert launch_counts()["ilu_trisolve_segmented"] == 1
+    short = tuple(s - 1 for s in Ms.steps_l_segs)
+    with pytest.raises(ValueError, match="short of"):
+        tk.ilu_trisolve_segmented_cuda(Ms.lower_bands, Ms.upper_bands, Ms.inv_diag,
+                                       torch.ones(2025, device="cuda"), Ms.offs_l, Ms.offs_u,
+                                       short, Ms.steps_u_segs, Ms.seg, schedule=Ms.schedule)
 
 
 @pytest.mark.parametrize("precond", ["ilu", "ilu_jacobi"])

@@ -6,9 +6,11 @@ level-ordered twin, and K2's tile and grid plan.
   to 64 bands, one-sided factors and a converted JAX state with lane padding
   and identity tail segments: each triangle's rows are a permutation, every
   dependency of a row lies at a lower level, the level counts equal
-  ``steps_l``/``steps_u`` and the levels those of ``triangular_levels`` on
-  the CSR pattern; the neighbour positions, U positions and repacked bands
-  are the arrays the kernel reads.
+  ``steps_l``/``steps_u`` (per segment ``steps_*_segs``) and the levels
+  those of ``triangular_levels`` on the CSR pattern; the neighbour
+  positions, U positions and repacked bands are the arrays the kernel
+  reads.  A preconditioner gets its schedule when it moves to the card,
+  not on the CPU.
 - ``ilu_trisolve_levels_plain``, the kernel's data path in torch, equals the
   plain sweeps (``ilu_trisolve_fused_plain``, ``ilu_trisolve_segmented_plain``)
   bit for bit in fp32 and fp64, and is held to the JAX package's
@@ -93,7 +95,7 @@ def _check_schedule(S, ld, ud, invd, offs_l, offs_u):
 def test_schedule_of_the_port_build(nx):
     A = convection_diffusion_2d(nx, beta=2.0)
     M = port_build.build_ilu_exact(A, torch.float64)
-    S = M.schedule
+    S = M.with_schedule().schedule
     lev_l, lev_u = _check_schedule(S, M.lower_bands, M.upper_bands, M.inv_diag, M.offs_l,
                                    M.offs_u)
     assert (S.nlev_l, S.nlev_u) == (M.steps_l, M.steps_u) == (2 * nx - 1, 2 * nx - 1)
@@ -144,6 +146,21 @@ def test_schedule_of_random_bands(n, d, seed):
     assert (S.nlev_l, S.nlev_u) == (want_l.max() + 1, want_u.max() + 1)
 
 
+@pytest.mark.parametrize("n,d,seg", [(300, 5, 64), (700, 17, 128), (700, 64, 700)])
+def test_segment_levels_of_random_bands(n, d, seg):
+    # a segment's own level count is that of its rows' bands cut out alone
+    # (dependencies outside the segment dropped); the global levels stay
+    ld, ud, invd, offs_l, offs_u = _random_bands(n, d, n + seg)
+    S = tk.level_schedule(ld, ud, invd, offs_l, offs_u, seg)
+    want = [tk.level_schedule(ld[:, a:a + seg], ud[:, a:a + seg], invd[a:a + seg], offs_l,
+                              offs_u) for a in range(0, n, seg)]
+    assert S.seg_levels_l == tuple(c.nlev_l for c in want)
+    assert S.seg_levels_u == tuple(c.nlev_u for c in want)
+    S0 = tk.level_schedule(ld, ud, invd, offs_l, offs_u)
+    assert (S.nlev_l, S.nlev_u) == (S0.nlev_l, S0.nlev_u)
+    assert torch.equal(S.rows_l, S0.rows_l) and torch.equal(S.dep_u, S0.dep_u)
+
+
 @pytest.mark.parametrize("upper", [True, False], ids=["upper_only", "lower_only"])
 def test_schedule_of_one_sided_factors(upper):
     n = 300
@@ -191,12 +208,16 @@ def test_schedule_of_a_converted_jax_state(pad, monkeypatch):
     if pad:
         Mj = _pad_prec(Mj, 3 * Mj.seg + 5)
     M = _converted(Mj)
-    S = M.schedule
+    assert M.schedule is None  # converted onto the CPU: no kernel to run it
+    S = M.with_schedule().schedule
     width = M.inv_diag.shape[0]
     assert width > A.n_rows
     lev_l, lev_u = _check_schedule(S, M.lower_bands, M.upper_bands, M.inv_diag, M.offs_l,
                                    M.offs_u)
     assert (S.nlev_l, S.nlev_u) == (Mj.steps_l, Mj.steps_u)
+    assert S.seg == Mj.seg > 0
+    assert (S.seg_levels_l, S.seg_levels_u) == (tuple(Mj.steps_l_segs),
+                                                tuple(Mj.steps_u_segs))
     rp = np.asarray(A.row_ptr).astype(np.int64)
     ci = np.asarray(A.col_idx)[: rp[-1]]
     want_l, want_u = triangular_levels(rp, ci, diag_positions(rp, ci))
@@ -223,7 +244,7 @@ def test_levels_twin_bit_equal_to_sweeps_and_close_to_jax(dt, nx, monkeypatch):
     M = port_build.build_ilu_exact(A, dt)
     w = torch.tensor(np.random.default_rng(nx).standard_normal(nx * nx), dtype=dt)
     args = (M.lower_bands, M.upper_bands, M.inv_diag, w, M.offs_l, M.offs_u)
-    got = tk.ilu_trisolve_levels_plain(M.schedule, w)
+    got = tk.ilu_trisolve_levels_plain(M.with_schedule().schedule, w)
     assert torch.equal(got, tk.ilu_trisolve_fused_plain(*args, M.steps_l, M.steps_u))
     monkeypatch.setattr(port_build, "_TRISOLVE_L2_BYTES", 9 * dt.itemsize * nx * nx // 2)
     Ms = port_build.build_ilu_exact(A, dt)
@@ -231,7 +252,9 @@ def test_levels_twin_bit_equal_to_sweeps_and_close_to_jax(dt, nx, monkeypatch):
         assert Ms.seg == 1024 and len(Ms.steps_l_segs) > 1
         assert torch.equal(got, tk.ilu_trisolve_segmented_plain(
             *args, Ms.steps_l_segs, Ms.steps_u_segs, Ms.seg))
-        assert torch.equal(tk.ilu_trisolve_levels_plain(Ms.schedule, w), got)
+        Ss = Ms.with_schedule().schedule
+        assert (Ss.seg_levels_l, Ss.seg_levels_u) == (Ms.steps_l_segs, Ms.steps_u_segs)
+        assert torch.equal(tk.ilu_trisolve_levels_plain(Ss, w), got)
     if dt == torch.float32:  # the TPU kernel is fp32 only
         Mj = jax_build.build_ilu_exact(jax_synth.convection_diffusion_2d(nx, beta=2.0),
                                        np.float32)
@@ -252,18 +275,21 @@ def test_levels_twin_bit_equal_on_random_bands(dt, n, d):
 
 
 def test_schedule_rides_on_the_preconditioner():
-    # built once with M (fused and segmented), moved by .to(), passed to K6
+    # none for a CPU solve; built once (.to a CUDA device calls
+    # with_schedule), kept by later moves, passed to K6
     M = port_build.build_ilu_exact(convection_diffusion_2d(12, beta=2.0), torch.float32)
-    assert isinstance(M.schedule, tk.LevelSchedule)
-    moved = M.to("cpu")
+    assert M.schedule is None and M.to("cpu").schedule is None
+    Ms = M.with_schedule()
+    assert isinstance(Ms.schedule, tk.LevelSchedule) and Ms.with_schedule() is Ms
+    moved = Ms.to("cpu")
     assert moved.schedule.rows_l.dtype == torch.int32
-    assert torch.equal(moved.schedule.bands_u, M.schedule.bands_u)
+    assert torch.equal(moved.schedule.bands_u, Ms.schedule.bands_u)
 
 
 def test_level_grid_follows_the_widest_level():
     assert tk.level_grid(1) == tk.level_grid(1024) == ("block", 1)
-    assert tk.level_grid(1025) == ("cluster", 2)
-    assert tk.level_grid(8 * 1024) == ("cluster", 8)
+    assert tk.level_grid(1025) == ("grid", 2)
+    assert tk.level_grid(8 * 1024) == ("grid", 8)
     assert tk.level_grid(8 * 1024 + 1) == ("grid", 9)
 
 

@@ -21,7 +21,8 @@ in fp64 numpy, CGSR unless said otherwise, restart length 30, tol 1e-8):
    on the host from the CSR matrix and passed as ``M=``: ILU-Jacobi(3) (DIA
    factors, K1 per sweep; the reference's 54/1620 baseline and 63/1890
    mixed; the baseline count also held to the same solve with K2's plain
-   version in its place), exact ILU (K6; converges, backward error <=
+   version in its place, and logged beside the same solve with K3 GRAM's
+   plain version in its place), exact ILU (K6; converges, backward error <=
    1e-8), and exact ILU
    on ``convection_diffusion_2d(512, beta=2.0)`` (the reference's 8/240 in
    mixed).  The fused K6 form serves 262K and the segmented one 1M fp64;
@@ -54,11 +55,14 @@ plain PyTorch version at the path's shapes (fp32 and fp64; a 31-row Krylov
 basis) and times both (the card kept busy while the host enqueues the
 timed call, so that the events hold device time), beside the kernel's
 bound (the larger of its bytes over the copy yardstick, its operations
-over the card's peak, and for K7 its grid barriers and for K6 its levels'
-barriers times one measured empty barrier of the same sync) and, where
-one PyTorch call computes the same function, that call's time (K6: two
-CSR torch.triangular_solve calls).  K2 is also timed on 1-4 blocks per
-SM (the same bits on each) and shown to be one device kernel a call; K6
+over the card's peak, and for K6 its levels' barriers times one measured
+empty barrier of the same sync) and, where one PyTorch call computes the
+same function, that call's time (K6: two CSR torch.triangular_solve
+calls).  K2 is also timed on 1-4 blocks per SM and K3 GRAM in fp32 on
+its plan's, 2 and 3 blocks per SM (the same bits on each), and each is
+shown to be one device kernel a call; K3 GRAM in fp64 (its block partials
+added by torch.sum: two) under three caps of its blocks an SM, the same
+bits each; K3 GRAM's w' equals K3 SUMSQ's; K6
 is held bit for bit to its plain version, fused and segmented to each
 other, and timed on one block and on cooperative grids beside the empty
 barrier of each sync candidate (clusters too) and the old design's floor.
@@ -74,7 +78,8 @@ device it exits non-zero at once.  Each phase prints its seconds.
 
 Output: the card's name and power limit, versions, build time, per-kernel
 error, timing and bound lines, per-path build/stage and per-mode solve
-lines, K2's grid table, K6's sync candidates, the exact-ILU solve walls,
+lines, K2's and K3 GRAM's grid tables, K6's sync candidates, the
+exact-ILU solve walls,
 K7's grid-size table and the sequential-vs-ICWY MGS walls, the
 df64 step and solve walls, the distributed solves and walls beside the
 single card's; then one JSON line with the 19 kernels (launch counts from
@@ -153,6 +158,8 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "df64": 33.5e12}
 DF_OPS = 20
 SYNC_PROBE = 2000      # barriers per timed empty cooperative launch
 GRAM_GRID_BLOCKS_PER_SM = (1, 2, 3, 4)   # K2 grids measured
+UG_GRID_BLOCKS_PER_SM = (None, 2, 3)     # K3 GRAM fp32 grids measured (None: its plan's)
+UG_F64_PADS = (0, 100_000, 200_000)      # K3 GRAM fp64 occupancy caps measured (bytes)
 # K6's sync candidates (mode, blocks of 1024 threads), each empty barrier
 # measured, and the kernel timed at convdiff@1M on those of its own two
 # forms (one block, a cooperative grid; the kernel has no cluster form)
@@ -273,9 +280,9 @@ def compare(dtype, got, want, scale):
 class Records:
     """Per-kernel, per-dtype error, timing and bound records for the JSON
     line.  A kernel's bound is the larger of its bytes over the copy
-    yardstick, its operations over the card's peak for their type and (K6,
-    K7) its grid barriers times one empty barrier of the same grid; it is
-    bound by bytes when the bytes term is the largest, else by operations
+    yardstick, its operations over the card's peak for their type and (K6)
+    its barriers times one empty barrier of the same sync; it is bound by
+    bytes when the bytes term is the largest, else by operations
     (arithmetic or barriers)."""
 
     def __init__(self, copy_gbs):
@@ -380,6 +387,49 @@ def gram_grid_table(torch, timer, V, w, ref, dt_name, copy_gbs):
         require(len(names) == 1, f"K2 {dt_name}: one launch a call ({names})")
 
 
+def update_gram_grid_table(torch, timer, V, w, u, ref, dt_name, copy_gbs):
+    """K3 GRAM at the 31-row basis: in fp32 (one launch) on grids of
+    UG_GRID_BLOCKS_PER_SM blocks per SM, and the device kernels one wrapper
+    call launches (one); in fp64 (block partials added by torch.sum) under
+    UG_F64_PADS bytes of dynamic shared memory that cap its blocks an SM.
+    Each: bits equal to `ref`, time and share of copy; w' equal to K3
+    SUMSQ's (the one-row-at-a-time form's bits)."""
+    from gmres_tpu_torch.ops.cuda import orth_kernel as ok_
+
+    rows, n = V.shape
+    nbytes = (rows + 2) * n * V.element_size()
+    if V.dtype == torch.float32:
+        plan = ok_.update_gram_plan(n, rows, V.element_size(), 1)
+        log(f"  K3 GRAM {dt_name} plan: tiles of {plan.tile} columns, {plan.n_tiles} tiles, "
+            f"{plan.shared_bytes} B staged a block, {plan.blocks_per_sm} blocks an SM")
+        settings = [(f"blocks/SM {p or 'plan'}", p, None) for p in UG_GRID_BLOCKS_PER_SM]
+    else:
+        settings = [(f"pad {pad} B", None, pad) for pad in UG_F64_PADS]
+    default_pad = ok_.UG_F64_PAD
+    for label, per_sm, pad in settings:
+        if pad is not None:
+            ok_.UG_F64_PAD = pad
+        try:
+            out = ok_.update_gram_cuda(V, w, u, rows, per_sm)
+            grid = ok_.update_gram_cuda.grid
+            require(all(torch.equal(a, b) for a, b in zip(out, ref)),
+                    f"K3 GRAM {dt_name}: the same bits on {grid} blocks, {label}")
+            ms = timer(lambda: ok_.update_gram_cuda(V, w, u, rows, per_sm))
+        finally:
+            ok_.UG_F64_PAD = default_pad
+        log(f"  K3 GRAM {dt_name} {label}: {grid} blocks, {ms:.4f} ms, "
+            f"{nbytes / (ms * 1e-3) / 1e9 / copy_gbs:.3f} of copy; bits equal")
+    require(torch.equal(ref[0], ok_.update_sumsq_cuda(V, w, u, rows)[0]),
+            f"K3 GRAM {dt_name}: w' equal to K3 SUMSQ's")
+    names = device_kernels(torch, lambda: ok_.update_gram_cuda(V, w, u, rows))
+    if names is None:
+        log(f"  K3 GRAM {dt_name} device kernels a call: not measured (the profiler saw none)")
+    else:
+        log(f"  K3 GRAM {dt_name} device kernels a call: {len(names)} {names}")
+        want = 1 if V.dtype == torch.float32 else 2
+        require(len(names) == want, f"K3 GRAM {dt_name}: {want} device kernels a call ({names})")
+
+
 def check_kernels(torch, A_csr, record):
     """K1-K4 against their plain versions at the banded path's shapes, with
     the one PyTorch call that computes the same function where there is
@@ -452,6 +502,7 @@ def check_kernels(torch, A_csr, record):
                timer(lambda: ok_.update_gram_cuda(V, w, u, m1)),
                timer(lambda: ok_.update_gram_plain(V, w, u, m1)), (m1 + 2) * n * s,
                4 * m1 * n)
+        update_gram_grid_table(torch, timer, V, w, u, got, dt_name, record.copy_gbs)
 
         # K3 update + sum of squares
         got = ok_.update_sumsq_cuda(V, w, u, m1)
@@ -563,20 +614,20 @@ def solve_timed(torch, label, mode, A_csr, A_dev, cfg, timed, M=None, history=Fa
     return res, wall
 
 
-def solve_with_plain_gram(torch, A_csr, A_dev, cfg, M):
-    """One solve as solve_timed's with K2's wrapper swapped for its plain
-    version (torch.mv on the card): the history that K2's own rounding is
-    held to."""
+def solve_with_plain(torch, A_csr, A_dev, cfg, M, kernel):
+    """One solve as solve_timed's with the wrapper of `kernel` ("gram": K2,
+    "update_gram": K3 GRAM) swapped for its plain version (torch.mv on the
+    card): the history that the kernel's own rounding is held to."""
     from gmres_tpu_torch import rand_vect, solve
     from gmres_tpu_torch.ops.cuda import orth_kernel as ok_
 
     b = -csr_residual(A_csr, rand_vect(A_csr.n_rows, 42), np.zeros(A_csr.n_rows))
-    kernel = ok_.gram_cuda
-    ok_.gram_cuda = lambda V, w, rows: ok_.gram_plain(V, w, rows)
+    wrapper = getattr(ok_, f"{kernel}_cuda")
+    setattr(ok_, f"{kernel}_cuda", getattr(ok_, f"{kernel}_plain"))
     try:
         return solve(A_dev, torch.tensor(b, device="cuda"), cfg, M=M)
     finally:
-        ok_.gram_cuda = kernel
+        setattr(ok_, f"{kernel}_cuda", wrapper)
 
 
 def config(mode, precond, orth="cgsr", **kw):
@@ -881,9 +932,11 @@ def convdiff_ilu_path(torch, record, A, A_dev):
                 f"ilu_jacobi {mode}: {res.restarts}/{res.total_iters} restarts not in "
                 f"{lo}..{hi} (the reference's {want[0]}/{want[1]})")
         if mode == "baseline":
-            twin = solve_with_plain_gram(torch, A, A_dev, cfg, M)
+            twin = solve_with_plain(torch, A, A_dev, cfg, M, "gram")
+            twin3 = solve_with_plain(torch, A, A_dev, cfg, M, "update_gram")
             log(f"  the same solve with K2's plain version (torch.mv): "
-                f"{twin.restarts}/{twin.total_iters}")
+                f"{twin.restarts}/{twin.total_iters}; with K3 GRAM's (torch.mv): "
+                f"{twin3.restarts}/{twin3.total_iters}")
             require((twin.restarts, twin.total_iters) == (res.restarts, res.total_iters),
                     f"ilu_jacobi baseline: {res.restarts}/{res.total_iters} on K2, "
                     f"{twin.restarts}/{twin.total_iters} on its plain version")
@@ -969,14 +1022,17 @@ def check_mgs_kernels(torch, n, record):
             got = mk.mgs_cuda(V, w, rows)
             blocks, tiles = mk.mgs_cuda.grid
             sync = barrier_ms(torch, timer, blocks)
+            group, n_groups = mk.mgs_groups(n)
             log(f"  basis_mgs {key}: one launch of {blocks} blocks x {tiles} register tiles, "
-                f"{rows} barriers of {1e3 * sync:.3f} us each")
+                f"{rows} row exchanges through {n_groups} tagged slots (groups of {group} "
+                f"tiles); one grid.sync() of this grid, what a row waited on before: "
+                f"{1e3 * sync:.3f} us")
             record("basis_mgs", dt_name,
                    *compare_each(dt_name, got, mk.mgs_plain(V, w, rows),
                                  mgs_scale(torch, V, w, rows)),
                    timer(lambda: mk.mgs_cuda(V, w, rows)),
                    timer(lambda: mk.mgs_plain(V, w, rows), 5), (rows + 2) * n * s,
-                   (4 * rows + 2) * n, None, rows * sync, key=key)
+                   (4 * rows + 2) * n, None, key=key)
 
             vk = V[rows - 1]
             W = torch.stack([w, vk], dim=1)
@@ -1003,31 +1059,38 @@ def check_mgs_kernels(torch, n, record):
 
 def mgs_grid_table(torch, n, copy_gbs):
     """K7 at n on a few grids (blocks per SM; and the L2 form on the
-    default grid), fp32 and fp64, rows 16 and 31: time, grid, one barrier
-    of that grid and the bound; every result bit-identical to the first."""
+    dtype's grid), fp32 and fp64, rows 16 and 31, each with both ways of
+    awaiting a row's partials (a grid.sync(), or polling the tagged slots):
+    time, grid and the bound, beside one grid.sync() of that grid; every
+    result bit-identical to the first."""
     from gmres_tpu_torch.ops.cuda import mgs_kernel as mk
 
     timer = Timer(torch)
-    log("K7 grid sizes (ms; bound = max(bytes / copy, rows x barrier)):")
+    log("K7 grid sizes (ms; bound = bytes / copy):")
     for dt_name, dt in (("float32", torch.float32), ("float64", torch.float64)):
         V, w, _ = mgs_basis(torch, n, dt, 4)
         for rows in (MID_ROWS, RLEN + 1):
             ref = None
             for per_sm, tiles_max in [(p, mk.MAX_REGISTER_TILES) for p in GRID_BLOCKS_PER_SM] + \
-                    [(mk.BLOCKS_PER_SM, 0)]:
-                out = mk.mgs_cuda(V, w, rows, per_sm, tiles_max)
-                blocks, tiles = mk.mgs_cuda.grid
-                ref = ref or out
-                require(all(torch.equal(a, b) for a, b in zip(out, ref)),
-                        f"K7 bit-identical across grids ({dt_name}, rows {rows}, "
-                        f"{blocks} blocks)")
-                ms = timer(lambda: mk.mgs_cuda(V, w, rows, per_sm, tiles_max))
-                sync = barrier_ms(torch, timer, blocks)
-                bound = max((rows + 2) * n * dt.itemsize / (copy_gbs * 1e9) * 1e3, rows * sync)
-                log(f"  K7 {dt_name} rows {rows:2d} blocks/SM {per_sm or 'all'} "
-                    f"{'L2 form' if tiles == 0 else f'{tiles} tiles/block'}: {blocks:5d} blocks "
-                    f"{ms:.4f} ms, barrier {1e3 * sync:.3f} us, bound {bound:.4f} ms "
-                    f"({ms / bound:.2f}x)")
+                    [(mk.BLOCKS_PER_SM[dt], 0)]:
+                sync = None
+                for mode, ex in (("sync", mk.SYNC), ("poll", mk.POLL)):
+                    out = mk.mgs_cuda(V, w, rows, per_sm, tiles_max, ex)
+                    blocks, tiles = mk.mgs_cuda.grid
+                    ref = ref or out
+                    require(all(torch.equal(a, b) for a, b in zip(out, ref)),
+                            f"K7 bit-identical across grids ({dt_name}, rows {rows}, "
+                            f"{blocks} blocks, {mode})")
+                    ms = timer(lambda: mk.mgs_cuda(V, w, rows, per_sm, tiles_max, ex))
+                    sync = sync or barrier_ms(torch, timer, blocks)
+                    bound = (rows + 2) * n * dt.itemsize / (copy_gbs * 1e9) * 1e3
+                    chosen = (per_sm, tiles_max, ex) == (mk.BLOCKS_PER_SM[dt],
+                                                         mk.MAX_REGISTER_TILES, mk.EXCHANGE[dt])
+                    log(f"  K7 {dt_name} rows {rows:2d} blocks/SM {per_sm or 'all'} "
+                        f"{'L2 form' if tiles == 0 else f'{tiles} tiles/block'} {mode}: "
+                        f"{blocks:5d} blocks {ms:.4f} ms, bound {bound:.4f} ms "
+                        f"({ms / bound:.2f}x), {1e3 * ms / rows:.3f} us a row; grid.sync() "
+                        f"{1e3 * sync:.3f} us" + ("  <- the dtype's default" if chosen else ""))
         del V, w
 
 

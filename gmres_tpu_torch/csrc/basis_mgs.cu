@@ -11,7 +11,7 @@
 // loop, fp64 for the baseline (the TPU kernel was fp32-only).
 //
 // What bounds it: each h_j is a reduction over all n columns, and the next
-// row's update needs it, so a step is `rows` dependent grid-wide barriers;
+// row's update needs it, so a step is `rows` dependent grid-wide exchanges;
 // besides, it must read V's first `rows` rows once, w once and write w'
 // once: (rows + 2) n s bytes.  The TPU kernel kept w in VMEM across a
 // sequential grid and streamed one basis row per step; Hopper's blocks run
@@ -20,30 +20,44 @@
 // What the design does about it:
 // - One cooperative launch per Arnoldi step, on a persistent grid no larger
 //   than the resident block count (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
-//   optionally capped per SM by the caller); grid.sync() separates the rows.
-//   A refused launch returns its error.
-// - Columns are cut into fixed tiles of kTile; block b owns tiles
-//   [b*TILES, (b+1)*TILES) and each thread keeps its TILES*kItems values of
-//   w and of the current basis row in registers for the whole recurrence,
-//   so V is read once and w never leaves the chip.
-// - Per row, each tile's partial of <w, v_j> is a fixed tree (kItems fused
-//   multiply-adds in order, a warp-shuffle tree, the warps in order) written
-//   to its own slot partials[j][tile]: every row has its own slots, so no
-//   second barrier is needed to reuse them.  After the barrier every block
-//   sums partials[j][0..n_tiles) in the same fixed order (each thread a
-//   strided share, then a block tree), so every block
-//   gets the same bits of h_j, and since neither the tiles nor their trees
-//   depend on the grid, the result is the same at every grid size.  No
-//   atomics.
+//   optionally capped per SM by the caller), so every block is resident and
+//   may wait for the others.  A refused launch returns its error.
+// - Columns are cut into fixed tiles of kTile and the tiles into fixed
+//   groups of `group` tiles (the smallest power of two, at most kMaxTiles,
+//   that leaves at most kMgsSlots groups): both depend on n only.  Block b
+//   owns TILES / group whole groups, tiles [b*TILES, (b+1)*TILES), and each
+//   thread keeps its TILES*kItems values of w and of the current basis row
+//   in registers for the whole recurrence, so V is read once and w never
+//   leaves the chip.
+// - Per row, each group's partial of <w, v_j> is a fixed tree: each
+//   thread's fused multiply-adds over the group's tiles and items in order
+//   from 0, a warp-shuffle tree, the warps in order.  It is published in its
+//   own slot of row j as 64-bit words that carry 32 bits of the value and a
+//   32-bit tag (the launch's epoch and j), each stored and loaded whole
+//   (relaxed, device scope), so a reader that sees the tag sees the value.
+//   Every thread of every block then reads its share of the row's slots
+//   (all in flight at once), adds its slots in order, a warp tree and the
+//   warps in order: every block gets the same bits of h_j from one read of
+//   256 slots at most, where the old design's blocks each added 1024 tile
+//   partials with a block-wide tree.  Neither the groups nor their trees
+//   depend on the grid, so the result is the same at every grid size.  No
+//   atomics on values.
+// - Two ways to wait for a row's slots, the same bits either way: kSync, a
+//   grid.sync() after publishing; kPoll, no barrier: each block reads the
+//   slots again (backing off 100 ns) until every tag is the row's, so a
+//   block goes on one L2 round trip after the last partial lands.  The
+//   wrapper picks one per dtype (mgs_kernel.py: EXCHANGE).  A poll past
+//   kMaxSpins reads traps rather than hang.
+// - ||w'||^2 is one more row of slots; block 0 adds it and writes ||w'||
+//   after h, so a step is one launch.
 // - Row j+1 does not depend on h_j: its loads are issued before row j's
-//   barrier and overlap it.
-// - ||w'||^2 per tile goes to ss partials that the wrapper finishes with
-//   torch.sum, as K3's SUMSQ mode does.
+//   exchange and overlap it.
 // - Where the resident grid cannot hold n in registers (more than
 //   kMaxTiles tiles per block), or when the caller forbids registers, the
 //   same recurrence runs with w kept in w_out (L2) and two basis rows read
-//   per pass: the same tiles, trees and operations, so the same bits, at
-//   about twice the traffic.
+//   per pass, the groups taken grid-stride: the same groups, trees and
+//   operations, so the same bits, at about twice the traffic.
+//   mgs_kernel.py:mgs_groups holds the grouping for the CPU tests.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -53,39 +67,87 @@ using namespace gmres;
 
 namespace {
 
-constexpr int kMaxTiles = 8;  // tiles per block held in registers
+constexpr int kMaxTiles = 8;        // tiles per block held in registers
+constexpr int kMgsSlots = 256;      // most groups whose slots one poll reads
+constexpr unsigned kMaxSpins = 1u << 24;
 
-// lane 0 of each warp stores the warp's share of sum_it a[it] * b[it]
 template <typename T>
-__device__ __forceinline__ void warp_tile_dot(const T (&a)[kItems], const T (&b)[kItems],
-                                              T* slot) {
-  T p = T(0);
-#pragma unroll
-  for (int it = 0; it < kItems; ++it) p = fmadd(a[it], b[it], p);
-  p = warp_sum(p);
-  if ((threadIdx.x & 31) == 0) *slot = p;
+__host__ __device__ constexpr int slot_words() { return sizeof(T) == 4 ? 1 : 2; }
+
+// publish a group partial of row j in its slot: (tag << 32 | 32 value bits)
+// words, each stored whole (relaxed, device scope)
+__device__ __forceinline__ void store_word(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
+}
+__device__ __forceinline__ unsigned long long load_word(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// the tile's partial: its kWarps warp shares in order
 template <typename T>
-__device__ __forceinline__ T finish_tile(const T* shares) {
-  T s = T(0);
-#pragma unroll
-  for (int q = 0; q < kWarps; ++q) s += shares[q];
-  return s;
+__device__ __forceinline__ void publish(unsigned long long* slot, T v, unsigned tag) {
+  const unsigned long long t = (unsigned long long)tag << 32;
+  if constexpr (sizeof(T) == 4) {
+    store_word(slot, t | __float_as_uint(v));
+  } else {
+    const unsigned long long bits = (unsigned long long)__double_as_longlong(v);
+    store_word(slot, t | (bits >> 32));
+    store_word(slot + 1, t | (bits & 0xffffffffull));
+  }
 }
 
-// h_j = the row's n_tiles partials in a fixed order (thread-strided sums,
-// then block_sum's tree), written to *out by thread 0; the whole block loads,
-// so a row costs one round trip to L2.  `scratch` holds kWarps values.
+// one read of a slot: its value, and whether every word carries `tag`
 template <typename T>
-__device__ __forceinline__ void sum_row(const T* row_partials, int n_tiles, T* scratch,
-                                        T* out) {
+__device__ __forceinline__ bool read_slot(const unsigned long long* slot, unsigned tag, T* v) {
+  if constexpr (sizeof(T) == 4) {
+    const unsigned long long a = load_word(slot);
+    *v = __uint_as_float((unsigned)a);
+    return (unsigned)(a >> 32) == tag;
+  } else {
+    const unsigned long long a = load_word(slot), b = load_word(slot + 1);
+    *v = __longlong_as_double((long long)((a << 32) | (b & 0xffffffffull)));
+    return (unsigned)(a >> 32) == tag && (unsigned)(b >> 32) == tag;
+  }
+}
+
+// the sum of a row's n_groups slots: thread x reads slots x, x + kThreads,
+// ... in order (a whole pass of them in flight, polled until every tag is
+// the row's), then a warp tree and the warps in order (`scratch` holds
+// kWarps values; every thread of the block returns the same bits)
+template <typename T>
+__device__ __forceinline__ T sum_row(const unsigned long long* row, int n_groups, unsigned tag,
+                                     T* scratch) {
+  constexpr int W = slot_words<T>();
   T s = T(0);
-#pragma unroll 4
-  for (int t = threadIdx.x; t < n_tiles; t += kThreads) s += __ldcg(row_partials + t);
-  s = block_sum(s, scratch);
-  if (threadIdx.x == 0) *out = s;
+  for (int base = 0; base < n_groups; base += kThreads) {
+    const int g = base + (int)threadIdx.x;
+    T v = T(0);
+    unsigned spins = 0;
+    for (;;) {
+      const bool ok = g >= n_groups || read_slot(row + (size_t)g * W, tag, &v);
+      if (__syncthreads_and(ok)) break;
+      if (++spins == kMaxSpins) __trap();
+      __nanosleep(100);
+    }
+    s += g < n_groups ? v : T(0);
+  }
+  s = warp_sum(s);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = s;
+  __syncthreads();
+  T h = T(0);
+#pragma unroll
+  for (int q = 0; q < kWarps; ++q) h += scratch[q];
+  return h;  // scratch is written again only after the next row's barriers
+}
+
+// Exchange modes of a row's partials: kSync waits at a grid.sync() for every
+// block to have published (the reads then find every tag), kPoll lets each
+// block read as soon as the slots carry the row's tags
+constexpr int kSync = 0, kPoll = 1;
+
+__device__ __forceinline__ void exchange_barrier(int exchange) {
+  if (exchange == kSync) cg::this_grid().sync();
 }
 
 template <typename T>
@@ -109,23 +171,36 @@ __device__ __forceinline__ void load_tile_l2(const T* src, size_t col0, int n,
   }
 }
 
+// red[k * kWarps + warp] holds warp `warp`'s share of the block's k-th
+// group; thread k < groups adds the shares in warp order and returns it
 template <typename T>
-__device__ __forceinline__ void write_h(T* h, const T* hs, int rows, int m1) {
-  if (blockIdx.x != 0) return;
-  for (int i = threadIdx.x; i < m1; i += kThreads) h[i] = i < rows ? hs[i] : T(0);
+__device__ __forceinline__ T finish_group(const T* red) {
+  T s = T(0);
+#pragma unroll
+  for (int q = 0; q < kWarps; ++q) s += red[threadIdx.x * kWarps + q];
+  return s;
 }
 
-// w and the current basis row in registers: TILES tiles per block
+template <typename T>
+__device__ __forceinline__ void write_h_tail(T* h, int rows, int m1) {
+  if (blockIdx.x != 0) return;
+  for (int i = rows + threadIdx.x; i < m1; i += kThreads) h[i] = T(0);
+}
+
+// w and the current basis row in registers: TILES tiles (TILES / group
+// whole groups) per block
 template <typename T, int TILES>
 __global__ void __launch_bounds__(kThreads)
 basis_mgs_kernel(const T* __restrict__ V, const T* __restrict__ w, T* __restrict__ w_out,
-                 T* __restrict__ h, T* partials, T* __restrict__ ss_part, int n, int rows,
-                 int m1, int n_tiles) {
-  cg::grid_group grid = cg::this_grid();
+                 T* __restrict__ h, unsigned long long* slots, int n, int rows, int m1,
+                 int group, int n_groups, unsigned tag0, int exchange) {
+  constexpr int W = slot_words<T>();
   __shared__ T red[TILES * kWarps];
-  __shared__ T hs[kMaxRows];
+  __shared__ T scratch[kWarps];
   const int warp = threadIdx.x >> 5;
   const int tile0 = blockIdx.x * TILES;
+  const int group0 = tile0 / group, groups = TILES / group;
+  const bool publisher = (int)threadIdx.x < groups && group0 + (int)threadIdx.x < n_groups;
   T wv[TILES][kItems], vc[TILES][kItems];
 #pragma unroll
   for (int t = 0; t < TILES; ++t) {
@@ -134,8 +209,17 @@ basis_mgs_kernel(const T* __restrict__ V, const T* __restrict__ w, T* __restrict
     load_tile(V, col0, n, vc[t]);
   }
   for (int j = 0; j < rows; ++j) {
+    T acc = T(0);
 #pragma unroll
-    for (int t = 0; t < TILES; ++t) warp_tile_dot(wv[t], vc[t], &red[t * kWarps + warp]);
+    for (int t = 0; t < TILES; ++t) {
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) acc = fmadd(wv[t][it], vc[t][it], acc);
+      if ((t + 1) % group == 0) {
+        acc = warp_sum(acc);
+        if ((threadIdx.x & 31) == 0) red[(t / group) * kWarps + warp] = acc;
+        acc = T(0);
+      }
+    }
     T vn[TILES][kItems];
     const bool more = j + 1 < rows;
     if (more) {
@@ -145,13 +229,13 @@ basis_mgs_kernel(const T* __restrict__ V, const T* __restrict__ w, T* __restrict
         load_tile(next, (size_t)(tile0 + t) * kTile + threadIdx.x, n, vn[t]);
     }
     __syncthreads();
-    if ((int)threadIdx.x < TILES && tile0 + (int)threadIdx.x < n_tiles)
-      partials[(size_t)j * n_tiles + tile0 + threadIdx.x] =
-          finish_tile(red + threadIdx.x * kWarps);
-    grid.sync();
-    sum_row(partials + (size_t)j * n_tiles, n_tiles, red, &hs[j]);
-    __syncthreads();
-    const T nh = -hs[j];
+    unsigned long long* row = slots + (size_t)j * n_groups * W;
+    if (publisher)
+      publish(row + (size_t)(group0 + threadIdx.x) * W, finish_group(red), tag0 + j);
+    exchange_barrier(exchange);
+    const T hj = sum_row<T>(row, n_groups, tag0 + j, scratch);
+    if (blockIdx.x == 0 && threadIdx.x == 0) h[j] = hj;
+    const T nh = -hj;
 #pragma unroll
     for (int t = 0; t < TILES; ++t) {
 #pragma unroll
@@ -166,67 +250,78 @@ basis_mgs_kernel(const T* __restrict__ V, const T* __restrict__ w, T* __restrict
     }
   }
   // out-of-range columns hold w = 0 and add nothing to the sum of squares
+  T acc = T(0);
 #pragma unroll
   for (int t = 0; t < TILES; ++t) {
-    warp_tile_dot(wv[t], wv[t], &red[t * kWarps + warp]);
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) acc = fmadd(wv[t][it], wv[t][it], acc);
+    if ((t + 1) % group == 0) {
+      acc = warp_sum(acc);
+      if ((threadIdx.x & 31) == 0) red[(t / group) * kWarps + warp] = acc;
+      acc = T(0);
+    }
     store_tile(w_out, (size_t)(tile0 + t) * kTile + threadIdx.x, n, wv[t]);
   }
   __syncthreads();
-  if ((int)threadIdx.x < TILES && tile0 + (int)threadIdx.x < n_tiles)
-    ss_part[tile0 + threadIdx.x] = finish_tile(red + threadIdx.x * kWarps);
-  write_h(h, hs, rows, m1);
+  // ||w'||^2 is row `rows` of the slots; block 0 adds it and writes its root
+  // after h
+  unsigned long long* row = slots + (size_t)rows * n_groups * W;
+  if (publisher)
+    publish(row + (size_t)(group0 + threadIdx.x) * W, finish_group(red), tag0 + rows);
+  exchange_barrier(exchange);
+  if (blockIdx.x != 0) return;
+  const T ss = sum_row<T>(row, n_groups, tag0 + rows, scratch);
+  if (threadIdx.x == 0) h[m1] = sqrt(ss);
+  write_h_tail(h, rows, m1);
 }
 
-// w in w_out: tiles grid-stride, pass j applies h_{j-1} v_{j-1} and takes
+// w in w_out: groups grid-stride, pass j applies h_{j-1} v_{j-1} and takes
 // the partials of <w, v_j> (pass `rows`: of ||w||^2)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 basis_mgs_global_kernel(const T* __restrict__ V, const T* __restrict__ w, T* w_out,
-                        T* __restrict__ h, T* partials, T* __restrict__ ss_part, int n,
-                        int rows, int m1, int n_tiles) {
-  cg::grid_group grid = cg::this_grid();
+                        T* __restrict__ h, unsigned long long* slots, int n, int rows, int m1,
+                        int group, int n_groups, unsigned tag0, int exchange) {
+  constexpr int W = slot_words<T>();
   __shared__ T red[kWarps];
-  __shared__ T hs[kMaxRows];
+  __shared__ T scratch[kWarps];
   const int warp = threadIdx.x >> 5;
+  T hp = T(0);  // h_{j-1}
   for (int j = 0; j <= rows; ++j) {
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const size_t col0 = (size_t)tile * kTile + threadIdx.x;
-      T wv[kItems];
-      if (j == 0) {
-        load_tile(w, col0, n, wv);
-      } else {
-        T vp[kItems];
-        load_tile_l2(w_out, col0, n, wv);
-        load_tile(V + (size_t)(j - 1) * n, col0, n, vp);
-        const T nh = -hs[j - 1];
+    for (int g = blockIdx.x; g < n_groups; g += gridDim.x) {
+      T acc = T(0);
+      for (int tile = g * group; tile < (g + 1) * group; ++tile) {
+        const size_t col0 = (size_t)tile * kTile + threadIdx.x;
+        T wv[kItems];
+        if (j == 0) {
+          load_tile(w, col0, n, wv);
+        } else {
+          T vp[kItems];
+          load_tile_l2(w_out, col0, n, wv);
+          load_tile(V + (size_t)(j - 1) * n, col0, n, vp);
+          const T nh = -hp;
 #pragma unroll
-        for (int it = 0; it < kItems; ++it) wv[it] = fmadd(nh, vp[it], wv[it]);
-      }
-      store_tile(w_out, col0, n, wv);
-      if (j < rows) {
+          for (int it = 0; it < kItems; ++it) wv[it] = fmadd(nh, vp[it], wv[it]);
+        }
+        store_tile(w_out, col0, n, wv);
         T vj[kItems];
-        load_tile(V + (size_t)j * n, col0, n, vj);
-        warp_tile_dot(wv, vj, &red[warp]);
-      } else {
-        warp_tile_dot(wv, wv, &red[warp]);
+        if (j < rows) load_tile(V + (size_t)j * n, col0, n, vj);
+#pragma unroll
+        for (int it = 0; it < kItems; ++it) acc = fmadd(wv[it], j < rows ? vj[it] : wv[it], acc);
       }
+      acc = warp_sum(acc);
+      if ((threadIdx.x & 31) == 0) red[warp] = acc;
       __syncthreads();
-      if (threadIdx.x == 0) {
-        const T s = finish_tile(red);
-        if (j < rows)
-          partials[(size_t)j * n_tiles + tile] = s;
-        else
-          ss_part[tile] = s;
-      }
+      if (threadIdx.x == 0) publish(slots + ((size_t)j * n_groups + g) * W, finish_group(red),
+                                    tag0 + j);
       __syncthreads();
     }
-    if (j < rows) {
-      grid.sync();
-      sum_row(partials + (size_t)j * n_tiles, n_tiles, red, &hs[j]);
-      __syncthreads();
-    }
+    exchange_barrier(exchange);
+    if (j < rows || blockIdx.x == 0)
+      hp = sum_row<T>(slots + (size_t)j * n_groups * W, n_groups, tag0 + j, scratch);
+    if (blockIdx.x == 0 && threadIdx.x == 0) h[j < rows ? j : m1] = j < rows ? hp : sqrt(hp);
   }
-  write_h(h, hs, rows, m1);
+  write_h_tail(h, rows, m1);
 }
 
 template <typename T, int TILES>
@@ -250,15 +345,28 @@ static cudaError_t resident_blocks(const void* fn, int per_sm, int* out) {
   return err;
 }
 
-// Plan (the smallest register tiling whose grid is resident under the
-// per-SM cap, else without it, else the L2 form) and launch.
+// tiles per group: the smallest power of two (at most kMaxTiles) that leaves
+// at most kMgsSlots groups (mgs_kernel.py:mgs_groups)
+static int mgs_group(int n_tiles) {
+  int g = 1;
+  while (g < kMaxTiles && blocks_for(n_tiles, g) > kMgsSlots) g *= 2;
+  return g;
+}
+
+// Plan (the smallest register tiling of whole groups whose grid is resident
+// under the per-SM cap, else without it, else the L2 form) and launch.
+// slots: (rows, n_groups) slots of slot_words<T>() 64-bit words, whose tags
+// never equal this launch's (tag0 + j, j < rows)
 template <typename T>
-int launch_mgs(const T* V, const T* w, T* w_out, T* h, T* partials, T* ss_part, int n,
-               int rows, int m1, int per_sm, int max_tiles, int* blocks_out,
-               int* tiles_out, void* stream) {
-  if (n <= 0 || rows <= 0 || rows > m1 || m1 > kMaxRows || per_sm < 0 || max_tiles < 0)
+int launch_mgs(const T* V, const T* w, T* w_out, T* h, unsigned long long* slots, int n,
+               int rows, int m1, int group, int n_groups, unsigned tag0, int per_sm,
+               int max_tiles, int exchange, int* blocks_out, int* tiles_out, void* stream) {
+  if (n <= 0 || rows <= 0 || rows > m1 || m1 > kMaxRows || per_sm < 0 || max_tiles < 0 ||
+      (exchange != kSync && exchange != kPoll))
     return (int)cudaErrorInvalidValue;
-  int n_tiles = blocks_for(n, kTile);
+  const int n_tiles = blocks_for(n, kTile);
+  if (group != mgs_group(n_tiles) || n_groups != blocks_for(n_tiles, group))
+    return (int)cudaErrorInvalidValue;
   const void* fns[] = {mgs_kernel<T, 1>(), mgs_kernel<T, 2>(), mgs_kernel<T, 4>(),
                        mgs_kernel<T, kMaxTiles>()};
   const int tiling[] = {1, 2, 4, kMaxTiles};
@@ -270,6 +378,7 @@ int launch_mgs(const T* V, const T* w, T* w_out, T* h, T* partials, T* ss_part, 
     const int cap_sm = pass == 0 ? per_sm : 0;
     if (pass == 1 && per_sm == 0) break;
     for (int i = 0; i < 4 && tiling[i] <= max_tiles; ++i) {
+      if (tiling[i] < group) continue;
       if ((err = resident_blocks(fns[i], cap_sm, &cap)) != cudaSuccess) return (int)err;
       const int need = blocks_for(n_tiles, tiling[i]);
       if (need <= cap) {
@@ -283,14 +392,14 @@ int launch_mgs(const T* V, const T* w, T* w_out, T* h, T* partials, T* ss_part, 
   if (fn == nullptr) {
     fn = mgs_kernel<T, 0>();
     if ((err = resident_blocks(fn, per_sm, &cap)) != cudaSuccess) return (int)err;
-    blocks = cap < n_tiles ? cap : n_tiles;
+    blocks = cap < n_groups ? cap : n_groups;
   }
   if (blocks <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   *blocks_out = blocks;
   *tiles_out = tiles;
-  void* args[] = {(void*)&V,        (void*)&w,       (void*)&w_out, (void*)&h,
-                  (void*)&partials, (void*)&ss_part, (void*)&n,     (void*)&rows,
-                  (void*)&m1,       (void*)&n_tiles};
+  void* args[] = {(void*)&V,  (void*)&w,    (void*)&w_out, (void*)&h,
+                  (void*)&slots, (void*)&n, (void*)&rows,
+                  (void*)&m1, (void*)&group, (void*)&n_groups, (void*)&tag0, (void*)&exchange};
   err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kThreads), args, 0,
                                     (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
@@ -298,7 +407,8 @@ int launch_mgs(const T* V, const T* w, T* w_out, T* h, T* partials, T* ss_part, 
 }
 
 // `syncs` grid-wide barriers and nothing else: the time of one barrier of a
-// cooperative grid of this many blocks, the floor of K6 and K7
+// cooperative grid of this many blocks (K6's old design's floor; what a row
+// of K7 cost before its slots)
 __global__ void __launch_bounds__(kThreads) grid_sync_probe_kernel(int syncs) {
   cg::grid_group grid = cg::this_grid();
   for (int i = 0; i < syncs; ++i) grid.sync();
@@ -308,18 +418,23 @@ __global__ void __launch_bounds__(kThreads) grid_sync_probe_kernel(int syncs) {
 
 extern "C" {
 
+// K7: h (m1,), w_out and the (n_groups,) ss partials in one launch; slots
+// the (rows, n_groups) tagged slots (mgs_kernel.py keeps them a card),
+// group/n_groups from mgs_groups (checked here), tag0 the launch's tag
 int gmres_basis_mgs_f32(const float* V, const float* w, float* w_out, float* h,
-                        float* partials, float* ss_part, int n, int rows, int m1, int per_sm,
-                        int max_tiles, int* blocks, int* tiles, void* stream) {
-  return launch_mgs<float>(V, w, w_out, h, partials, ss_part, n, rows, m1, per_sm,
-                           max_tiles, blocks, tiles, stream);
+                        unsigned long long* slots, int n, int rows, int m1,
+                        int group, int n_groups, unsigned tag0, int per_sm, int max_tiles,
+                        int exchange, int* blocks, int* tiles, void* stream) {
+  return launch_mgs<float>(V, w, w_out, h, slots, n, rows, m1, group, n_groups, tag0,
+                           per_sm, max_tiles, exchange, blocks, tiles, stream);
 }
 
 int gmres_basis_mgs_f64(const double* V, const double* w, double* w_out, double* h,
-                        double* partials, double* ss_part, int n, int rows, int m1,
-                        int per_sm, int max_tiles, int* blocks, int* tiles, void* stream) {
-  return launch_mgs<double>(V, w, w_out, h, partials, ss_part, n, rows, m1, per_sm,
-                            max_tiles, blocks, tiles, stream);
+                        unsigned long long* slots, int n, int rows, int m1,
+                        int group, int n_groups, unsigned tag0, int per_sm, int max_tiles,
+                        int exchange, int* blocks, int* tiles, void* stream) {
+  return launch_mgs<double>(V, w, w_out, h, slots, n, rows, m1, group, n_groups, tag0,
+                            per_sm, max_tiles, exchange, blocks, tiles, stream);
 }
 
 int gmres_grid_sync_probe(int blocks, int syncs, void* stream) {

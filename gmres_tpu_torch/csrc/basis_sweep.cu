@@ -2,12 +2,19 @@
 //
 // K2 basis_gram<TV>            u[j] = sum_i V[j,i] w[i]            for j < rows
 //   replaces gmres_tpu/ops/pallas/orth_kernel.py:_gram (pallas_call at :59).
-// K3 basis_update<TV,GRAM,SUMSQ>  w' = w - sum_j u[j] V[j,:], fused with
-//   u2 = V w' (GRAM) or ||w'||^2 (SUMSQ) over the same tile
-//   replaces orth_kernel.py:_update_gram (:171) and _update_sumsq (:216);
-//   with both flags off it is _update (:129), exported as basis_update
-//   (CGS passes of CGSR with orth_steps != 2).  gram, update_gram and
-//   update_sumsq chained are one CGSR step (orth_kernel.py:cgsr2_pallas).
+// K3 basis_update<TV,SUMSQ>    w' = w - sum_j u[j] V[j,:], fused with
+//   ||w'||^2 (SUMSQ) over the same tile
+//   replaces orth_kernel.py:_update_sumsq (:216); with the flag off it is
+//   _update (:129), exported as basis_update (CGS passes of CGSR with
+//   orth_steps != 2).
+// K3 GRAM basis_update_gram<TV>  w' = w - sum_j u[j] V[j,:] and u2 = V w'
+//   replaces orth_kernel.py:_update_gram (:171, kernel body :144-163).  In
+//   fp32 each tile of the basis is staged in shared memory once and both
+//   passes read it there, in one launch (basis_update_gram_kernel); in fp64
+//   the one-row-at-a-time arithmetic, its rows loaded a batch at a time and
+//   its re-read served by L2 (basis_update_gram_blocks_kernel).  gram,
+//   update_gram and update_sumsq chained are one CGSR step
+//   (orth_kernel.py:cgsr2_pallas).
 // K2x2 basis_gram2<TV>        (u0, u1) = (V w0, V w1) over rows < rows
 //   replaces orth_kernel.py:_gram2 (:102), the one reduction of an ICWY
 //   (one-reduce MGS) step: each tile of V is read once for both vectors,
@@ -39,11 +46,8 @@
 //   every basis row is one coalesced pass over the tile.
 // - Cross-column sums are a warp-shuffle tree per row and per-block partials
 //   (n_blocks, m+1) that the wrapper finishes with torch.sum: no atomics.
-//   K2 (redesigned) finishes its own sum in the same launch: see
-//   basis_gram_kernel.
-// - The GRAM pass of K3 reads the tile's rows a second time right after the
-//   update pass; the tile (rows x kTile values, <= 248 KB) was just read, so
-//   that second read is served by L1/L2 rather than device memory.
+//   K2 and K3 GRAM (both redesigned) finish their own sums in the same
+//   launch: see basis_gram_kernel and basis_update_gram_kernel.
 // - Sums are taken in the basis dtype: fp32 for the mixed inner loop, fp64
 //   for the baseline (the TPU kernels were fp32-only; fp64 went to XLA).
 #include <cstdint>
@@ -51,24 +55,6 @@
 #include "common.cuh"
 
 using namespace gmres;
-
-// red[warp * kMaxRows + j] holds warp `warp`'s share of row j; thread j
-// finishes row j over the warps and writes the block's partial.  Rows
-// rows..m1-1 get a zero partial, so the caller's torch.sum over blocks
-// yields the full (m1,) vector with its zero tail.
-template <typename T>
-__device__ __forceinline__ void write_row_partials(const T* red, T* partials,
-                                                   int rows, int m1) {
-  __syncthreads();
-  for (int j = threadIdx.x; j < m1; j += kThreads) {
-    T s = T(0);
-    if (j < rows) {
-#pragma unroll
-      for (int q = 0; q < kWarps; ++q) s += red[q * kMaxRows + j];
-    }
-    partials[(size_t)blockIdx.x * m1 + j] = s;
-  }
-}
 
 // K2, redesigned for Hopper: a persistent grid walks fixed column tiles of
 // kGramTileCols columns (tile t -> block t mod grid), each thread covering
@@ -299,14 +285,13 @@ basis_gram2_kernel(const T* __restrict__ V, const T* __restrict__ w0,
   }
 }
 
-template <typename T, bool GRAM, bool SUMSQ>
+template <typename T, bool SUMSQ>
 __global__ void __launch_bounds__(kThreads)
 basis_update_kernel(const T* __restrict__ V, const T* __restrict__ w,
                     const T* __restrict__ u, T* __restrict__ w_out,
                     T* __restrict__ partials, int n, int rows, int m1) {
   __shared__ T us[kMaxRows];
-  __shared__ T red[GRAM ? kWarps * kMaxRows : kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __shared__ T red[kWarps];
   for (int j = threadIdx.x; j < rows; j += kThreads) us[j] = u[j];
   __syncthreads();
 
@@ -331,26 +316,376 @@ basis_update_kernel(const T* __restrict__ V, const T* __restrict__ w,
     if (c < (size_t)n) w_out[c] = wv[it];
   }
   // out-of-range columns hold w = 0 and acc = 0, so wv is 0 there and adds
-  // nothing to the sums below
+  // nothing to the sum below
 
-  if constexpr (GRAM) {
-    for (int j = 0; j < rows; ++j) {
-      T rv[kItems];
-      load_tile(V + (size_t)j * n, col0, n, rv);
-      T p = T(0);
-#pragma unroll
-      for (int it = 0; it < kItems; ++it) p += rv[it] * wv[it];
-      p = warp_sum(p);
-      if (lane == 0) red[warp * kMaxRows + j] = p;
-    }
-    write_row_partials(red, partials, rows, m1);
-  }
   if constexpr (SUMSQ) {
     T p = T(0);
 #pragma unroll
     for (int it = 0; it < kItems; ++it) p += wv[it] * wv[it];
     p = block_sum(p, red);
     if (threadIdx.x == 0) partials[blockIdx.x] = p;
+  }
+}
+
+// K3 GRAM in fp32, redesigned for Hopper: the update pass and the GRAM pass
+// both read the basis tile from shared memory, so V leaves device memory
+// once.
+// A persistent grid walks fixed column tiles of ug_tile<T>(rows) columns
+// (tile t -> block t mod grid).  A block stages all `rows` rows of a tile
+// and w's tile into shared memory with asynchronous copies (where every
+// row starts 16-byte aligned, one bulk copy (TMA) a row, issued by one
+// thread and completing on the stage's mbarrier; else one cp.async a
+// value), all of them in flight at once, in a ring of two stages: the next
+// tile's copies are issued before the current tile is computed, so a tile
+// is always in flight while the block computes.  Then
+// - the update pass: thread t owns 16-byte chunks t, t + kThreads, ... of
+//   the tile; per column the combination is summed over j in ascending
+//   order with one fmadd a row, starting from 0, and subtracted from w once
+//   (the reference's order, orth_kernel.py:_update_kernel), so w' has the
+//   bits of the one-row-at-a-time form it replaces; w' is written to device
+//   memory and over w's tile in the stage;
+// - the GRAM pass: warp q takes rows q, q + kWarps, ... (kUgRows of them at
+//   once, sharing each 16-byte read of w'), its lanes the tile's chunks in
+//   turn; each row's tile partial goes to partials[j * stride + t].
+// The tile width is the widest run of whole 128-byte lines whose two stages
+// ((rows + 1) rows of the tile each) and u fit kUgSmemBudget, at every rows
+// in 1..kMaxRows, and at most kUgMaxRowBytes a row; the grid holds up to
+// kUgBlocksPerSM blocks an SM, as many as the stages leave room for.  The
+// last block to finish (K2's ticket) adds each row's tile partials, 16
+// bytes a lane, in a fixed order, so a call is one launch and its bits
+// depend on n, rows, the dtype and the alignment, not on the grid.
+// orth_kernel.py:update_gram_plan holds the same geometry for the CPU tests.
+constexpr int kUgSmemBudget = 230400;   // dynamic bytes: 225 KB of a block's 227
+constexpr int kUgLine = 128;
+constexpr int kUgMaxRowBytes = 8192;
+constexpr int kUgBlocksPerSM = 2;
+constexpr int kUgRows = 4;
+
+template <typename T>
+__host__ __device__ constexpr int ug_vec() { return 16 / (int)sizeof(T); }
+// u's slots in the stage, a whole number of 16-byte chunks
+template <typename T>
+__host__ __device__ inline int ug_u_slots(int rows) {
+  return (rows + ug_vec<T>() - 1) / ug_vec<T>() * ug_vec<T>();
+}
+template <typename T>
+inline int ug_tile(int rows) {
+  const int line = kUgLine / (int)sizeof(T);
+  const int fit =
+      (kUgSmemBudget / (int)sizeof(T) - ug_u_slots<T>(rows)) / (2 * (rows + 1)) / line * line;
+  const int cap = kUgMaxRowBytes / (int)sizeof(T);
+  return fit < cap ? fit : cap;
+}
+template <typename T>
+inline size_t ug_smem(int rows, int tile) {
+  return ((size_t)2 * (rows + 1) * tile + ug_u_slots<T>(rows)) * sizeof(T);
+}
+
+// 16 bytes of shared memory (16-byte aligned) into and out of registers
+template <typename T>
+__device__ __forceinline__ void lds16(const T* p, T (&v)[gram_vec<T>()]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+    const double2 q = *reinterpret_cast<const double2*>(p);
+    v[0] = q.x; v[1] = q.y;
+  }
+}
+template <typename T>
+__device__ __forceinline__ void st16(T* p, const T (&v)[gram_vec<T>()]) {
+  if constexpr (sizeof(T) == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+// a[0] + ... + a[K-1] as a balanced tree
+template <typename T, int K>
+__device__ __forceinline__ T pairwise(const T* a) {
+  if constexpr (K == 1)
+    return a[0];
+  else
+    return pairwise<T, K / 2>(a) + pairwise<T, K / 2>(a + K / 2);
+}
+
+template <typename T>
+__device__ __forceinline__ void ldcg16(const T* p, T (&v)[gram_vec<T>()]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 q = __ldcg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+    const double2 q = __ldcg(reinterpret_cast<const double2*>(p));
+    v[0] = q.x; v[1] = q.y;
+  }
+}
+
+// tile t's rows 0..rows-1 of V and w's tile (as row `rows`) into `vs`:
+// aligned, one bulk copy a row issued by thread 0 on `bar`; else one
+// cp.async a value, by every thread
+template <typename T, bool kAligned>
+__device__ __forceinline__ void stage_tile(T* vs, const T* __restrict__ V,
+                                           const T* __restrict__ w, int t, int n, int rows,
+                                           int tile, unsigned long long* bar) {
+  const size_t c0 = (size_t)t * tile;
+  const int cols = (int)min((size_t)tile, (size_t)n - c0);
+  if constexpr (kAligned) {
+    if (threadIdx.x != 0) return;
+    const unsigned bytes = (unsigned)(cols * sizeof(T));  // whole 16-byte chunks here
+    mbar_expect(bar, (rows + 1) * bytes);
+    for (int j = 0; j <= rows; ++j)
+      bulk_copy(vs + (size_t)j * tile, (j < rows ? V + (size_t)j * n : w) + c0, bytes, bar);
+  } else {
+    for (int j = 0; j <= rows; ++j) {
+      const T* src = (j < rows ? V + (size_t)j * n : w) + c0;
+      for (int k = threadIdx.x; k < cols; k += kThreads)
+        cp_async(vs + (size_t)j * tile + k, src + k);
+    }
+  }
+}
+
+template <typename T, bool kAligned>
+__global__ void __launch_bounds__(kThreads, kUgBlocksPerSM)
+basis_update_gram_kernel(const T* __restrict__ V, const T* __restrict__ w,
+                         const T* __restrict__ u, T* __restrict__ w_out, T* __restrict__ u2,
+                         T* __restrict__ partials, unsigned* __restrict__ ticket, int n,
+                         int rows, int m1, int tile, int n_tiles, int stride) {
+  constexpr int kVec = ug_vec<T>();
+  extern __shared__ __align__(16) unsigned char ug_smem_raw[];
+  T* us = reinterpret_cast<T*>(ug_smem_raw);
+  const size_t stage = (size_t)(rows + 1) * tile;
+  T* const ring = us + ug_u_slots<T>(rows);  // stage s at ring + s * stage
+  __shared__ bool last;
+  __shared__ __align__(8) unsigned long long bars[2];  // the stages' mbarriers
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int j = threadIdx.x; j < rows; j += kThreads) us[j] = u[j];
+  if (kAligned && threadIdx.x == 0) {
+    mbar_init(&bars[0]);
+    mbar_init(&bars[1]);
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  if ((int)blockIdx.x < n_tiles)
+    stage_tile<T, kAligned>(ring, V, w, blockIdx.x, n, rows, tile, &bars[0]);
+  if (!kAligned) cp_async_commit();
+  int it = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++it) {
+    // the next tile into the other stage (free since the last barrier),
+    // then wait for this one (its stage's (it / 2)-th fill)
+    if (t + (int)gridDim.x < n_tiles)
+      stage_tile<T, kAligned>(ring + ((it + 1) & 1) * stage, V, w, t + gridDim.x, n, rows,
+                              tile, &bars[(it + 1) & 1]);
+    if constexpr (kAligned) {
+      mbar_wait(&bars[it & 1], (it >> 1) & 1);
+    } else {
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+    }
+    T* vs = ring + (it & 1) * stage;  // row j of the tile at j * tile
+    T* ws = vs + (size_t)rows * tile;  // w's tile, then w''s
+    const size_t c0 = (size_t)t * tile;
+    const int cols = (int)min((size_t)tile, (size_t)n - c0);
+
+    // update pass; a chunk that crosses `cols` (general form only) computes
+    // on stale slots past it and stores only its live columns
+    for (int c = threadIdx.x * kVec; c < cols; c += kThreads * kVec) {
+      T acc[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc[e] = T(0);
+      for (int j = 0; j < rows; ++j) {
+        const T uj = us[j];
+        T v[kVec];
+        lds16(vs + (size_t)j * tile + c, v);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) acc[e] = fmadd(uj, v[e], acc[e]);
+      }
+      T wv[kVec];
+      lds16(ws + c, wv);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) wv[e] -= acc[e];
+      st16(ws + c, wv);
+      if constexpr (kAligned) {
+        st16(w_out + c0 + c, wv);
+      } else {
+        for (int e = 0; e < kVec && c + e < cols; ++e) w_out[c0 + c + e] = wv[e];
+      }
+    }
+    __syncthreads();
+
+    // GRAM pass over whole chunks, then the columns of a chunk that
+    // crosses `cols` one by one; a lane keeps one sum per element of a
+    // chunk and adds them pairwise, so no sum runs longer than the tile's
+    // chunks a lane takes
+    const int full = cols / kVec * kVec;
+    for (int j0 = warp; j0 < rows; j0 += kWarps * kUgRows) {
+      T p[kUgRows][kVec];
+#pragma unroll
+      for (int r = 0; r < kUgRows; ++r)
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) p[r][e] = T(0);
+      for (int c = lane * kVec; c < full; c += 32 * kVec) {
+        T wv[kVec];
+        lds16(ws + c, wv);
+#pragma unroll
+        for (int r = 0; r < kUgRows; ++r) {
+          const int j = j0 + r * kWarps;
+          if (j >= rows) continue;
+          T v[kVec];
+          lds16(vs + (size_t)j * tile + c, v);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) p[r][e] = fmadd(v[e], wv[e], p[r][e]);
+        }
+      }
+      for (int c = full + lane; c < cols; c += 32) {
+#pragma unroll
+        for (int r = 0; r < kUgRows; ++r) {
+          const int j = j0 + r * kWarps;
+          if (j < rows) p[r][0] = fmadd(vs[(size_t)j * tile + c], ws[c], p[r][0]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kUgRows; ++r) {
+        const int j = j0 + r * kWarps;  // the same in every lane
+        if (j >= rows) continue;
+        const T s = warp_sum(pairwise<T, kVec>(p[r]));
+        if (lane == 0) partials[(size_t)j * stride + t] = s;
+      }
+    }
+    if (kAligned) fence_proxy_async();
+    __syncthreads();  // this stage is refilled by the tile after next
+  }
+
+  // the last block to finish adds each row's tile partials: warp q takes
+  // rows q, q + kWarps, ... (kUgRows at once), lane l the 16-byte chunks
+  // l, l + 32, ... of the row into two sets of sums (even and odd turns),
+  // then the tiles past the last whole chunk; each lane's sums pairwise,
+  // then a warp tree
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int full = n_tiles / kVec * kVec;
+  for (int j0 = warp; j0 < m1; j0 += kWarps * kUgRows) {
+    T s[kUgRows][2 * kVec];
+#pragma unroll
+    for (int r = 0; r < kUgRows; ++r)
+#pragma unroll
+      for (int e = 0; e < 2 * kVec; ++e) s[r][e] = T(0);
+    for (int k = lane * kVec; k < full; k += 64 * kVec) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int kk = k + h * 32 * kVec;
+        if (kk >= full) continue;
+#pragma unroll
+        for (int r = 0; r < kUgRows; ++r) {
+          const int j = j0 + r * kWarps;
+          if (j >= rows) continue;
+          T v[kVec];
+          ldcg16(partials + (size_t)j * stride + kk, v);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) s[r][h * kVec + e] += v[e];
+        }
+      }
+    }
+    for (int k = full + lane; k < n_tiles; k += 32) {
+#pragma unroll
+      for (int r = 0; r < kUgRows; ++r) {
+        const int j = j0 + r * kWarps;
+        if (j < rows) s[r][0] += __ldcg(partials + (size_t)j * stride + k);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kUgRows; ++r) {
+      const int j = j0 + r * kWarps;
+      if (j >= m1) continue;
+      const T v = j < rows ? warp_sum(pairwise<T, 2 * kVec>(s[r])) : T(0);
+      if (lane == 0) u2[j] = v;
+    }
+  }
+  if (threadIdx.x == 0) *ticket = 0u;
+}
+
+// K3 GRAM in fp64: the arithmetic of the one-row-at-a-time kernel it
+// replaces, so w' and u2 keep their bits.  (The fp32 kernel's summation of
+// u2 moved the ILU-Jacobi(3) baseline count at convdiff@1M by up to 9
+// restarts between K2 and its plain twin; with these bits the two agree,
+// PERF.md, section 6.)  A block owns kTile columns, thread t the kItems columns
+// t + i * kThreads;
+// w' is the combination summed from 0 with one fmadd a row, subtracted
+// once; a row's block partial is the thread's items in order, a warp tree
+// and the warps in order, and the wrapper adds the (n_blocks, m1) partials
+// with torch.sum.  What changed is the loads: kUgBatch rows are loaded
+// before any is used, in both passes, and `pad` bytes of dynamic shared
+// memory cap the blocks an SM, so that the tiles the GRAM pass reads again
+// are still in L2.
+constexpr int kUgBatch = 8;
+constexpr int kUgPadMax = 200 * 1024;  // with its 18 KB of static shared memory, < 227 KB
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+basis_update_gram_blocks_kernel(const T* __restrict__ V, const T* __restrict__ w,
+                                const T* __restrict__ u, T* __restrict__ w_out,
+                                T* __restrict__ partials, int n, int rows, int m1) {
+  __shared__ T us[kMaxRows];
+  __shared__ T red[kWarps * kMaxRows];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int j = threadIdx.x; j < rows; j += kThreads) us[j] = u[j];
+  __syncthreads();
+
+  const size_t col0 = (size_t)blockIdx.x * kTile + threadIdx.x;
+  T wv[kItems], acc[kItems];
+  load_tile(w, col0, n, wv);
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) acc[it] = T(0);
+  for (int j0 = 0; j0 < rows; j0 += kUgBatch) {
+    T rv[kUgBatch][kItems];
+#pragma unroll
+    for (int r = 0; r < kUgBatch; ++r)
+      if (j0 + r < rows) load_tile(V + (size_t)(j0 + r) * n, col0, n, rv[r]);
+#pragma unroll
+    for (int r = 0; r < kUgBatch; ++r) {
+      if (j0 + r >= rows) continue;
+      const T uj = us[j0 + r];
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) acc[it] += uj * rv[r][it];
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    wv[it] -= acc[it];
+    const size_t c = col0 + (size_t)it * kThreads;
+    if (c < (size_t)n) w_out[c] = wv[it];
+  }
+  // out-of-range columns hold w = 0 and acc = 0, so wv is 0 there and adds
+  // nothing to the sums below
+  for (int j0 = 0; j0 < rows; j0 += kUgBatch) {
+    T rv[kUgBatch][kItems];
+#pragma unroll
+    for (int r = 0; r < kUgBatch; ++r)
+      if (j0 + r < rows) load_tile(V + (size_t)(j0 + r) * n, col0, n, rv[r]);
+#pragma unroll
+    for (int r = 0; r < kUgBatch; ++r) {
+      if (j0 + r >= rows) continue;
+      T p = T(0);
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) p += rv[r][it] * wv[it];
+      p = warp_sum(p);
+      if (lane == 0) red[warp * kMaxRows + j0 + r] = p;
+    }
+  }
+  __syncthreads();
+  // rows rows..m1-1 get a zero partial: torch.sum over the blocks yields the
+  // full (m1,) vector with its zero tail
+  for (int j = threadIdx.x; j < m1; j += kThreads) {
+    T s = T(0);
+    if (j < rows) {
+#pragma unroll
+      for (int q = 0; q < kWarps; ++q) s += red[q * kMaxRows + j];
+    }
+    partials[(size_t)blockIdx.x * m1 + j] = s;
   }
 }
 
@@ -431,13 +766,68 @@ static int launch_gram2(const T* V, const T* w0, const T* w1, T* partials, int n
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool GRAM, bool SUMSQ>
+template <typename T, bool SUMSQ>
 static int launch_update(const T* V, const T* w, const T* u, T* w_out, T* partials,
                          int n, int rows, int m1, void* stream) {
   if (bad_shape(n, rows, m1)) return (int)cudaErrorInvalidValue;
-  basis_update_kernel<T, GRAM, SUMSQ>
+  basis_update_kernel<T, SUMSQ>
       <<<blocks_for(n, kTile), kThreads, 0, (cudaStream_t)stream>>>(
           V, w, u, w_out, partials, n, rows, m1);
+  return (int)cudaGetLastError();
+}
+
+// K3 GRAM's stages are dynamic shared memory above the 48 KB default, with
+// the largest shared-memory carveout; set once a device for each form
+template <typename T, bool kAligned>
+static cudaError_t allow_ug_stages() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  const void* kernel = (const void*)basis_update_gram_kernel<T, kAligned>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kUgSmemBudget);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
+template <typename T>
+static int launch_update_gram(const T* V, const T* w, const T* u, T* w_out, T* u2, T* partials,
+                              unsigned* ticket, int n, int rows, int m1, int tile, int n_tiles,
+                              int stride, int grid, int smem, void* stream) {
+  if (bad_shape(n, rows, m1) || tile != ug_tile<T>(rows) || n_tiles != blocks_for(n, tile) ||
+      stride != blocks_for(n_tiles, ug_vec<T>()) * ug_vec<T>() ||
+      (size_t)smem != ug_smem<T>(rows, tile) || grid < 1 || grid > n_tiles)
+    return (int)cudaErrorInvalidValue;
+  const bool aligned = n % ug_vec<T>() == 0 && reinterpret_cast<uintptr_t>(V) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w_out) % 16 == 0;
+  auto kernel = aligned ? basis_update_gram_kernel<T, true> : basis_update_gram_kernel<T, false>;
+  const cudaError_t err = aligned ? allow_ug_stages<T, true>() : allow_ug_stages<T, false>();
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(V, w, u, w_out, u2, partials, ticket, n,
+                                                         rows, m1, tile, n_tiles, stride);
+  return (int)cudaGetLastError();
+}
+
+static int launch_update_gram_blocks(const double* V, const double* w, const double* u,
+                                     double* w_out, double* partials, int n, int rows, int m1,
+                                     int pad, void* stream) {
+  if (bad_shape(n, rows, m1) || pad < 0 || pad > kUgPadMax) return (int)cudaErrorInvalidValue;
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && !(dev < 64 && done[dev])) {
+    err = cudaFuncSetAttribute((const void*)basis_update_gram_blocks_kernel<double>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kUgPadMax);
+    if (err == cudaSuccess && dev < 64) done[dev] = true;
+  }
+  if (err != cudaSuccess) return (int)err;
+  basis_update_gram_blocks_kernel<double>
+      <<<blocks_for(n, kTile), kThreads, pad, (cudaStream_t)stream>>>(V, w, u, w_out, partials, n,
+                                                                      rows, m1);
   return (int)cudaGetLastError();
 }
 
@@ -476,42 +866,48 @@ int gmres_basis_gram2_f64(const double* V, const double* w0, const double* w1,
   return launch_gram2<double>(V, w0, w1, partials, n, rows, m1, stream);
 }
 
-// K3 with both flags off: w' = w - u^T V alone (orth_kernel.py:_update)
+// K3 with the flag off: w' = w - u^T V alone (orth_kernel.py:_update)
 int gmres_basis_update_f32(const float* V, const float* w, const float* u, float* w_out,
                            int n, int rows, int m1, void* stream) {
-  return launch_update<float, false, false>(V, w, u, w_out, nullptr, n, rows, m1, stream);
+  return launch_update<float, false>(V, w, u, w_out, nullptr, n, rows, m1, stream);
 }
 
 int gmres_basis_update_f64(const double* V, const double* w, const double* u,
                            double* w_out, int n, int rows, int m1, void* stream) {
-  return launch_update<double, false, false>(V, w, u, w_out, nullptr, n, rows, m1, stream);
+  return launch_update<double, false>(V, w, u, w_out, nullptr, n, rows, m1, stream);
 }
 
-int gmres_basis_update_gram_f32(const float* V, const float* w, const float* u,
-                                float* w_out, float* partials, int n, int rows,
-                                int m1, void* stream) {
-  return launch_update<float, true, false>(V, w, u, w_out, partials, n, rows, m1,
-                                           stream);
+// K3 GRAM: w_out and u2 (m1,) in one launch over the plan of
+// orth_kernel.py:update_gram_plan (tile, n_tiles, partials' row stride,
+// grid, dynamic shared bytes; checked here); partials (rows, stride)
+// scratch, ticket K2's zeroed counter, left zeroed
+int gmres_basis_update_gram_f32(const float* V, const float* w, const float* u, float* w_out,
+                                float* u2, float* partials, unsigned* ticket, int n, int rows,
+                                int m1, int tile, int n_tiles, int stride, int grid, int smem,
+                                void* stream) {
+  return launch_update_gram<float>(V, w, u, w_out, u2, partials, ticket, n, rows, m1, tile,
+                                   n_tiles, stride, grid, smem, stream);
 }
 
+// K3 GRAM in fp64: w_out and the (n_blocks, m1) block partials that the
+// wrapper adds; pad: dynamic shared bytes that cap the blocks an SM
 int gmres_basis_update_gram_f64(const double* V, const double* w, const double* u,
-                                double* w_out, double* partials, int n, int rows,
-                                int m1, void* stream) {
-  return launch_update<double, true, false>(V, w, u, w_out, partials, n, rows, m1,
-                                            stream);
+                                double* w_out, double* partials, int n, int rows, int m1,
+                                int pad, void* stream) {
+  return launch_update_gram_blocks(V, w, u, w_out, partials, n, rows, m1, pad, stream);
 }
 
 int gmres_basis_update_sumsq_f32(const float* V, const float* w, const float* u,
                                  float* w_out, float* partials, int n, int rows,
                                  int m1, void* stream) {
-  return launch_update<float, false, true>(V, w, u, w_out, partials, n, rows, m1,
+  return launch_update<float, true>(V, w, u, w_out, partials, n, rows, m1,
                                            stream);
 }
 
 int gmres_basis_update_sumsq_f64(const double* V, const double* w, const double* u,
                                  double* w_out, double* partials, int n, int rows,
                                  int m1, void* stream) {
-  return launch_update<double, false, true>(V, w, u, w_out, partials, n, rows, m1,
+  return launch_update<double, true>(V, w, u, w_out, partials, n, rows, m1,
                                             stream);
 }
 

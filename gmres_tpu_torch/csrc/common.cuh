@@ -1,4 +1,5 @@
-// Shared launch geometry and deterministic reductions for the port's
+// Shared launch geometry, deterministic reductions and asynchronous copies
+// into shared memory for the port's
 // hand-written Hopper kernels (dia_spmv.cu, basis_sweep.cu, sell_spmv.cu,
 // ilu_trisolve.cu, basis_mgs.cu).
 //
@@ -76,6 +77,63 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src, size_t col0
 __device__ __forceinline__ float fmadd(float a, float b, float c) { return __fmaf_rn(a, b, c); }
 __device__ __forceinline__ double fmadd(double a, double b, double c) { return __fma_rn(a, b, c); }
 
+// An asynchronous copy of one 4- or 8-byte value into shared memory: it
+// completes at cp.async.wait_group, and a barrier does not wait for it
+template <typename V>
+__device__ __forceinline__ void cp_async(V* dst, const V* src) {
+  static_assert(sizeof(V) == 4 || sizeof(V) == 8, "4- or 8-byte values");
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (sizeof(V) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// all but the N most recently committed groups have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Bulk copies (TMA) into shared memory completing on an mbarrier (arrival
+// count 1: a fill is one expect_tx arrival and its bytes).  Initialize the
+// mbarriers, then a __syncthreads(), before any copy is issued on them.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+// wait for the completion of the mbarrier's phase of this parity; a wait
+// past 2^26 tries traps rather than hang the card
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0, tries = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    if (++tries == (1u << 26)) __trap();
+  } while (!done);
+}
+// the stage's generic-proxy accesses are ordered before the bulk copies
+// that refill it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 inline int blocks_for(int n, int per_block) { return (n + per_block - 1) / per_block; }
 
 }  // namespace gmres

@@ -129,25 +129,6 @@ __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
-// An asynchronous copy of one 4- or 8-byte value into shared memory: it
-// completes at cp.async.wait_group, and a barrier does not wait for it
-template <typename V>
-__device__ __forceinline__ void cp_async(V* dst, const V* src) {
-  static_assert(sizeof(V) == 4 || sizeof(V) == 8, "4- or 8-byte values");
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (sizeof(V) == 4)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // values written in one level and read in the next: within one block the
 // barrier makes them visible; across blocks they are read from L2
 template <int kMode, typename T>

@@ -40,6 +40,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 # C entry point -> argument types.  Every pointer and the stream are
 # c_void_p: an undeclared Python int would be passed as a 32-bit int.
 _SIGNATURES = {
@@ -61,8 +62,9 @@ _SIGNATURES = {
     "gmres_basis_gram2_f64": (_P, _P, _P, _P, _I, _I, _I, _P),
     "gmres_basis_update_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     "gmres_basis_update_f64": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "gmres_basis_update_gram_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "gmres_basis_update_gram_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "gmres_basis_update_gram_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                    _I, _P),
+    "gmres_basis_update_gram_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "gmres_basis_update_sumsq_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "gmres_basis_update_sumsq_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "gmres_basis_axpy_f32_f64": (_P, _P, _P, _I, _I, _P),
@@ -73,8 +75,10 @@ _SIGNATURES = {
     "gmres_df_gram": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "gmres_df_update_gram": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "gmres_df_update_sumsq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "gmres_basis_mgs_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
-    "gmres_basis_mgs_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "gmres_basis_mgs_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _I, _P, _P,
+                            _P),
+    "gmres_basis_mgs_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _I, _P, _P,
+                            _P),
     "gmres_grid_sync_probe": (_I, _I, _P),
     "gmres_ilu_levels_f32": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
                              _I, _I, _P, _P),

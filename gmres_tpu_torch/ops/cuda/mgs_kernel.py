@@ -24,14 +24,68 @@ import torch
 from gmres_tpu_torch.ops.cuda._build import library
 from gmres_tpu_torch.ops.cuda.orth_kernel import _rows_ok, _sweep_args
 
-# Blocks per SM of K7's cooperative grid (0 takes as many as are resident):
-# one block per SM, each holding up to 8 tiles in registers, was the
-# fastest grid at convdiff@1M in fp32 and fp64 on the H100 (PERF.md, PR 4).
-BLOCKS_PER_SM = 1
+# Blocks per SM of K7's cooperative grid (0 takes as many as are resident)
+# and the way a row's partials are awaited (csrc/basis_mgs.cu: kSync, a
+# grid.sync(); kPoll, reading the tagged slots until they are the row's), per
+# dtype: one block an SM (8 register tiles) polling in fp32, two blocks an
+# SM (4 tiles) at a grid.sync() in fp64, the fastest of each dtype at
+# convdiff@1M on the H100 (PERF.md, section 6).  Either gives the same bits.
+SYNC, POLL = 0, 1
+BLOCKS_PER_SM = {torch.float32: 1, torch.float64: 2}
+EXCHANGE = {torch.float32: POLL, torch.float64: SYNC}
 # Largest number of kTile-column tiles a block keeps in registers (1, 2, 4
 # or 8); 0 keeps w in device memory (the form the kernel takes past the
 # register capacity of the resident grid).
 MAX_REGISTER_TILES = 8
+# A row's partials are those of fixed groups of tiles, at most MGS_SLOTS of
+# them (csrc/basis_mgs.cu: kMgsSlots), published in tagged slots
+MGS_SLOTS = 256
+# epochs of the slots' tags: tag = epoch * 256 + row, epoch in [1, 2^24)
+_EPOCHS = 1 << 24
+
+
+def mgs_groups(n: int, tile: int = 1024, max_tiles: int = MAX_REGISTER_TILES):
+    """(tiles per group, groups): the smallest power of two, at most
+    ``max_tiles``, that leaves at most MGS_SLOTS groups of the n / tile
+    tiles.  Both depend on n only, so a row's partials, and h, have the
+    same bits on every grid."""
+    n_tiles = -(-n // tile)
+    g = 1
+    while g < max_tiles and -(-n_tiles // g) > MGS_SLOTS:
+        g *= 2
+    return g, -(-n_tiles // g)
+
+
+def group_columns(n: int, g: int, group: int, tile: int = 1024) -> range:
+    """The columns of group g: its tiles' columns within [0, n)."""
+    return range(min(g * group * tile, n), min((g + 1) * group * tile, n))
+
+
+class _Slots:
+    """A card's tagged slots: one 64-bit word (fp32) or two (fp64) for each
+    (row, group), zeroed when made, and the epoch of the next launch.  A
+    launch's tags (epoch * 256 + row) were never written before; when the
+    epochs run out the words are zeroed again.  One set a card: K7 launches
+    on one stream at a time."""
+
+    def __init__(self):
+        self.words = None
+        self.epoch = 1
+
+    def take(self, device, n_words: int):
+        """(the words, the launch's first tag)."""
+        if self.words is None or self.words.numel() < n_words:
+            self.words = torch.zeros(n_words, dtype=torch.int64, device=device)
+            self.epoch = 1
+        elif self.epoch >= _EPOCHS:
+            self.words.zero_()
+            self.epoch = 1
+        tag0 = self.epoch << 8
+        self.epoch += 1
+        return self.words, tag0
+
+
+_SLOTS: dict = {}
 
 
 def mgs_plain(V: torch.Tensor, w: torch.Tensor, rows: int):
@@ -47,26 +101,29 @@ def mgs_plain(V: torch.Tensor, w: torch.Tensor, rows: int):
 
 
 def mgs_cuda(V: torch.Tensor, w: torch.Tensor, rows: int, blocks_per_sm: int | None = None,
-             max_register_tiles: int = MAX_REGISTER_TILES):
-    """K7: one cooperative launch; the grid it ran on is left in
-    ``mgs_cuda.grid`` as (blocks, register tiles per block)."""
+             max_register_tiles: int = MAX_REGISTER_TILES, exchange: int | None = None):
+    """K7: one cooperative launch (h, w' and ||w'||); ``blocks_per_sm`` and
+    ``exchange`` override the dtype's BLOCKS_PER_SM and EXCHANGE.  The grid
+    it ran on is left in ``mgs_cuda.grid`` as (blocks, register tiles per
+    block)."""
     lib, sfx, m1, n, _ = _sweep_args("basis_mgs", V, rows, w=(w, V.shape[1]))
-    per_sm = BLOCKS_PER_SM if blocks_per_sm is None else blocks_per_sm
-    if per_sm < 0 or max_register_tiles < 0:
+    per_sm = BLOCKS_PER_SM[V.dtype] if blocks_per_sm is None else blocks_per_sm
+    exchange = EXCHANGE[V.dtype] if exchange is None else exchange
+    if per_sm < 0 or max_register_tiles < 0 or exchange not in (SYNC, POLL):
         raise ValueError(f"basis_mgs: blocks_per_sm={per_sm}, "
-                         f"max_register_tiles={max_register_tiles}")
-    n_tiles = -(-n // lib.tile)
-    h = torch.empty(m1, dtype=V.dtype, device=V.device)
+                         f"max_register_tiles={max_register_tiles}, exchange={exchange}")
+    group, n_groups = mgs_groups(n, lib.tile)
+    slots, tag0 = _SLOTS.setdefault(V.device, _Slots()).take(
+        V.device, (rows + 1) * n_groups * (V.element_size() // 4))
+    hn = torch.empty(m1 + 1, dtype=V.dtype, device=V.device)  # h, then ||w'||
     w_out = torch.empty_like(w)
-    partials = torch.empty((rows, n_tiles), dtype=V.dtype, device=V.device)
-    ss = torch.empty(n_tiles, dtype=V.dtype, device=V.device)
     blocks, tiles = ctypes.c_int(0), ctypes.c_int(0)
     lib.call(f"gmres_basis_mgs_{sfx}", V.data_ptr(), w.data_ptr(), w_out.data_ptr(),
-             h.data_ptr(), partials.data_ptr(), ss.data_ptr(), n, rows, m1, per_sm,
-             max_register_tiles, ctypes.addressof(blocks), ctypes.addressof(tiles))
+             hn.data_ptr(), slots.data_ptr(), n, rows, m1, group, n_groups, tag0, per_sm,
+             max_register_tiles, exchange, ctypes.addressof(blocks), ctypes.addressof(tiles))
     mgs_cuda.launches += 1
     mgs_cuda.grid = (blocks.value, tiles.value)
-    return h, w_out, torch.sqrt(ss.sum())
+    return hn[:m1], w_out, hn[m1]
 
 
 mgs_cuda.launches = 0

@@ -109,13 +109,62 @@ def tile_row_split(cols: int, phase: int, vec: int, threads: int = 256):
     return vector, scalar
 
 
+# K3 GRAM's stages (csrc/basis_sweep.cu: kUgSmemBudget, kUgLine,
+# kUgMaxRowBytes, kUgBlocksPerSM): dynamic shared bytes of a block's two
+# stages and u (225 KB of the 227 a block may have); tiles of whole 128-byte
+# lines, at most 8 KB a row; up to 2 blocks an SM where the stages are small
+UG_SMEM_BUDGET = 230_400
+UG_LINE = 128
+UG_MAX_ROW_BYTES = 8192
+UG_BLOCKS_PER_SM = 2
+SM_SHARED_BYTES = 233_472
+BLOCK_RESERVED_BYTES = 1024
+UG_STATIC_BYTES = 128  # the kernel's static shared memory, rounded up
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdateGramPlan(GramPlan):
+    """K3 GRAM's launch geometry: GramPlan's tiles and persistent grid, the
+    stride of the (rows, stride) tile partials (n_tiles rounded up to whole
+    16-byte chunks) and the dynamic shared bytes of a block (u's ``rows``
+    values and a ring of two stages, each the tile's ``rows`` basis rows and
+    w's tile)."""
+
+    rows: int
+    stride: int
+    shared_bytes: int
+    blocks_per_sm: int
+
+
+def update_gram_plan(n: int, rows: int, itemsize: int, sms: int,
+                     blocks_per_sm: int | None = None) -> UpdateGramPlan:
+    """The widest tile of whole UG_LINE-byte lines whose two stages, each
+    (rows + 1) tile rows, and u's ``rows`` values in whole 16-byte chunks
+    fit UG_SMEM_BUDGET, capped at UG_MAX_ROW_BYTES a row; as many blocks an
+    SM as the stages leave room for, up to UG_BLOCKS_PER_SM (or
+    ``blocks_per_sm``), no more than there are tiles."""
+    vec, line = 16 // itemsize, UG_LINE // itemsize
+    u_slots = -(-rows // vec) * vec
+    fit = (UG_SMEM_BUDGET // itemsize - u_slots) // (2 * (rows + 1)) // line * line
+    tile = min(fit, UG_MAX_ROW_BYTES // itemsize)
+    shared = (2 * (rows + 1) * tile + u_slots) * itemsize
+    per_sm = blocks_per_sm or min(
+        UG_BLOCKS_PER_SM,
+        SM_SHARED_BYTES // (shared + UG_STATIC_BYTES + BLOCK_RESERVED_BYTES))
+    n_tiles = -(-n // tile)
+    return UpdateGramPlan(n=n, tile=tile, n_tiles=n_tiles,
+                          grid=max(1, min(n_tiles, sms * per_sm)), rows=rows,
+                          stride=-(-n_tiles // vec) * vec, shared_bytes=shared,
+                          blocks_per_sm=per_sm)
+
+
 _SMS: dict = {}
 _TICKETS: dict = {}
 
 
 def _gram_state(device: torch.device):
-    """(SM count, the zeroed ticket counter K2 leaves zeroed) of a card.  One
-    counter a card: K2 launches on one stream at a time."""
+    """(SM count, the zeroed ticket counter K2 and K3 GRAM leave zeroed) of
+    a card.  One counter a card: they launch on one stream at a time."""
     if device not in _TICKETS:
         _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
         _TICKETS[device] = torch.zeros(1, dtype=torch.int32, device=device)
@@ -188,19 +237,43 @@ def update_gram_plain(V, w, u, rows: int):
     return w1, gram_plain(V, w1, rows)
 
 
-def update_gram_cuda(V, w, u, rows: int):
-    """K3 with GRAM: (w - u^T V, V (w - u^T V)) in one sweep."""
+# K3 GRAM in fp64: dynamic shared bytes a block requests, and does not use,
+# so that two blocks share an SM and the tiles its GRAM pass reads again are
+# still in L2 (csrc/basis_sweep.cu: basis_update_gram_blocks_kernel): 0.1701
+# ms at 31 rows where 0 took 0.1976 (chip_smoke.py on the H100, PERF.md, section 6)
+UG_F64_PAD = 100_000
+
+
+def update_gram_cuda(V, w, u, rows: int, blocks_per_sm: int | None = None):
+    """K3 GRAM: (w - u^T V, V (w - u^T V)).  fp32: one launch, each basis
+    tile read from device memory once (the last block adds the tiles'
+    partials); ``blocks_per_sm`` overrides the plan's, and the bits do not
+    depend on the grid.  fp64: the one-row-at-a-time arithmetic and bits,
+    block partials added by torch.sum (``blocks_per_sm`` does not apply)."""
     lib, sfx, m1, n, nb = _sweep_args("update_gram", V, rows, w=(w, V.shape[1]),
                                       u=(u, V.shape[0]))
     w1 = torch.empty_like(w)
-    partials = torch.empty((nb, m1), dtype=V.dtype, device=V.device)
+    if V.dtype == torch.float64:
+        partials = torch.empty((nb, m1), dtype=V.dtype, device=V.device)
+        lib.call("gmres_basis_update_gram_f64", V.data_ptr(), w.data_ptr(), u.data_ptr(),
+                 w1.data_ptr(), partials.data_ptr(), n, rows, m1, UG_F64_PAD)
+        update_gram_cuda.launches += 1
+        update_gram_cuda.grid = nb
+        return w1, partials.sum(dim=0)
+    sms, ticket = _gram_state(V.device)
+    plan = update_gram_plan(n, rows, V.element_size(), sms, blocks_per_sm)
+    u2 = torch.empty(m1, dtype=V.dtype, device=V.device)
+    partials = torch.empty(rows * plan.stride, dtype=V.dtype, device=V.device)
     lib.call(f"gmres_basis_update_gram_{sfx}", V.data_ptr(), w.data_ptr(), u.data_ptr(),
-             w1.data_ptr(), partials.data_ptr(), n, rows, m1)
+             w1.data_ptr(), u2.data_ptr(), partials.data_ptr(), ticket.data_ptr(), n, rows,
+             m1, plan.tile, plan.n_tiles, plan.stride, plan.grid, plan.shared_bytes)
     update_gram_cuda.launches += 1
-    return w1, partials.sum(dim=0)
+    update_gram_cuda.grid = plan.grid
+    return w1, u2
 
 
 update_gram_cuda.launches = 0
+update_gram_cuda.grid = 0
 
 
 def update_sumsq_plain(V, w, u, rows: int):

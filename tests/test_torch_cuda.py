@@ -121,6 +121,95 @@ def test_gram_one_launch_bits_independent_of_grid(dt, n, shift):
         assert n < 2 ** 20 or len(grids) > 1, grids  # more tiles than one grid has blocks
 
 
+@pytest.mark.parametrize("n", [1, 3, 1023, 4097, 70_001, 2 ** 20 + 3])
+@pytest.mark.parametrize("shift", [0, 1], ids=["aligned", "unaligned_base"])
+def test_update_gram_one_launch_bits_independent_of_grid(n, shift, dt=torch.float32):
+    # K3 GRAM in fp32 against update_gram_plain at ragged n and at a V and w
+    # that start one value past a 16-byte boundary, at rows 1, 7, 31 and 256
+    # (its stage's tile shrinks with rows): one launch, u2 zero past rows,
+    # and the same bits on three grids
+    m1 = 256
+    rng = np.random.default_rng(n + shift)
+    Vb = torch.tensor(rng.standard_normal(m1 * n + shift), dtype=dt, device="cuda")
+    wb = torch.tensor(rng.standard_normal(n + shift), dtype=dt, device="cuda")
+    V, w = Vb[shift:].view(m1, n), wb[shift:]
+    u = torch.tensor(rng.standard_normal(m1) / 16, dtype=dt, device="cuda")
+    for rows in (1, 7, 31, 256):
+        reset_launch_counts()
+        w1, u2 = ok.update_gram_cuda(V, w, u, rows)
+        assert launch_counts()["basis_update_gram"] == 1
+        pw, pu = ok.update_gram_plain(V, w, u, rows)
+        sw = w.abs() + torch.mv(V[:rows].abs().t(), u[:rows].abs())
+        assert float((w1 - pw).abs().max()) <= TOL[dt] * float(sw.max())
+        scale = ok.gram_plain(V.abs(), sw, rows)
+        assert float((u2 - pu).abs().max()) <= TOL[dt] * float(scale.max())
+        assert not u2[rows:].any()
+        grids = {ok.update_gram_cuda.grid}
+        for per_sm in (1, 2, 3, None):
+            a, b = ok.update_gram_cuda(V, w, u, rows, blocks_per_sm=per_sm)
+            assert torch.equal(a, w1) and torch.equal(b, u2)
+            grids.add(ok.update_gram_cuda.grid)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = ok.update_gram_plan(n, rows, V.element_size(), sms)
+        assert plan.n_tiles <= 3 * sms or len(grids) >= 3, grids
+
+
+@pytest.mark.parametrize("n", [1, 1023, 70_001, 2 ** 20 + 3])
+def test_update_gram_fp64_bits_do_not_depend_on_its_occupancy_cap(n, monkeypatch):
+    # K3 GRAM in fp64 (the one-row-at-a-time arithmetic, rows loaded a batch
+    # at a time, block partials added by torch.sum) against
+    # update_gram_plain at rows 1, 7, 31 and 256; the dynamic shared memory
+    # that caps its blocks an SM changes no bit
+    m1, dt = 256, torch.float64
+    rng = np.random.default_rng(n)
+    V = torch.tensor(rng.standard_normal((m1, n)), dtype=dt, device="cuda")
+    w = torch.tensor(rng.standard_normal(n), dtype=dt, device="cuda")
+    u = torch.tensor(rng.standard_normal(m1) / 16, dtype=dt, device="cuda")
+    for rows in (1, 7, 31, 256):
+        w1, u2 = ok.update_gram_cuda(V, w, u, rows)
+        pw, pu = ok.update_gram_plain(V, w, u, rows)
+        sw = w.abs() + torch.mv(V[:rows].abs().t(), u[:rows].abs())
+        assert float((w1 - pw).abs().max()) <= TOL[dt] * float(sw.max())
+        assert float((u2 - pu).abs().max()) <= TOL[dt] * float(ok.gram_plain(V.abs(), sw, rows).max())
+        assert not u2[rows:].any()
+        for pad in (0, 100_000, 200_000):
+            monkeypatch.setattr(ok, "UG_F64_PAD", pad)
+            a, b = ok.update_gram_cuda(V, w, u, rows)
+            assert torch.equal(a, w1) and torch.equal(b, u2)
+
+
+def test_update_gram_w_keeps_the_one_row_at_a_time_bits():
+    # w' = w - sum_j u_j V[j,:]: per column the combination from 0 with one
+    # fmadd a row in ascending j, subtracted once, as K3 SUMSQ (the
+    # one-row-at-a-time kernel K3 GRAM was a mode of) computes it
+    for dt in (torch.float32, torch.float64):
+        rng = np.random.default_rng(5)
+        n, rows = 70_001, 31
+        V = torch.tensor(rng.standard_normal((rows, n)), dtype=dt, device="cuda")
+        w = torch.tensor(rng.standard_normal(n), dtype=dt, device="cuda")
+        u = torch.tensor(rng.standard_normal(rows), dtype=dt, device="cuda")
+        w1, _ = ok.update_gram_cuda(V, w, u, rows)
+        w2, _ = ok.update_sumsq_cuda(V, w, u, rows)
+        assert torch.equal(w1, w2)
+
+
+def test_update_gram_is_one_device_kernel():
+    from torch.profiler import ProfilerActivity, profile
+
+    V = torch.randn((31, 1 << 20), device="cuda")
+    w = torch.randn(1 << 20, device="cuda")
+    u = torch.randn(31, device="cuda")
+    ok.update_gram_cuda(V, w, u, 31)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ok.update_gram_cuda(V, w, u, 31)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) <= 1, names  # the profiler may see no device activity at all
+    if names:
+        assert "update_gram" in names[0]
+
+
 def _basis(dt, n, rows, m1=31, seed=0):
     """V (m1, n) with its first `rows` rows orthonormal and the rest zero,
     and a vector w, on the card."""
@@ -161,16 +250,22 @@ def test_mgs_kernel(dt, n, rows):
 
 
 @DTYPES
-def test_mgs_kernel_bit_equal_across_grids_and_forms(dt):
-    # 294 tiles: one block per SM holds 4 tiles a block (74 blocks), the
-    # resident grid 1 a block (294 blocks); the L2 form keeps w in memory
-    V, w = _basis(dt, 300_001, 31, seed=1)
+@pytest.mark.parametrize("n", [300_001, 2 ** 20])
+def test_mgs_kernel_bit_equal_across_grids_and_forms(dt, n):
+    # 293 tiles in 147 groups of 2: one block per SM holds 4 tiles a block
+    # (74 blocks), the resident grid 2 a block (147 blocks); at 2^20, 1024
+    # tiles in 256 groups of 4: 8 tiles a block (128 blocks) or 4 (256); the
+    # L2 form keeps w in memory and takes the groups grid-stride; each
+    # grid awaits a row's partials both ways
+    V, w = _basis(dt, n, 31, seed=1)
     runs = []
     for per_sm, tiles_max in ((1, 8), (0, 8), (2, 8), (0, 0), (1, 0)):
-        runs.append((mk.mgs_cuda(V, w, 31, blocks_per_sm=per_sm, max_register_tiles=tiles_max),
-                     mk.mgs_cuda.grid))
+        for exchange in (mk.SYNC, mk.POLL):  # a grid.sync() or polling the slots
+            runs.append((mk.mgs_cuda(V, w, 31, blocks_per_sm=per_sm,
+                                     max_register_tiles=tiles_max, exchange=exchange),
+                         mk.mgs_cuda.grid))
     grids = {g for _, g in runs}
-    assert len(grids) >= 4, grids
+    assert len(grids) >= (4 if n < 2 ** 20 else 3), grids  # fp64 fits one 4-tile block an SM
     ref = runs[0][0]
     for out, grid in runs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(out, ref)), grid

@@ -160,6 +160,8 @@ SYNC_PROBE = 2000      # barriers per timed empty cooperative launch
 GRAM_GRID_BLOCKS_PER_SM = (1, 2, 3, 4)   # K2 grids measured
 UG_GRID_BLOCKS_PER_SM = (None, 2, 3)     # K3 GRAM fp32 grids measured (None: its plan's)
 UG_F64_PADS = (0, 100_000, 200_000)      # K3 GRAM fp64 occupancy caps measured (bytes)
+DF_UG_TILES = (None, 224, 128)           # K10 tiles measured (None: its plan's)
+DF_UG_BLOCKS_PER_SM = (1, 2, 3)          # K10 grids measured, at each tile
 # K6's sync candidates (mode, blocks of 1024 threads), each empty barrier
 # measured, and the kernel timed at convdiff@1M on those of its own two
 # forms (one block, a cooperative grid; the kernel has no cluster form)
@@ -350,8 +352,11 @@ def check_residual(torch, record, kname, dt, dt_name, timer, fn_cuda, fn_plain, 
 
 
 def device_kernels(torch, fn):
-    """Names of the device kernels one call of fn launches (torch.profiler),
-    or None when the profiler saw no device activity at all."""
+    """Names of the device kernels one call of fn launches (torch.profiler).
+    No device kernel at all fails the run: a call launches at least one.
+    Late in a long process the card's profiler has recorded no device
+    activity at all, for any kernel, so the counts are taken before the
+    solves (one_kernel_checks)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -361,7 +366,8 @@ def device_kernels(torch, fn):
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
-    return names or None
+    require(names, "torch.profiler recorded no device kernel")
+    return names
 
 
 def gram_grid_table(torch, timer, V, w, ref, dt_name, copy_gbs):
@@ -380,11 +386,8 @@ def gram_grid_table(torch, timer, V, w, ref, dt_name, copy_gbs):
         log(f"  K2 {dt_name} blocks/SM {per_sm}: {grid} blocks, {ms:.4f} ms, "
             f"{nbytes / (ms * 1e-3) / 1e9 / copy_gbs:.3f} of copy; bits equal")
     names = device_kernels(torch, lambda: ok_.gram_cuda(V, w, rows))
-    if names is None:
-        log(f"  K2 {dt_name} device kernels a call: not measured (the profiler saw none)")
-    else:
-        log(f"  K2 {dt_name} device kernels a call: {len(names)} {names}")
-        require(len(names) == 1, f"K2 {dt_name}: one launch a call ({names})")
+    log(f"  K2 {dt_name} device kernels a call: {len(names)} {names}")
+    require(len(names) == 1, f"K2 {dt_name}: one launch a call ({names})")
 
 
 def update_gram_grid_table(torch, timer, V, w, u, ref, dt_name, copy_gbs):
@@ -422,12 +425,64 @@ def update_gram_grid_table(torch, timer, V, w, u, ref, dt_name, copy_gbs):
     require(torch.equal(ref[0], ok_.update_sumsq_cuda(V, w, u, rows)[0]),
             f"K3 GRAM {dt_name}: w' equal to K3 SUMSQ's")
     names = device_kernels(torch, lambda: ok_.update_gram_cuda(V, w, u, rows))
-    if names is None:
-        log(f"  K3 GRAM {dt_name} device kernels a call: not measured (the profiler saw none)")
-    else:
-        log(f"  K3 GRAM {dt_name} device kernels a call: {len(names)} {names}")
-        want = 1 if V.dtype == torch.float32 else 2
-        require(len(names) == want, f"K3 GRAM {dt_name}: {want} device kernels a call ({names})")
+    log(f"  K3 GRAM {dt_name} device kernels a call: {len(names)} {names}")
+    want = 1 if V.dtype == torch.float32 else 2
+    require(len(names) == want, f"K3 GRAM {dt_name}: {want} device kernels a call ({names})")
+
+
+def df_update_gram_table(torch, timer, Vh, Vl, wh, wl, u, rows, ref, copy_gbs):
+    """K10 at the pair basis over tiles DF_UG_TILES and grids of
+    DF_UG_BLOCKS_PER_SM blocks an SM: w' equal to `ref`'s at every setting,
+    u2 equal to `ref`'s at every grid of the plan's tile (its summation
+    follows the tile), time and share of copy.  Its device kernels a call
+    are counted by one_kernel_checks."""
+    from gmres_tpu_torch.ops.cuda import df64_orth_kernel as dk
+
+    n = Vh.shape[1]
+    nbytes = (2 * rows + 4) * 4 * n
+    plan = dk.df_update_gram_plan(n, rows, 1)
+    log(f"  K10 rows {rows} plan: tiles of {plan.tile} columns, {plan.n_tiles} tiles, "
+        f"{plan.shared_bytes} B staged a block, {plan.blocks_per_sm} blocks an SM")
+    for tile in DF_UG_TILES:
+        for per_sm in DF_UG_BLOCKS_PER_SM:
+            out = dk.df_update_gram_cuda(Vh, Vl, wh, wl, u, rows, per_sm, tile)
+            grid = dk.df_update_gram_cuda.grid
+            w_equal = torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+            u2_equal = torch.equal(out[2], ref[2])
+            require(w_equal, f"K10 rows {rows}: w' equal at tile {tile}, {grid} blocks")
+            require(u2_equal or tile not in (None, plan.tile),
+                    f"K10 rows {rows}: the same u2 bits on {grid} blocks of the plan's tile")
+            ms = timer(lambda: dk.df_update_gram_cuda(Vh, Vl, wh, wl, u, rows, per_sm, tile))
+            log(f"  K10 rows {rows} tile {tile or plan.tile} blocks/SM {per_sm}: {grid} blocks, "
+                f"{ms:.4f} ms, {nbytes / (ms * 1e-3) / 1e9 / copy_gbs:.3f} of copy; w' bits "
+                f"equal, u2 bits {'equal' if u2_equal else 'differ'}")
+
+
+def halo_table(torch, timer, dt, data, offs, x, left, right, A262, copy_gbs):
+    """Beside K12's interior block (r rows, D bands): a torch device copy
+    of K12's bytes, an empty kernel (the timer's floor) and K1 on A262 (the
+    same row count, offsets +-1 and +-NX_262K), all under one timer."""
+    from gmres_tpu_torch.ops.cuda import halo_kernel as hk
+    from gmres_tpu_torch.ops.cuda import spmv_kernel as sk
+
+    D, r = data.shape
+    sz = dt.itemsize
+    nbytes = (D + 2) * r * sz + (left.shape[0] + right.shape[0]) * sz
+    ms = timer(lambda: hk.dia_spmv_halo_cuda(data, offs, x, left, right))
+    log(f"  K12 {dt} interior: {ms:.4f} ms, {nbytes / (ms * 1e-3) / 1e9 / copy_gbs:.3f} of copy")
+    src = torch.ones(nbytes // 2 // sz, dtype=dt, device="cuda")
+    dst = torch.empty_like(src)
+    ms = timer(lambda: dst.copy_(src))
+    log(f"  torch device copy of K12's {2 * src.numel() * sz} bytes ({dt}): {ms:.4f} ms, "
+        f"{2 * src.numel() * sz / (ms * 1e-3) / 1e9 / copy_gbs:.3f} of copy")
+    ms = timer(lambda: torch.cuda._sleep(0))
+    log(f"  an empty kernel (torch.cuda._sleep(0)) under the same timer: {ms:.4f} ms")
+    d262 = A262.data.to("cuda", dt)
+    x262 = torch.tensor(np.random.default_rng(11).random(A262.n_rows), dtype=dt, device="cuda")
+    ms = timer(lambda: sk.dia_spmv_cuda(d262, A262.offsets, x262))
+    log(f"  K1 at n = {A262.n_rows:,} (offsets {A262.offsets}, {dt}): {ms:.4f} ms, "
+        f"{(len(A262.offsets) + 2) * A262.n_rows * sz / (ms * 1e-3) / 1e9 / copy_gbs:.3f} "
+        f"of copy")
 
 
 def check_kernels(torch, A_csr, record):
@@ -678,10 +733,42 @@ def stage_timed(torch, A_csr):
     return A_dev, time.perf_counter() - t0
 
 
+def one_kernel_checks(torch, n):
+    """K10 (rows 31 and 16 of the pair basis at n) and K12's residual mode
+    (convdiff@1M's shard: r = n / DIST_RANKS, offsets +-1 and +-NX, edges of
+    NX values, zero on the first and last shard) are each one device kernel
+    a call.  Counted before the solves, with the K2 and K3 GRAM counts."""
+    from gmres_tpu_torch.ops.cuda import df64_orth_kernel as dk
+    from gmres_tpu_torch.ops.cuda import halo_kernel as hk
+
+    Vh, Vl, wh, wl, u, _, _ = df64_pair_basis(torch, n, 7)
+    for rows in (RLEN + 1, MID_ROWS):
+        ur = u.clone()
+        ur[rows:] = 0
+        names = device_kernels(torch, lambda: dk.df_update_gram_cuda(Vh, Vl, wh, wl, ur, rows))
+        log(f"  K10 rows {rows} device kernels a call: {len(names)} {names}")
+        require(len(names) == 1, f"K10 rows {rows}: one device kernel a call ({names})")
+    del Vh, Vl, wh, wl, u
+    r, offs = n // DIST_RANKS, (-NX, -1, 0, 1, NX)
+    rng = np.random.default_rng(12)
+    data, x, b = (torch.tensor(rng.standard_normal(shape), device="cuda")
+                  for shape in ((len(offs), r), r, r))
+    edge = torch.tensor(rng.random(NX), device="cuda")
+    zero = torch.zeros_like(edge)
+    for side, left, right in (("interior", edge, edge), ("first", zero, edge),
+                              ("last", edge, zero)):
+        names = device_kernels(torch, lambda: hk.dia_residual_halo_cuda(
+            data, offs, b, x, left, right, torch.float32))
+        log(f"  K12 residual {side} device kernels a call: {len(names)} {names}")
+        require(len(names) == 1, f"K12 residual {side}: one device kernel a call ({names})")
+    torch.cuda.synchronize()
+
+
 def convdiff_path(torch, record, A):
     from gmres_tpu_torch.ops.dia import DIAMatrix
 
     check_kernels(torch, A, record)
+    one_kernel_checks(torch, A.n_rows)
     A_dev, secs = stage_timed(torch, A)
     require(isinstance(A_dev, DIAMatrix), f"convdiff stages as DIA, got {type(A_dev).__name__}")
     log(f"stage: {type(A_dev).__name__} offsets={A_dev.offsets} on {A_dev.device} "
@@ -1314,6 +1401,9 @@ def check_df64_kernels(torch, A_csr, record):
                    timer(lambda: fn_cuda(Vh, Vl, wh, wl, ur, rows)),
                    timer(lambda: fn_plain(Vh, Vl, wh, wl, ur, rows), 5),
                    (2 * rows + 4) * 4 * n, ops, key=key)
+            if kname == "df_update_gram":
+                df_update_gram_table(torch, timer, Vh, Vl, wh, wl, ur, rows, (gh, gl, gs),
+                                     record.copy_gbs)
     # K4 pair mode: x (fp64) += y^T (Vh + Vl)[:30], summed in fp64
     y = u[:RLEN].contiguous()
     x0 = torch.tensor(np.random.default_rng(8).random(n), device="cuda")
@@ -1499,8 +1589,11 @@ def check_halo_kernels(torch, A_csr, record):
     zeros) and the last (its right edge zeros); fp32 and fp64, and residual
     mode (fp64 operator, the norm of r demoted to fp32 or not).  One call:
     torch.mv of the block's rows, as a CSR tensor over the window [left | x |
-    right], with that window."""
+    right], with that window.  At the interior block also halo_table.  The
+    residual mode's device kernels a call are counted by one_kernel_checks."""
+    from gmres_tpu_torch.io.synth import convection_diffusion_2d
     from gmres_tpu_torch.ops.cuda import halo_kernel as hk
+    from gmres_tpu_torch.ops.dia import from_csr
     from gmres_tpu_torch.parallel.halo import HaloDIA, partition_halo
 
     H = partition_halo(A_csr, DIST_RANKS)
@@ -1512,6 +1605,7 @@ def check_halo_kernels(torch, A_csr, record):
     rp, ci, v = A_csr.numpy_arrays()
     rng = np.random.default_rng(10)
     timer = Timer(torch)
+    A262 = from_csr(convection_diffusion_2d(NX_262K, beta=2.0))
     for side, s in (("interior", 1), ("first", 0), ("last", DIST_RANKS - 1)):
         d64 = torch.tensor(H.data[s], device="cuda")
         x64 = torch.tensor(rng.random(r), device="cuda")
@@ -1538,6 +1632,8 @@ def check_halo_kernels(torch, A_csr, record):
                    timer(lambda: hk.dia_spmv_halo_plain(data, offs, x, left, right)),
                    (D + 2) * r * sz + (hl + hr) * sz, 2 * D * r,
                    timer(lambda: torch.mv(W, xx)), key=key)
+            if side == "interior":
+                halo_table(torch, timer, dt, data, offs, x, left, right, A262, record.copy_gbs)
             check_residual(torch, record, "dia_residual_halo", dt, dt_name, timer,
                            lambda: hk.dia_residual_halo_cuda(d64, offs, b64, x64, l64, r64, dt),
                            lambda: hk.dia_residual_halo_plain(d64, offs, b64, x64, l64, r64, dt),

@@ -48,10 +48,12 @@ _SIGNATURES = {
     "gmres_dia_spmv_f64": (_P, _P, _P, _I, _I, _I, _P, _P),
     "gmres_dia_residual_f32": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P),
     "gmres_dia_residual_f64": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P),
-    "gmres_dia_spmv_halo_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
-    "gmres_dia_spmv_halo_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
-    "gmres_dia_residual_halo_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P),
-    "gmres_dia_residual_halo_f64": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P),
+    "gmres_dia_spmv_halo_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P),
+    "gmres_dia_spmv_halo_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P),
+    "gmres_dia_residual_halo_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I,
+                                    _I, _I, _P),
+    "gmres_dia_residual_halo_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I,
+                                    _I, _I, _P),
     "gmres_sell_spmv_f32": (_P, _P, _P, _P, _P, _I, _P),
     "gmres_sell_spmv_f64": (_P, _P, _P, _P, _P, _I, _P),
     "gmres_sell_residual_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
@@ -73,7 +75,8 @@ _SIGNATURES = {
     "gmres_basis_axpy_pair": (_P, _P, _P, _P, _I, _I, _P),
     "gmres_dia_spmv_df64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "gmres_df_gram": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "gmres_df_update_gram": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "gmres_df_update_gram": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _P),
     "gmres_df_update_sumsq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "gmres_basis_mgs_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _I, _P, _P,
                             _P),

@@ -17,14 +17,63 @@ shard's own: the caller adds the ranks' shares.
 The ``*_cuda`` wrappers take CUDA tensors only and raise on anything the
 kernel does not take; the ``*_plain`` versions run on any device and are
 what the CPU path and the on-card comparisons use.
+
+The kernel (redesigned for Hopper) sends each block of ``block_rows``
+rows down one of two paths: an interior block, whose rows read only x for
+every band, takes a branch-free body; the blocks within max|offset| of
+either end take the window path.  ``halo_plan`` is that split, which the
+launcher checks against its own.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from gmres_tpu_torch.ops.cuda._build import check
+from gmres_tpu_torch.ops.cuda.orth_kernel import _gram_state
 from gmres_tpu_torch.ops.cuda.spmv_kernel import _band_args
+
+THREADS = 256  # csrc/common.cuh: kThreads
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloPlan:
+    """K12's blocks: block b owns rows [b * block_rows, min((b + 1) *
+    block_rows, r)); blocks [b0, b1) are interior (each of their rows i
+    reads x[i + off] inside [0, r) for every band), the others take the
+    window path over the edges."""
+
+    r: int
+    block_rows: int
+    n_blocks: int
+    b0: int
+    b1: int
+
+    def rows(self, b: int) -> range:
+        return range(b * self.block_rows, min((b + 1) * self.block_rows, self.r))
+
+    def interior(self, b: int) -> bool:
+        return self.b0 <= b < self.b1
+
+
+def halo_plan(offsets, r: int, hl: int, hr: int, itemsize: int,
+              threads: int = THREADS) -> HaloPlan:
+    """Blocks of ``threads`` 16-byte chunks of rows; the interior range is
+    the blocks whose first row is at least lo = max(0, -min offset) and
+    whose end is at most r - hi, hi = max(0, max offset).  The edges' sizes
+    ``hl`` and ``hr`` do not enter: an interior row reads no edge, and a
+    window row reads an edge only inside it."""
+    if r < 1 or hl < 0 or hr < 0:
+        raise ValueError(f"K12: r={r}, hl={hl}, hr={hr}")
+    block_rows = threads * (16 // itemsize)
+    lo = max(0, -min(offsets))
+    hi = max(0, max(offsets))
+    n_blocks = -(-r // block_rows)
+    b0 = min(n_blocks, -(-lo // block_rows))
+    end = n_blocks if hi == 0 else max(0, r - hi) // block_rows
+    return HaloPlan(r=r, block_rows=block_rows, n_blocks=n_blocks, b0=b0, b1=max(b0, end))
 
 
 def dia_spmv_halo_plain(data: torch.Tensor, offsets, x: torch.Tensor, left: torch.Tensor,
@@ -48,16 +97,19 @@ def _halo_args(name, data, offsets, x, left, right):
     check("x", x, data.dtype, (r,), data.device)
     for side, t in (("left", left), ("right", right)):
         check(side, t, data.dtype, (t.shape[0],), data.device)
-    return lib, sfx, D, r, offs
+    plan = halo_plan(offsets, r, left.shape[0], right.shape[0], data.element_size(),
+                     lib.threads)
+    return lib, sfx, D, r, offs, plan
 
 
 def dia_spmv_halo_cuda(data: torch.Tensor, offsets, x: torch.Tensor, left: torch.Tensor,
                        right: torch.Tensor) -> torch.Tensor:
     """K12, plain mode."""
-    lib, sfx, D, r, offs = _halo_args("dia_spmv_halo", data, offsets, x, left, right)
+    lib, sfx, D, r, offs, plan = _halo_args("dia_spmv_halo", data, offsets, x, left, right)
     y = torch.empty(r, dtype=data.dtype, device=data.device)
     lib.call(f"gmres_dia_spmv_halo_{sfx}", data.data_ptr(), x.data_ptr(), left.data_ptr(),
-             right.data_ptr(), y.data_ptr(), r, left.shape[0], right.shape[0], D, offs)
+             right.data_ptr(), y.data_ptr(), r, left.shape[0], right.shape[0], D, offs, plan.b0,
+             plan.b1)
     dia_spmv_halo_cuda.launches += 1
     return y
 
@@ -76,20 +128,23 @@ def dia_residual_halo_plain(data, offsets, b, x, left, right, inner_dtype: torch
 
 def dia_residual_halo_cuda(data, offsets, b, x, left, right, inner_dtype: torch.dtype):
     """K12, residual mode: r in A's dtype and the shard's two sums of
-    squares, taken in fp64 over per-block partials that torch.sum
-    finishes."""
-    lib, sfx, D, r, offs = _halo_args("dia_residual_halo", data, offsets, x, left, right)
+    squares, taken in fp64 over per-block partials that the last block adds
+    in block order (one launch)."""
+    lib, sfx, D, r, offs, plan = _halo_args("dia_residual_halo", data, offsets, x, left,
+                                            right)
     check("b", b, data.dtype, (r,), data.device)
     if inner_dtype not in (torch.float32, torch.float64):
         raise TypeError(f"dia_residual_halo: inner dtype {inner_dtype} is not float32/float64")
+    _, ticket = _gram_state(data.device)
     res = torch.empty(r, dtype=data.dtype, device=data.device)
-    partials = torch.empty((-(-r // lib.threads), 2), dtype=torch.float64, device=data.device)
+    partials = torch.empty((plan.n_blocks, 2), dtype=torch.float64, device=data.device)
+    sums = torch.empty(2, dtype=torch.float64, device=data.device)
     demote = int(inner_dtype == torch.float32 and data.dtype == torch.float64)
     lib.call(f"gmres_dia_residual_halo_{sfx}", data.data_ptr(), x.data_ptr(), left.data_ptr(),
-             right.data_ptr(), b.data_ptr(), res.data_ptr(), partials.data_ptr(), r,
-             left.shape[0], right.shape[0], D, offs, demote)
+             right.data_ptr(), b.data_ptr(), res.data_ptr(), partials.data_ptr(),
+             ticket.data_ptr(), sums.data_ptr(), r, left.shape[0], right.shape[0], D, offs,
+             demote, plan.b0, plan.b1)
     dia_residual_halo_cuda.launches += 1
-    sums = partials.sum(dim=0)
     return res, sums[0], sums[1]
 
 

@@ -160,14 +160,25 @@ def update_gram_plan(n: int, rows: int, itemsize: int, sms: int,
 
 _SMS: dict = {}
 _TICKETS: dict = {}
+_STREAMS: dict = {}
 
 
 def _gram_state(device: torch.device):
-    """(SM count, the zeroed ticket counter K2 and K3 GRAM leave zeroed) of
-    a card.  One counter a card: they launch on one stream at a time."""
+    """(SM count, the zeroed ticket counter) of a card.  K2, K3 GRAM, K10
+    and K12's residual mode share the counter: each kernel's last block
+    resets it, so two of them must never run at once.  They are therefore
+    held to the stream the counter was made on, and a launch from any other
+    stream raises."""
+    stream = torch.cuda.current_stream(device).cuda_stream
     if device not in _TICKETS:
         _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
         _TICKETS[device] = torch.zeros(1, dtype=torch.int32, device=device)
+        _STREAMS[device] = stream
+    if stream != _STREAMS[device]:
+        raise RuntimeError(
+            f"K2/K3 GRAM/K10/K12 residual share one ticket counter on {device}, made on "
+            f"stream {_STREAMS[device]:#x}; launching from stream {stream:#x} could "
+            "interleave two kernels' tickets")
     return _SMS[device], _TICKETS[device]
 
 

@@ -1,28 +1,45 @@
 #!/usr/bin/env python3
-"""K3 GRAM (``basis_update_gram``) and K7 (``basis_mgs``) of one checkout of
-gmres_tpu_torch on one CUDA device, timed as ``chip_smoke.py`` times them,
-with their outputs saved for a bit-for-bit comparison of two checkouts.
+"""K3 GRAM (``basis_update_gram``), K7 (``basis_mgs``), K12 (``dia_spmv_halo``
+and ``dia_residual_halo``), K10 (``df_update_gram``) and K11
+(``df_update_sumsq``) of one checkout of gmres_tpu_torch on one CUDA
+device, timed as ``chip_smoke.py`` times them, with their outputs saved for
+a bit-for-bit comparison of two checkouts.
 
     python3 scripts/port_kernels.py [--checkout DIR] [--save FILE]
     python3 scripts/port_kernels.py --compare A.pt B.pt
 
 imports ``gmres_tpu_torch`` from DIR (default: this checkout) and the timer
-of this checkout's ``chip_smoke.py`` (L2 flushed, the card kept busy while
-the host enqueues the timed call), so two checkouts are timed alike: run
-them in turns (A, B, B, A) on the same card, one right after the other.
+and inputs of this checkout's ``chip_smoke.py`` (L2 flushed, the card kept
+busy while the host enqueues the timed call), so two checkouts are timed
+alike: run them in turns (A, B, B, A) on the same card, one right after the
+other.
 
-Shapes are the main path's at convdiff@1M: n = 1,048,576, a 31-row basis of
-N(0, 1/n) entries, w of N(0, 1) entries and u of N(0, 1) entries (numpy
-seed 0, as ``chip_smoke.check_kernels``), swept over rows 31 and 16, fp32
-and fp64; K7 on the near-orthonormal basis of ``chip_smoke.mgs_basis``
-(seed 3).  Each time is the median of 20 calls.  Prints the card's name and
-power limit (``nvidia-smi --query-gpu=name,power.limit``; it fails without
-them), then one JSON line; ``--save`` also writes the outputs (K3 GRAM's w'
-and u2, K7's h, w' and norm) to FILE with ``torch.save``.
+Shapes are the main path's:
+- K3 GRAM and K7 at convdiff@1M: n = 1,048,576, a 31-row basis of N(0, 1/n)
+  entries, w and u of N(0, 1) entries (numpy seed 0, as
+  ``chip_smoke.check_kernels``), rows 31 and 16, fp32 and fp64; K7 on the
+  near-orthonormal basis of ``chip_smoke.mgs_basis`` (seed 3).
+- K12 at the row blocks of convdiff@1M over 4 ranks (r = 262,144, offsets
+  +-1 and +-1024, edges of 1024 values; the interior block and the first
+  and last, whose open edge is zeros), inputs as
+  ``chip_smoke.check_halo_kernels`` draws them; both modes, fp32 and fp64
+  (residual mode: the fp64 operator, its norm demoted to fp32 or not).
+  Beside it, in the same run: a torch device copy of K12's bytes ((D + 2)
+  r values and the edges, half read and half written) in each dtype, and
+  K1 (``dia_spmv``) on ``convection_diffusion_2d(512)`` (n = 262,144,
+  offsets +-1 and +-512).
+- K10 and K11 on the 31-row pair basis of ``chip_smoke.df64_pair_basis``
+  (seed 7), rows 31 and 16.
+Each time is the median of 20 calls; K3 GRAM, K10 and K11 also report the
+device kernels a call launches (``chip_smoke.device_kernels``).  Prints the
+card's name and power limit (``nvidia-smi --query-gpu=name,power.limit``;
+it fails without them), then one JSON line; ``--save`` also writes the
+outputs to FILE with ``torch.save``.
 
 ``--compare`` reads two such files and prints, for each output, whether the
-two are bit-equal; it exits 1 if K3 GRAM's w' differs (the redesign keeps
-its bits), else 0.
+two are bit-equal; it exits 1 if K3 GRAM's w', K12's y or residual r,
+K10's w' or K11's w' and sum of squares differ (each redesign keeps those
+bits), else 0.
 """
 
 from __future__ import annotations
@@ -40,6 +57,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 M1 = 31
 N = 1024 * 1024
 ROWS = (31, 16)
+RANKS = 4
+# outputs whose bits each redesign keeps (suffixes of the saved keys)
+KEPT = (("update_gram", "w1"), ("halo_spmv", "y"), ("halo_residual", "r"),
+        ("df_update_gram", "w1"), ("df_update_sumsq", "w1"), ("df_update_sumsq", "sumsq"))
 
 
 def _timer_module():
@@ -50,7 +71,15 @@ def _timer_module():
     return mod
 
 
-def measure(torch, cs, copy_gbs):
+def _of_copy(nbytes, ms, copy_gbs):
+    return nbytes / (ms * 1e-3) / 1e9 / copy_gbs
+
+
+def _kernels_a_call(torch, cs, fn):
+    return len(cs.device_kernels(torch, fn))
+
+
+def measure_sweeps(torch, cs, timer, copy_gbs, times, outs):
     from gmres_tpu_torch.ops.cuda import mgs_kernel as mk
     from gmres_tpu_torch.ops.cuda import orth_kernel as ok
 
@@ -60,8 +89,6 @@ def measure(torch, cs, copy_gbs):
     V_np = rng.standard_normal((M1, N)) / np.sqrt(N)
     w_np = rng.standard_normal(N)
     u_np = rng.standard_normal(M1)
-    timer = cs.Timer(torch)
-    times, outs = {}, {}
     for name, dt in (("float32", torch.float32), ("float64", torch.float64)):
         s = dt.itemsize
         V = torch.tensor(V_np, dtype=dt, device="cuda")
@@ -74,23 +101,105 @@ def measure(torch, cs, copy_gbs):
             w1, u2 = ok.update_gram_cuda(V, w, u, rows)
             outs[f"update_gram {key} w1"], outs[f"update_gram {key} u2"] = w1.cpu(), u2.cpu()
             ms = timer(lambda: ok.update_gram_cuda(V, w, u, rows))
-            times[f"update_gram {key}"] = dict(ms=ms, of_copy=nbytes / (ms * 1e-3) / 1e9 / copy_gbs)
+            times[f"update_gram {key}"] = dict(
+                ms=ms, of_copy=_of_copy(nbytes, ms, copy_gbs),
+                kernels=_kernels_a_call(torch, cs, lambda: ok.update_gram_cuda(V, w, u, rows)))
             h, wm1, nrm = mk.mgs_cuda(Vm, wm, rows)
             outs[f"mgs {key} h"], outs[f"mgs {key} w1"] = h.cpu(), wm1.cpu()
             outs[f"mgs {key} norm"] = nrm.cpu()
             ms = timer(lambda: mk.mgs_cuda(Vm, wm, rows))
-            times[f"mgs {key}"] = dict(ms=ms, of_copy=nbytes / (ms * 1e-3) / 1e9 / copy_gbs,
+            times[f"mgs {key}"] = dict(ms=ms, of_copy=_of_copy(nbytes, ms, copy_gbs),
                                        grid=list(mk.mgs_cuda.grid))
         del V, w, u, Vm, wm
-    return times, outs
+
+
+def measure_halo(torch, cs, timer, copy_gbs, times, outs):
+    """K12 at convdiff@1M's row blocks (chip_smoke.check_halo_kernels'
+    inputs), the same-bytes copy and K1 at n = 262,144."""
+    from gmres_tpu_torch.io.synth import convection_diffusion_2d
+    from gmres_tpu_torch.ops.cuda import halo_kernel as hk
+    from gmres_tpu_torch.ops.cuda import spmv_kernel as sk
+    from gmres_tpu_torch.ops.dia import from_csr
+    from gmres_tpu_torch.parallel.halo import partition_halo
+
+    H = partition_halo(convection_diffusion_2d(cs.NX, beta=2.0), RANKS)
+    r, hl, hr, offs = H.rows_per_shard, H.halo_left, H.halo_right, H.offsets
+    D = len(offs)
+    rng = np.random.default_rng(10)
+    for side, s in (("interior", 1), ("first", 0), ("last", RANKS - 1)):
+        d64 = torch.tensor(H.data[s], device="cuda")
+        x64 = torch.tensor(rng.random(r), device="cuda")
+        l64 = torch.tensor(rng.random(hl) if s > 0 else np.zeros(hl), device="cuda")
+        r64 = torch.tensor(rng.random(hr) if s < RANKS - 1 else np.zeros(hr), device="cuda")
+        b64 = torch.tensor(rng.standard_normal(r), device="cuda")
+        for name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+            sz = dt.itemsize
+            data, x, left, right = (t.to(dt) for t in (d64, x64, l64, r64))
+            key = f"{name} {side}"
+            outs[f"halo_spmv {key} y"] = hk.dia_spmv_halo_cuda(data, offs, x, left, right).cpu()
+            ms = timer(lambda: hk.dia_spmv_halo_cuda(data, offs, x, left, right))
+            nbytes = (D + 2) * r * sz + (hl + hr) * sz
+            times[f"halo_spmv {key}"] = dict(ms=ms, of_copy=_of_copy(nbytes, ms, copy_gbs))
+            res, rsq, xsq = hk.dia_residual_halo_cuda(d64, offs, b64, x64, l64, r64, dt)
+            outs[f"halo_residual {key} r"] = res.cpu()
+            outs[f"halo_residual {key} sums"] = torch.stack([rsq, xsq]).cpu()
+            ms = timer(lambda: hk.dia_residual_halo_cuda(d64, offs, b64, x64, l64, r64, dt))
+            nbytes = (D + 3) * r * 8 + (hl + hr) * 8
+            times[f"halo_residual {key}"] = dict(
+                ms=ms, of_copy=_of_copy(nbytes, ms, copy_gbs),
+                kernels=_kernels_a_call(torch, cs, lambda: hk.dia_residual_halo_cuda(
+                    d64, offs, b64, x64, l64, r64, dt)))
+    for name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        nbytes = (D + 2) * r * dt.itemsize + (hl + hr) * dt.itemsize
+        src = torch.ones(nbytes // 2 // dt.itemsize, dtype=dt, device="cuda")
+        dst = torch.empty_like(src)
+        ms = timer(lambda: dst.copy_(src))
+        times[f"halo_copy {name}"] = dict(ms=ms, bytes=2 * src.numel() * dt.itemsize,
+                                          of_copy=_of_copy(2 * src.numel() * dt.itemsize, ms,
+                                                           copy_gbs))
+    dia = from_csr(convection_diffusion_2d(512, beta=2.0))
+    x_np = np.random.default_rng(11).random(dia.n_rows)
+    for name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        data = dia.data.to("cuda", dt)
+        x = torch.tensor(x_np, dtype=dt, device="cuda")
+        ms = timer(lambda: sk.dia_spmv_cuda(data, dia.offsets, x))
+        nbytes = (len(dia.offsets) + 2) * dia.n_rows * dt.itemsize
+        times[f"dia_spmv 262K {name}"] = dict(ms=ms, of_copy=_of_copy(nbytes, ms, copy_gbs),
+                                              offsets=list(dia.offsets))
+
+
+def measure_df64(torch, cs, timer, copy_gbs, times, outs):
+    from gmres_tpu_torch.ops.cuda import df64_orth_kernel as dk
+
+    Vh, Vl, wh, wl, u, _, _ = cs.df64_pair_basis(torch, N, 7)
+    for rows in ROWS:
+        ur = u.clone()
+        ur[rows:] = 0
+        nbytes = (2 * rows + 4) * 4 * N
+        for kname, last in (("df_update_gram", "u2"), ("df_update_sumsq", "sumsq")):
+            fn = getattr(dk, kname + "_cuda")
+            wh1, wl1, z = fn(Vh, Vl, wh, wl, ur, rows)
+            key = f"{kname} df64 rows {rows}"
+            outs[f"{key} w1"] = torch.stack([wh1, wl1]).cpu()
+            outs[f"{key} {last}"] = z.cpu()
+            ms = timer(lambda: fn(Vh, Vl, wh, wl, ur, rows))
+            times[key] = dict(ms=ms, of_copy=_of_copy(nbytes, ms, copy_gbs),
+                              kernels=_kernels_a_call(
+                                  torch, cs, lambda: fn(Vh, Vl, wh, wl, ur, rows)))
+    del Vh, Vl, wh, wl, u
 
 
 def compare(torch, a_path, b_path) -> int:
     a, b = torch.load(a_path), torch.load(b_path)
     equal = {k: bool(torch.equal(a[k], b[k])) for k in sorted(set(a) & set(b))}
     print(json.dumps({"compare": [a_path, b_path], "bit_equal": equal}), flush=True)
-    k3 = [k for k in equal if k.startswith("update_gram") and k.endswith("w1")]
-    return 0 if k3 and all(equal[k] for k in k3) else 1
+    kept = [k for k in equal if any(k.startswith(p + " ") and k.endswith(" " + s)
+                                    for p, s in KEPT)]
+    missing = [p for p in KEPT if not any(k.startswith(p[0] + " ") and k.endswith(" " + p[1])
+                                          for k in kept)]
+    differ = [k for k in kept if not equal[k]]
+    print(json.dumps({"kept_bits_differ": differ, "kept_missing": missing}), flush=True)
+    return 0 if kept and not differ and not missing else 1
 
 
 def main() -> int:
@@ -111,7 +220,11 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     cs = _timer_module()
     copy_ms, copy_gbs = cs.copy_bandwidth(torch)
-    times, outs = measure(torch, cs, copy_gbs)
+    timer = cs.Timer(torch)
+    times, outs = {}, {}
+    measure_sweeps(torch, cs, timer, copy_gbs, times, outs)
+    measure_halo(torch, cs, timer, copy_gbs, times, outs)
+    measure_df64(torch, cs, timer, copy_gbs, times, outs)
     if args.save:
         torch.save(outs, args.save)
     print(json.dumps(dict(checkout=args.checkout, device=torch.cuda.get_device_name(0),

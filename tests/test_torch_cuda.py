@@ -15,6 +15,10 @@ marker and skip elsewhere.  On the card:
 """
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -193,21 +197,70 @@ def test_update_gram_w_keeps_the_one_row_at_a_time_bits():
         assert torch.equal(w1, w2)
 
 
-def test_update_gram_is_one_device_kernel():
+def _one_call(name):
+    """The wrapper call whose device kernels a test counts, on its inputs."""
+    from gmres_tpu_torch.ops.cuda import halo_kernel as hk
+
+    if name == "update_gram":
+        V, w, u = torch.randn((31, 1 << 20), device="cuda"), torch.randn(
+            1 << 20, device="cuda"), torch.randn(31, device="cuda")
+        return lambda: ok.update_gram_cuda(V, w, u, 31)
+    if name == "dia_residual_halo":
+        r, offs = 1 << 18, (-1024, -1, 0, 1, 1024)
+        data = torch.randn((5, r), dtype=torch.float64, device="cuda")
+        x, b = (torch.randn(r, dtype=torch.float64, device="cuda") for _ in range(2))
+        edge = torch.randn(1024, dtype=torch.float64, device="cuda")
+        return lambda: hk.dia_residual_halo_cuda(data, offs, b, x, edge, edge, torch.float32)
+    Vh, Vl, wh, wl, u, _, _ = _df_pairs(1 << 20, 31, 0, 1)
+    return lambda: dk.df_update_gram_cuda(Vh, Vl, wh, wl, u, 31)
+
+
+def _profile(name):
+    """Names of the device kernels one call of `_one_call(name)` launches
+    (torch.profiler, after a warm-up call)."""
     from torch.profiler import ProfilerActivity, profile
 
-    V = torch.randn((31, 1 << 20), device="cuda")
-    w = torch.randn(1 << 20, device="cuda")
-    u = torch.randn(31, device="cuda")
-    ok.update_gram_cuda(V, w, u, 31)
+    fn = _one_call(name)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ok.update_gram_cuda(V, w, u, 31)
+        fn()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(names) <= 1, names  # the profiler may see no device activity at all
-    if names:
-        assert "update_gram" in names[0]
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _device_kernels(name):
+    """_profile(name) in a fresh process.  Late in a long process the card's
+    profiler has recorded no device activity at all, for any kernel; a fresh
+    process whose kernels are loaded before its one profiler cycle records
+    them.  No device kernel at all fails: a call launches at least one."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import json, sys; sys.path[:0] = [{os.path.dirname(here)!r}, {here!r}]; "
+            f"import test_torch_cuda as t; print(json.dumps(t._profile({name!r})))")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    names = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert names, "torch.profiler recorded no device kernel"
+    return names
+
+
+def test_ticket_counter_refuses_a_second_stream():
+    # K2, K3 GRAM, K10 and K12's residual mode share one ticket counter a
+    # card, made on the first stream that launches one of them; a launch from
+    # any other stream raises before it reaches the card
+    V = torch.randn((4, 1000), device="cuda")
+    w = torch.randn(1000, device="cuda")
+    ok.gram_cuda(V, w, 4)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side), pytest.raises(RuntimeError, match="ticket counter"):
+        ok.gram_cuda(V, w, 4)
+    ok.gram_cuda(V, w, 4)
+
+
+def test_update_gram_is_one_device_kernel():
+    names = _device_kernels("update_gram")
+    assert len(names) == 1 and "update_gram" in names[0], names
 
 
 def _basis(dt, n, rows, m1=31, seed=0):
@@ -778,6 +831,131 @@ def test_dia_halo_wrappers_refuse_what_the_kernel_does_not_take():
         hk.dia_spmv_halo_cuda(data, (-1, 0, 1), x[:63], edge, edge)
     with pytest.raises(ValueError):  # offsets do not match the bands
         hk.dia_spmv_halo_cuda(data, (-1, 0), x, edge, edge)
+
+
+def _halo_case(r, offsets, hl, hr, P, s, seed):
+    """A DIA matrix of P shards of r rows whose bands are zero wherever
+    shard s's rows reach past its window [s r - hl, (s+1) r + hr) (and past
+    the matrix), with x and b; on the card, in fp64: the whole matrix, x and
+    b, and shard s's bands, block of x, edges (zeros past the matrix) and b
+    as fresh tensors."""
+    rng = np.random.default_rng(seed)
+    N, lo, hi = P * r, s * r, (s + 1) * r
+    data = rng.standard_normal((len(offsets), N))
+    rows = np.arange(N)
+    own = (rows >= lo) & (rows < hi)
+    for d, off in enumerate(offsets):
+        j = rows + off
+        data[d, (j < 0) | (j >= N) | (own & ((j < lo - hl) | (j >= hi + hr)))] = 0.0
+    x, b = rng.standard_normal(N), rng.standard_normal(N)
+    left, right = np.zeros(hl), np.zeros(hr)
+    tail = x[max(0, lo - hl):lo]
+    left[hl - tail.size:] = tail
+    head = x[hi:hi + hr]
+    right[:head.size] = head
+    glob = [torch.tensor(a, device="cuda") for a in (data, x, b)]
+    shard = [torch.tensor(np.ascontiguousarray(a), device="cuda")
+             for a in (data[:, lo:hi], x[lo:hi], left, right)]
+    return glob, shard, torch.tensor(b[lo:hi], device="cuda"), (lo, hi)
+
+
+_D5 = (-64, -1, 0, 1, 64)
+_D27 = tuple(sorted({0, -1, 1, *range(-700, 701, 53)}))[:27]
+HALO_CASES = [
+    # r, offsets, hl, hr, ranks, shard
+    *[(4096, _D5, 64, 64, 4, s) for s in (1, 0, 3)],           # aligned r
+    *[(4098, _D5, 64, 64, 4, s) for s in (1, 0, 3)],           # r % 4 == 2
+    *[(70_001, (-300, -1, 0, 1, 300), 300, 300, 3, s) for s in (1, 0, 2)],  # ragged
+    *[(5000, (-70, -1, 0, 1, 70), 50, 40, 3, s) for s in (1, 0, 2)],  # edges short of |off|
+    *[(8192, _D27, 700, 700, 3, s) for s in (1, 0, 2)],        # D = 27
+    (10_000, _D5, 0, 0, 1, 0),                                  # a single shard
+    (1000, (-1024, -1, 0, 1, 1024), 1000, 1000, 3, 1),         # r < max|off|
+]
+
+
+@DTYPES
+@pytest.mark.parametrize("r,offsets,hl,hr,P,s", HALO_CASES,
+                         ids=[f"r{c[0]}-D{len(c[1])}-h{c[2]},{c[3]}-P{c[4]}-s{c[5]}"
+                              for c in HALO_CASES])
+def test_dia_halo_bit_equal_to_k1_rows(dt, r, offsets, hl, hr, P, s):
+    # K12 on shard s (interior, first, last or the only one) against K1 over
+    # the whole matrix, edges taken from the global x: y bit for bit;
+    # residual mode's r bit for bit against K1's residual mode, its sums of
+    # squares against the plain version; one launch each
+    from gmres_tpu_torch.ops.cuda import halo_kernel as hk
+
+    assert len(offsets) in (5, 27)
+    (A, x, b), shard64, bs, (lo, hi) = _halo_case(r, offsets, hl, hr, P, s, r + s)
+    data, xs, left, right = (t.to(dt) for t in shard64)
+    want = sk.dia_spmv_cuda(A.to(dt), offsets, x.to(dt))[lo:hi]
+    reset_launch_counts()
+    got = hk.dia_spmv_halo_cuda(data, offsets, xs, left, right)
+    assert launch_counts()["dia_spmv_halo"] == 1
+    assert torch.equal(got, want), float((got - want).abs().max())
+    _close(got, hk.dia_spmv_halo_plain(data, offsets, xs, left, right), dt)
+    d64, x64, l64, r64 = shard64
+    r1 = sk.dia_residual_cuda(A, offsets, b, x, dt)[0][lo:hi]
+    plain = hk.dia_residual_halo_plain(d64, offsets, bs, x64, l64, r64, dt)
+    got = hk.dia_residual_halo_cuda(d64, offsets, bs, x64, l64, r64, dt)
+    assert torch.equal(got[0], r1)
+    tol = 1e-5 if dt == torch.float32 else 1e-12
+    for g, w in zip(got[1:], plain[1:]):
+        assert abs(float(g - w)) <= tol * float(w)
+
+
+def test_dia_halo_residual_is_one_device_kernel():
+    names = _device_kernels("dia_residual_halo")
+    assert len(names) == 1 and "halo" in names[0], names
+
+
+def _df_pairs(n, m1, shift, seed):
+    """Vh, Vl (m1, n), wh, wl starting `shift` words past a 16-byte boundary,
+    u (m1,) fp64; with V and w in fp64."""
+    rng = np.random.default_rng(seed)
+    V = torch.tensor(rng.standard_normal((m1, n)) / np.sqrt(n), device="cuda")
+    w = torch.tensor(rng.standard_normal(n), device="cuda")
+    u = torch.tensor(rng.standard_normal(m1), device="cuda")
+    out = []
+    for t in (*eft.split_f64(V), *eft.split_f64(w)):
+        buf = torch.empty(t.numel() + shift, dtype=torch.float32, device="cuda")
+        view = buf[shift:].view(t.shape)
+        view.copy_(t)
+        out.append(view)
+    return (*out, u, V, w)
+
+
+@pytest.mark.parametrize("n", [1, 1023, 4096, 70_001, 2 ** 20, 2 ** 20 + 3])
+@pytest.mark.parametrize("shift", [0, 1], ids=["aligned", "unaligned_base"])
+def test_df_update_gram_one_launch_bits_independent_of_grid(n, shift):
+    # K10 against df_update_gram_plain at rows 1, 7, 16, 31 and 256 (a
+    # 256-row basis up to n = 70,001, 31 rows beyond): one launch, w' bit for
+    # bit, u2 within 2^-46 and zero past rows, the same bits on three grids
+    m1 = 256 if n <= 70_001 else 31
+    Vh, Vl, wh, wl, u, V, w = _df_pairs(n, m1, shift, n + shift)
+    absV = V.abs()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for rows in (r for r in (1, 7, 16, 31, 256) if r <= m1):
+        ur = u.clone()
+        ur[rows:] = 0
+        reset_launch_counts()
+        gh, gl, gu = dk.df_update_gram_cuda(Vh, Vl, wh, wl, ur, rows)
+        assert launch_counts()["df_update_gram"] == 1
+        ph, pl, pu = dk.df_update_gram_plain(Vh, Vl, wh, wl, ur, rows)
+        assert torch.equal(gh, ph) and torch.equal(gl, pl)
+        _df_close(gu, pu, absV @ (w.abs() + ur.abs() @ absV))
+        assert not gu[rows:].any()
+        grids = {dk.df_update_gram_cuda.grid}
+        for per_sm in (1, 2, 3):
+            a = dk.df_update_gram_cuda(Vh, Vl, wh, wl, ur, rows, blocks_per_sm=per_sm)
+            assert all(torch.equal(p, q) for p, q in zip(a, (gh, gl, gu)))
+            grids.add(dk.df_update_gram_cuda.grid)
+        plan = dk.df_update_gram_plan(n, rows, sms)
+        assert plan.n_tiles <= 3 * sms or len(grids) >= 3, grids
+
+
+def test_df_update_gram_is_one_device_kernel():
+    names = _device_kernels("df_update_gram")
+    assert len(names) == 1 and "df_update_gram" in names[0], names
 
 
 @pytest.mark.parametrize("mode", ["baseline", "mixed"])

@@ -11,14 +11,25 @@ kernel runs here; the card tests hold the kernels themselves).
   column once, and every register tiling and grid-stride grid the kernel
   may take hands each group to exactly one block, so h has the same bits
   on every grid; the tags of its slots are new at every launch.
+- ``halo_plan`` (K12, ``csrc/dia_halo.cu``): every row of the shard lies in
+  one block, each block interior or on the window path; an interior row
+  reads only x for every band, and a block takes the window path only when
+  one of its rows reads past x.
+- ``df_update_gram_plan`` (K10, ``csrc/df64_sweep.cu``): its two stages
+  (each the tile's rows of Vh and Vl and w's pair) and u fit the per-block
+  budget for every rows in 1..256, and its tiles cover every column exactly
+  once over the persistent grid.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from gmres_tpu_torch.ops.cuda import df64_orth_kernel as dk
+from gmres_tpu_torch.ops.cuda import halo_kernel as hk
 from gmres_tpu_torch.ops.cuda import mgs_kernel as mk
 from gmres_tpu_torch.ops.cuda import orth_kernel as ok
+
 
 def test_update_gram_two_stages_fit_for_every_height(itemsize=4):
     for rows in range(1, 257):
@@ -93,3 +104,88 @@ def test_mgs_slot_tags_are_new_at_every_launch(monkeypatch):
     assert tag == 1 << 8 and not words.any()
     grown, tag = slots.take(cpu, 20)
     assert tag == 1 << 8 and grown.numel() == 20 and not grown.any()
+
+
+CONVDIFF_1M = (-1024, -1, 0, 1, 1024)
+
+
+@pytest.mark.parametrize("offsets,r,hl,hr", [
+    (CONVDIFF_1M, 262_144, 1024, 1024),    # convdiff@1M over 4 ranks
+    (CONVDIFF_1M, 262_144, 0, 1024),       # the first rank
+    ((-3, -1, 0, 1, 3), 70_001, 3, 3),     # ragged r
+    ((-2, -1, 0, 1, 2), 5000, 0, 0),       # no edges at all
+    ((-1024, -1, 0, 1, 1024), 1000, 0, 0),  # r < max|off|: no interior block
+    ((-1024, 0, 1024), 1500, 1024, 1024),  # edges wider than the shard
+    ((0, 1, 2), 4097, 0, 2),               # one-sided bands
+    ((-5, 0), 4097, 5, 0),
+    ((0,), 1, 0, 0),                       # one row
+    (tuple(range(-13, 14)), 3 * 1024 + 17, 13, 13),  # D = 27
+])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_halo_plan_splits_rows_into_interior_and_window_blocks(offsets, r, hl, hr, itemsize):
+    plan = hk.halo_plan(offsets, r, hl, hr, itemsize)
+    assert plan.block_rows == 256 * 16 // itemsize
+    assert plan.n_blocks == -(-r // plan.block_rows)
+    assert 0 <= plan.b0 <= plan.b1 <= plan.n_blocks
+    seen = np.zeros(r, dtype=np.int64)
+    lo, hi = min(offsets), max(offsets)
+    for b in range(plan.n_blocks):
+        rows = plan.rows(b)
+        assert len(rows) > 0
+        seen[rows.start:rows.stop] += 1
+        reads_past_x = rows.start + lo < 0 or rows.stop - 1 + hi >= r
+        # interior rows read only x; a block takes the window path only
+        # when one of its rows reads past x
+        assert plan.interior(b) == (not reads_past_x)
+    assert np.all(seen == 1)
+    interior = [b for b in range(plan.n_blocks) if plan.interior(b)]
+    assert interior == list(range(plan.b0, plan.b1))
+
+
+def test_halo_plan_at_convdiff_1m_leaves_two_window_blocks_a_side():
+    # r = 262,144 with offsets +-1 and +-1024: the first and last 1024 rows
+    # read the edges (fp32: one 1024-row block a side; fp64: two of 512)
+    p32 = hk.halo_plan(CONVDIFF_1M, 262_144, 1024, 1024, 4)
+    p64 = hk.halo_plan(CONVDIFF_1M, 262_144, 1024, 1024, 8)
+    assert (p32.n_blocks, p32.b0, p32.b1) == (256, 1, 255)
+    assert (p64.n_blocks, p64.b0, p64.b1) == (512, 2, 510)
+
+
+def test_df_update_gram_two_stages_fit_for_every_height():
+    for rows in range(1, 257):
+        plan = dk.df_update_gram_plan(1 << 20, rows, 132)
+        assert plan.tile >= dk.DF_LINE and plan.tile % dk.DF_LINE == 0
+        assert plan.tile <= dk.DF_MAX_TILE
+        u_words = 2 * (-(-rows // 4) * 4)
+        assert plan.shared_bytes == (2 * (2 * rows + 2) * plan.tile + u_words) * 4
+        assert plan.shared_bytes <= dk.DF_SMEM_BUDGET
+        per_block = plan.shared_bytes + dk.DF_STATIC_BYTES + ok.BLOCK_RESERVED_BYTES
+        assert per_block <= 232_448  # a block's 227 KB
+        assert 1 <= plan.blocks_per_sm <= dk.DF_BLOCKS_PER_SM
+        assert plan.blocks_per_sm * per_block <= ok.SM_SHARED_BYTES
+        # the widest such tile: one more line would not fit
+        wider = (2 * (2 * rows + 2) * (plan.tile + dk.DF_LINE) + u_words) * 4
+        assert plan.tile == dk.DF_MAX_TILE or wider > dk.DF_SMEM_BUDGET
+
+
+@pytest.mark.parametrize("n", [1, 447, 70_001, 2 ** 20, 2 ** 20 + 3])
+@pytest.mark.parametrize("rows", [1, 16, 31, 256])
+def test_df_update_gram_plan_covers_every_column_once(n, rows):
+    widest = dk.df_update_gram_plan(n, rows, 132).tile
+    for sms, per_sm, tile in ((132, None, None), (132, 1, None), (7, 3, None),
+                              (132, 2, 32), (132, None, min(96, widest))):
+        plan = dk.df_update_gram_plan(n, rows, sms, per_sm, tile)
+        assert tile is None or plan.tile == tile
+        assert 1 <= plan.grid <= min(plan.n_tiles, sms * plan.blocks_per_sm)
+        seen = np.zeros(n, dtype=np.int64)
+        for b in range(plan.grid):
+            for t in plan.tiles_of(b):
+                cols = plan.columns(t)
+                seen[cols.start:cols.stop] += 1
+        assert np.all(seen == 1)
+
+
+def test_df_update_gram_plan_refuses_tiles_the_kernel_does_not_take():
+    for tile in (0, 16, 100, 4096):
+        with pytest.raises(ValueError):
+            dk.df_update_gram_plan(1 << 20, 31, 132, tile=tile)

@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels (and the host helper of the ILU
-preconditioners) from the sources in the checkout and drives six paths,
+preconditioners) from the sources in the checkout and drives seven paths,
 the first five through ``gmres_tpu_torch.stage`` and ``solve`` in the
 ``baseline`` and ``mixed`` modes (x_true = rand_vect(n, 42), b = A x_true
 in fp64 numpy, CGSR unless said otherwise, restart length 30, tol 1e-8):
@@ -48,7 +48,17 @@ in fp64 numpy, CGSR unless said otherwise, restart length 30, tol 1e-8):
    path's single-card x), mixed MGS under the ``low_sync_mgs=None`` rule,
    MGS sequential and ICWY interleaved (cut at 4 restarts) and ILU-Jacobi(3)
    mixed at ``convection_diffusion_2d(512)``, through K12 (a rank's halo DIA
-   SpMV and, in residual mode, its outer residual).
+   SpMV and, in residual mode, its outer residual);
+7. the compressed-basis and bf16 path (convdiff-cb): the dtype forms of
+   K2, K2x2, K3 (three modes), K7 and K4 held to their plain versions at
+   convdiff@1M's shapes, K2's and K3 GRAM's forms counted one device kernel
+   a call in a fresh process; then on the convdiff@1M operator mixed with a
+   bf16 basis (30..40 restarts; the TPU's 35/1050) and baseline with an fp32
+   basis (26..28), both with sequential MGS and ICWY too, short solves that
+   launch the remaining forms, mesh3d@1M mixed with a bf16 basis, and the
+   bf16 inner tier with its stall escalation to fp32, once; the four
+   interleaved walls of mixed, mixed-cb, baseline and baseline-cb, and the
+   bf16 DIA SpMV (plain torch) beside K1 in fp32.
 
 Before each path's solves it holds each of the path's kernels against its
 plain PyTorch version at the path's shapes (fp32 and fp64; a 31-row Krylov
@@ -82,9 +92,11 @@ lines, K2's and K3 GRAM's grid tables, K6's sync candidates, the
 exact-ILU solve walls,
 K7's grid-size table and the sequential-vs-ICWY MGS walls, the
 df64 step and solve walls, the distributed solves and walls beside the
-single card's; then one JSON line with the 19 kernels (launch counts from
-the solves, the distributed ones summed over the ranks; measured errors and
-times, bounds, one-call times);
+single card's, the compressed-basis and bf16 solves and walls; then one
+JSON line with the 19 kernels (launch counts from the solves, the
+distributed ones summed over the ranks; measured errors and times, bounds,
+one-call times; the dtype forms as variants with their launches on the
+convdiff-cb path);
 then the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -172,6 +184,38 @@ LEVEL_SYNCS = (("block", 1), ("cluster", 2), ("cluster", 4), ("cluster", 8), ("g
 # different orders (per-block partials, FMA contraction) over up to n terms.
 # A double-float pair carries ~2^-48; its sums are held to 2^-46.
 TOL_REL = {"float32": 1e-5, "float64": 1e-13, "df64": 2.0 ** -46}
+# A bf16 output is an fp32 sum rounded to bf16: the kernel's and the plain
+# version's sums may differ by TOL_REL["float32"] of their scale and then
+# round one bf16 ulp apart, which is at most 2^-7 of the value itself.
+BF16_ULP = 2.0 ** -7
+# the compressed-basis and bf16 path (convdiff-cb): the forms are those of
+# _build.SWEEP_FORMS, GRAM2_FORMS and AXPY_FORMS that the native paths do not
+# launch (cb_forms); their inputs are an Arnoldi step's, w = V^T c + e with
+# |e| CB_NOISE of |V^T c| elementwise (in rms), so that the projection is most
+# of w and a sweep that skips it fails
+CB_NOISE = 0.5
+# K7 under a bf16 w rounds w after every row; a rounding that flips one ulp
+# in one row carries to w', so w' is held to CB_MGS_FLIPS flips of the largest
+# value the element takes (one element in a million flipped once in a CPU
+# trial of fp64-ordered sums at these shapes)
+CB_MGS_FLIPS = 2
+# restart bounds at convdiff@1M, CGSR: the bf16 basis under mixed (the TPU
+# reference's 35/1050, results/round4/bench_cb.txt) and the fp32 basis under
+# baseline (the uncompressed 26/780, up to two restarts more)
+CB_RESTARTS = {"mixed-cb": (30, 40), "baseline-cb": (26, 28)}
+CB_CUT = 3             # restarts of the solves that only launch a form
+# a CB_CUT-restart solve's backward error ||b - Ax|| / (||b|| + ||A||_F ||x||)
+# is held within this factor of the full CGSR solve of its tier after as
+# many restarts (the history's per-cycle value)
+CB_CUT_FACTOR = 4.0
+# the bf16 inner tier at convdiff@1M: the restarts before it stalls and
+# escalates (28 on the H100), the best backward error its bf16 cycles
+# reach (2.6e-8 there; a bf16 loop floors near 1e-6) and at most the fp32
+# solve's 26 restarts after the escalation
+CB_BF16_STALL = (14, 56)
+CB_BF16_BEST = 1e-6
+CB_BF16_AFTER = 26
+CB_WALL_REPS = 3       # interleaved timed solves of mixed, mixed-cb, baseline, baseline-cb
 # the df64 path: the reference's CGSR df64 history at convdiff@1M
 # (results/round4/bench_df64.txt:7) and MGS (results/round5/bench_mgs_seq.txt)
 DF64_HISTORY = (26, 780)
@@ -300,7 +344,7 @@ class Records:
         bound_ms = max(bytes_ms, ops_ms, barrier_ms)
         bound_by = "bytes" if bound_ms == bytes_ms else "operations"
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        log(f"kernel {kname:<22} {dtype:<8} max_abs_err={err:.3e} (tol {bound:.3e}) "
+        log(f"kernel {kname:<22} {key or dtype:<8} max_abs_err={err:.3e} (tol {bound:.3e}) "
             f"{'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms ({gbs:.1f} GB/s, "
             f"{gbs / self.copy_gbs:.2f} of copy)  bound {bound_ms:.4f} ms [{bound_by}: bytes "
             f"{bytes_ms:.4f}, flops {ops_ms:.4f}, barriers {barrier_ms:.4f}]  "
@@ -631,18 +675,20 @@ def csr_residual(A_csr, x, b):
 
 
 def solve_timed(torch, label, mode, A_csr, A_dev, cfg, timed, M=None, history=False,
-                converges=True):
-    """One warm-up and `timed` timed solves of A x = b (x_true = rand_vect(n,
-    42)) on the staged operator; hold the last to a finite x of shape (n,)
-    and, if it `converges`, to convergence and a backward error <= 1e-8
-    recomputed here in fp64.  Returns (result, median wall)."""
+                converges=True, warm_up=True):
+    """One warm-up (unless not `warm_up`) and `timed` timed solves of A x = b
+    (x_true = rand_vect(n, 42)) on the staged operator; hold the last to a
+    finite x of shape (n,) and, if it `converges`, to convergence and a
+    backward error <= 1e-8 recomputed here in fp64.  Returns (result, with
+    that backward error as `backward_error`, median wall)."""
     from gmres_tpu_torch import rand_vect, solve
 
     n = A_csr.n_rows
     x_true = rand_vect(n, 42)
     b = -csr_residual(A_csr, x_true, np.zeros(n))
     b_dev = torch.tensor(b, device="cuda")
-    res = solve(A_dev, b_dev, cfg, M=M)  # warm-up
+    if warm_up:
+        solve(A_dev, b_dev, cfg, M=M)
     times = []
     for _ in range(timed):
         t0 = time.perf_counter()
@@ -653,6 +699,7 @@ def solve_timed(torch, label, mode, A_csr, A_dev, cfg, timed, M=None, history=Fa
     a_fro = float(np.linalg.norm(A_csr.vals.numpy()))
     backward = float(np.linalg.norm(csr_residual(A_csr, x, b))
                      / (np.linalg.norm(b) + a_fro * np.linalg.norm(x)))
+    res.backward_error = backward
     err = float(np.linalg.norm(x - x_true) / np.linalg.norm(x_true))
     wall = statistics.median(times)
     log(f"solve {label} {mode}: converged={res.converged} restarts={res.restarts} "
@@ -660,8 +707,9 @@ def solve_timed(torch, label, mode, A_csr, A_dev, cfg, timed, M=None, history=Fa
         f"walls={[round(t, 4) for t in times]} backward_err={backward:.3e} "
         f"rel_fwd_err={err:.3e}")
     if history:
-        log(f"  history {label} {mode} (relative residual per cycle): "
-            + ", ".join(f"{h['rel_initial']:.3e}" for h in res.history))
+        log(f"  history {label} {mode} (backward error per cycle): "
+            + ", ".join(f"{h['rel_initial']:.3e}" if "rel_initial" in h else "escalated:"
+                        for h in res.history))
     if converges:
         require(res.converged, f"{label} {mode} converged")
         require(backward <= 1e-8, f"{label} {mode} backward error {backward:.3e} <= 1e-8")
@@ -688,8 +736,9 @@ def solve_with_plain(torch, A_csr, A_dev, cfg, M, kernel):
 def config(mode, precond, orth="cgsr", **kw):
     from gmres_tpu_torch import GmresConfig, PrecisionSpec
 
+    kw.setdefault("max_restarts", MAX_RESTARTS)
     return GmresConfig(precision=PrecisionSpec.from_mode(mode), orth=orth, precond=precond,
-                       restart_length=RLEN, tol=TOL, max_restarts=MAX_RESTARTS, **kw)
+                       restart_length=RLEN, tol=TOL, **kw)
 
 
 def run_main_path(torch, label, A_csr, A_dev, expect):
@@ -784,6 +833,8 @@ def convdiff_path(torch, record, A):
 
 
 def mesh3d_path(torch, record):
+    """The unstructured path; returns its launch counts, and the matrix and
+    its staged SELL operator for the compressed-basis path."""
     from gmres_tpu_torch.io.synth import unstructured_mesh
     from gmres_tpu_torch.ops.sell import SELLMatrix
 
@@ -804,7 +855,7 @@ def mesh3d_path(torch, record):
             return f"history {restarts}/{iters}, the TPU reference's is {MESH_TPU_HISTORY}"
         return None
 
-    return run_main_path(torch, "mesh3d", A, A_dev, expect)[0]
+    return run_main_path(torch, "mesh3d", A, A_dev, expect)[0], A, A_dev
 
 
 def exact_ilu(A_csr, dt, n_seg=None):
@@ -1750,6 +1801,368 @@ def convdiff_dist_path(torch, record, A, x_single, walls_single):
     return {k: sum(rank["launches"][k] for rank in ranks) for k in ranks[0]["launches"]}
 
 
+def cb_config(mode, basis, **kw):
+    """config(mode, "identity", **kw) with the basis stored in `basis`."""
+    import dataclasses
+
+    cfg = config(mode, "identity", **kw)
+    return cfg.with_(precision=dataclasses.replace(cfg.precision, basis=basis))
+
+
+def bf16_config(outer="float64", precond="float32", **kw):
+    """The bf16 inner tier: bf16 inner loop, `precond` preconditioner dtype."""
+    from gmres_tpu_torch import PrecisionSpec
+
+    return config("mixed", "identity", **kw).with_(
+        precision=PrecisionSpec(outer, "bfloat16", precond))
+
+
+def cb_forms():
+    """The dtype forms that only the compressed-basis and bf16 tiers launch:
+    those of _build's tables less the native ones (a sweep over an f32 or
+    f64 basis with vectors of its dtype, K4 over an f32 or f64 basis with
+    coefficients of its dtype).  Returns the sweeps' forms, (suffix, basis
+    dtype, vector dtype), K4's, (suffix, basis, coefficients, iterate), and
+    {kernel: the forms it must launch on the path}."""
+    from gmres_tpu_torch.ops.cuda._build import AXPY_FORMS, GRAM2_FORMS, SWEEP_FORMS
+
+    def name(dt):
+        return str(dt).removeprefix("torch.")
+
+    def native(v, w):
+        return v == w and v.is_floating_point and v.itemsize >= 4
+
+    sweeps = [(sfx, name(v), name(w)) for (v, w), sfx in SWEEP_FORMS.items()
+              if not native(v, w)]
+    axpys = [(sfx, name(v), name(y), name(x)) for (v, y, x), sfx in AXPY_FORMS.items()
+             if not native(v, y)]
+    path = {k: {f[0] for f in sweeps} for k in ("basis_gram", "basis_update_gram",
+                                                "basis_update_sumsq", "basis_update",
+                                                "basis_mgs")}
+    path["basis_gram2"] = {sfx for (v, w), sfx in GRAM2_FORMS.items() if not native(v, w)}
+    path["basis_axpy"] = {f[0] for f in axpys}
+    return sweeps, axpys, path
+
+
+def form_bound(torch, acc_name, scale, of=None, ulps=1.0):
+    """The elementwise tolerance of a form's output against its plain
+    version: TOL_REL of the accumulation dtype times the largest magnitude of
+    `scale` (the two sum in another order) and, for an output rounded to
+    bf16, `ulps` bf16 ulps of `of` (the plain output, or a bound on every
+    value the element takes)."""
+    bound = TOL_REL[acc_name] * float(scale.double().abs().max())
+    if of is None:
+        return torch.full((), bound, dtype=torch.float64, device=scale.device)
+    return bound + ulps * BF16_ULP * of.double().abs()
+
+
+def check_cb_kernels(torch, n, record):
+    """The dtype forms of K2, K3 GRAM, K3 SUMSQ, K3 plain, K2x2 and K7 at
+    convdiff@1M's shapes (a 31-row basis of N(0, 1/n) entries, at rows 31
+    and 16, and an Arnoldi step's w = V^T c + e, u = c), and K4's forms (30
+    rows), against their plain versions, each output elementwise within
+    form_bound, with their bytes bound; no single PyTorch call takes a
+    narrower basis than its vectors, so none is timed."""
+    from gmres_tpu_torch.ops.cuda import mgs_kernel as mk
+    from gmres_tpu_torch.ops.cuda import orth_kernel as ok_
+    from gmres_tpu_torch.ops.cuda import outer_kernel as ou
+    from gmres_tpu_torch.ops.cuda._build import acc_dtype
+
+    sweeps, axpys, path = cb_forms()
+    timer = Timer(torch)
+    m1 = RLEN + 1
+    rng = np.random.default_rng(17)
+    V64 = rng.standard_normal((m1, n)) / np.sqrt(n)
+    c64 = rng.standard_normal(m1)
+    w64 = V64.T @ c64 + CB_NOISE * np.sqrt(m1 / n) * rng.standard_normal(n)
+    x64 = rng.standard_normal(n)
+
+    def rec(kname, key, acc_name, outs, cuda, plain, nbytes, flops, plain_reps=REPS):
+        """outs: (dtype name, bound) of each output, the bound elementwise
+        (form_bound); reports the largest error and the bound of the element
+        nearest its own."""
+        got, want = cuda(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        worst, ok = None, True
+        for g, w_, (dname, bound) in zip(got, want, outs):
+            require(g.dtype == w_.dtype == getattr(torch, dname),
+                    f"{kname} {key}: output dtype {g.dtype}, plain {w_.dtype}, want {dname}")
+            err = (g.double() - w_.double()).abs()
+            ratio = err / bound
+            i = int(ratio.argmax()) if ratio.dim() else 0
+            ok = ok and bool((err <= bound).all())
+            e_max, b_at = float(err.max()), float(bound.flatten()[i] if bound.dim() else bound)
+            if worst is None or float(ratio.max()) > worst[2]:
+                worst = (e_max, b_at, float(ratio.max()))
+        record(kname, acc_name, worst[0], worst[1], ok, timer(cuda),
+               timer(plain, plain_reps), nbytes, flops, key=key)
+
+    for form, vname, wname in sweeps:
+        vt, wt = getattr(torch, vname), getattr(torch, wname)
+        acc = acc_dtype(wt)
+        an = str(acc).removeprefix("torch.")
+        rounded = wt == torch.bfloat16
+        V = torch.tensor(V64, dtype=vt, device="cuda")
+        w = torch.tensor(w64, dtype=wt, device="cuda")
+        u = torch.tensor(c64, dtype=wt, device="cuda")
+        sV, sW, sA = V.element_size(), w.element_size(), acc.itemsize
+        Va, wa, ua = V.to(acc).abs(), w.to(acc).abs(), u.to(acc).abs()
+
+        def bnd(scale, plain_out, ulps=1.0):
+            return form_bound(torch, an, scale, plain_out if rounded else None, ulps)
+
+        for rows in (m1, MID_ROWS):
+            key = form if rows == m1 else f"{form} rows {rows}"
+            sw = wa + torch.mv(Va[:rows].t(), ua[:rows])
+            g_p = ok_.gram_plain(V, w, rows)
+            rec("basis_gram", key, an, [(wname, bnd(ok_.gram_plain(Va, wa, rows), g_p))],
+                lambda: ok_.gram_cuda(V, w, rows), lambda: ok_.gram_plain(V, w, rows),
+                rows * n * sV + n * sW, 2 * rows * n)
+            w1_p, u2_p = ok_.update_gram_plain(V, w, u, rows)
+            rec("basis_update_gram", key, an,
+                [(wname, bnd(sw, w1_p)), (wname, bnd(ok_.gram_plain(Va, sw, rows), u2_p))],
+                lambda: ok_.update_gram_cuda(V, w, u, rows),
+                lambda: ok_.update_gram_plain(V, w, u, rows), rows * n * sV + 2 * n * sW,
+                4 * rows * n)
+            rec("basis_update_sumsq", key, an,
+                [(wname, bnd(sw, w1_p)), (an, form_bound(torch, an, torch.dot(sw, sw)))],
+                lambda: ok_.update_sumsq_cuda(V, w, u, rows),
+                lambda: ok_.update_sumsq_plain(V, w, u, rows), rows * n * sV + 2 * n * sW,
+                (2 * rows + 2) * n)
+            rec("basis_update", key, an, [(wname, bnd(sw, ok_.update_plain(V, w, u, rows)))],
+                lambda: ok_.update_cuda(V, w, u, rows),
+                lambda: ok_.update_plain(V, w, u, rows), rows * n * sV + 2 * n * sW,
+                2 * rows * n)
+            if form in path["basis_gram2"]:
+                vk = V[rows - 1].to(acc)
+                sg = form_bound(torch, an, ok_.gram_plain(Va, wa + vk.abs(), rows))
+                rec("basis_gram2", key, an, [(an, sg), (an, sg)],
+                    lambda: ok_.gram2_cuda(V, w, vk, rows),
+                    lambda: ok_.gram2_plain(V, w, vk, rows), rows * n * sV + 2 * n * sA,
+                    4 * rows * n)
+            # a bf16 w' carries up to CB_MGS_FLIPS flips, each one ulp of a
+            # value the element took: at most |w| + sum |h_j| |v_j| (smw)
+            sh, smw, sn = mgs_scale(torch, V.to(acc), w.to(acc), rows)
+            h_p, wm_p, hn_p = mk.mgs_plain(V, w, rows)
+            rec("basis_mgs", key, an,
+                [(wname, bnd(sh, h_p)), (wname, bnd(smw, smw, CB_MGS_FLIPS)),
+                 (wname, bnd(sn, hn_p))],
+                lambda: mk.mgs_cuda(V, w, rows), lambda: mk.mgs_plain(V, w, rows),
+                rows * n * sV + 2 * n * sW, (4 * rows + 2) * n, plain_reps=5)
+            log(f"  basis_mgs {key}: {mk.mgs_cuda.grid[0]} blocks x {mk.mgs_cuda.grid[1]} "
+                "register tiles")
+        torch.cuda.synchronize()
+        del V, w, u, Va, wa, ua
+    for form, vname, yname, xname in axpys:
+        V = torch.tensor(V64, dtype=getattr(torch, vname), device="cuda")
+        y = torch.tensor(c64[:RLEN], dtype=getattr(torch, yname), device="cuda")
+        x = torch.tensor(x64, dtype=getattr(torch, xname), device="cuda")
+        # the increment is summed in the accumulation dtype of jnp's
+        # promotion of (y, V); a bf16 one is rounded before the add
+        inc = torch.promote_types(y.dtype, V.dtype)
+        acc = acc_dtype(inc)
+        an = str(acc).removeprefix("torch.")
+        scale = x.abs().to(acc) + torch.mv(V[:RLEN].to(acc).abs().t(), y.to(acc).abs())
+        inc_p = ou.basis_axpy_plain(torch.zeros_like(x), V, y)
+        rec("basis_axpy", form, an,
+            [(xname, form_bound(torch, an, scale, inc_p if inc == torch.bfloat16 else None))],
+            lambda: ou.basis_axpy_cuda(x.clone(), V, y),
+            lambda: ou.basis_axpy_plain(x.clone(), V, y),
+            RLEN * n * V.element_size() + 2 * n * x.element_size(), 2 * RLEN * n + n)
+        del V, y, x
+    torch.cuda.synchronize()
+    record.require_ok()
+
+
+def form_device_kernels():
+    """For a fresh process (late in a long one the profiler records no
+    device kernel): the device kernels one call of K2 and of K3 GRAM takes
+    in each form at convdiff@1M (31 rows), printed as one JSON line."""
+    import torch
+
+    from gmres_tpu_torch.ops.cuda import orth_kernel as ok_
+
+    n, m1 = NX * NX, RLEN + 1
+    out = {}
+    for form, vname, wname in cb_forms()[0]:
+        vt, wt = getattr(torch, vname), getattr(torch, wname)
+        V = torch.randn((m1, n), device="cuda").to(vt)
+        w, u = torch.randn(n, device="cuda").to(wt), torch.randn(m1, device="cuda").to(wt)
+        out[f"basis_gram {form}"] = device_kernels(torch, lambda: ok_.gram_cuda(V, w, m1))
+        out[f"basis_update_gram {form}"] = device_kernels(
+            torch, lambda: ok_.update_gram_cuda(V, w, u, m1))
+    print(json.dumps(out), flush=True)
+
+
+def cb_one_kernel_checks():
+    """K2's and K3 GRAM's forms are one device kernel a call (counted in a
+    fresh process)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; chip_smoke.form_device_kernels()"
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600, cwd=here)
+    require(proc.returncode == 0, f"form device kernel counts: {proc.stderr[-3000:]}")
+    for name, kernels in json.loads(proc.stdout.strip().splitlines()[-1]).items():
+        log(f"  {name} device kernels a call (fresh process): {len(kernels)} {kernels}")
+        require(len(kernels) == 1, f"{name}: one device kernel a call ({kernels})")
+
+
+def cb_solve_walls(torch, A, A_dev):
+    """Walls of whole solves at convdiff@1M, CGSR: mixed, mixed with a bf16
+    basis, baseline and baseline with an fp32 basis, CB_WALL_REPS each after
+    a warm-up, interleaved (the order reversed every other round)."""
+    from gmres_tpu_torch import rand_vect, solve
+
+    n = A.n_rows
+    b = torch.tensor(-csr_residual(A, rand_vect(n, 42), np.zeros(n)), device="cuda")
+    cfgs = {"mixed": config("mixed", "identity"), "mixed-cb": cb_config("mixed", "bfloat16"),
+            "baseline": config("baseline", "identity"),
+            "baseline-cb": cb_config("baseline", "float32")}
+    walls = {k: [] for k in cfgs}
+    for cfg in cfgs.values():
+        solve(A_dev, b, cfg)  # warm-up
+    for rep in range(CB_WALL_REPS):
+        for k in (list(cfgs) if rep % 2 == 0 else list(cfgs)[::-1]):
+            t0 = time.perf_counter()
+            solve(A_dev, b, cfgs[k])
+            torch.cuda.synchronize()
+            walls[k].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"solve walls convdiff-cb (s, {CB_WALL_REPS} interleaved each): "
+        + "; ".join(f"{k} median {med[k]:.4f} walls {[round(t, 4) for t in v]}"
+                    for k, v in walls.items())
+        + f"; mixed-cb/mixed {med['mixed-cb'] / med['mixed']:.4f}, "
+        f"baseline-cb/baseline {med['baseline-cb'] / med['baseline']:.4f}")
+
+
+def bf16_spmv_beside_k1(torch, A_dev, copy_gbs):
+    """The bf16 DIA SpMV (plain torch ops, the JAX package's XLA formula)
+    beside K1 in fp32 on the same operator: whether a bf16 form of K1 would
+    pay (the bytes bound of each alongside)."""
+    from gmres_tpu_torch.ops.dia import dia_spmv
+
+    timer = Timer(torch)
+    x = torch.rand(A_dev.n_rows, device="cuda", dtype=torch.float64)
+    n, D = A_dev.n_rows, len(A_dev.offsets)
+    for dt in (torch.float32, torch.bfloat16):
+        A = A_dev.astype(dt)
+        xd = x.to(dt)
+        ms = timer(lambda: dia_spmv(A, xd))
+        log(f"  DIA SpMV {str(dt)[6:]} ({'K1' if dt == torch.float32 else 'plain torch'}): "
+            f"{ms:.4f} ms; bytes bound "
+            f"{(D + 2) * n * A.data.element_size() / (copy_gbs * 1e9) * 1e3:.4f} ms")
+
+
+def convdiff_cb_path(torch, record, A, A_dev, mesh, mesh_dev):
+    """The compressed-basis and bf16 path: the forms' kernel checks and
+    device kernel counts, then at convdiff@1M (CGSR unless said) mixed with a
+    bf16 basis (CB_RESTARTS), baseline with an fp32 basis (CB_RESTARTS),
+    mixed-cb sequential MGS and ICWY, baseline-cb sequential MGS and ICWY,
+    CB_CUT-restart solves that launch the remaining forms (orth_steps=3 in
+    mixed-cb, baseline-cb and bf16; single with a bf16 basis; bf16 sequential
+    MGS; bf16 with an fp32 outer loop), each within CB_CUT_FACTOR of its
+    tier's full solve, mesh3d@1M mixed-cb, and the bf16 inner tier with its
+    escalation, once (CB_BF16_STALL, CB_BF16_BEST, CB_BF16_AFTER); each
+    converged solve at a backward error <= 1e-8.  Then the walls and the bf16 DIA SpMV beside K1.  Returns
+    the path's launch counts."""
+    from gmres_tpu_torch.ops.cuda import form_launch_counts, launch_counts, reset_launch_counts
+
+    check_cb_kernels(torch, A.n_rows, record)
+    cb_one_kernel_checks()
+    reset_launch_counts()
+    counts_by_solve = {}
+
+    def run(label, mode, cfg, A_csr=A, A_op=A_dev, converges=True, history=False):
+        before = launch_counts()
+        res, _ = solve_timed(torch, f"convdiff-cb {label}", mode, A_csr, A_op, cfg, 1,
+                             history=history, converges=converges, warm_up=False)
+        after = launch_counts()
+        c = {k: after[k] - before[k] for k in after}
+        counts_by_solve[label] = c
+        log(f"  launches {label}: {c}")
+        require(all(c[k] == 0 for k in ILU_KERNELS + DF64_KERNELS + DIST_KERNELS),
+                f"{label}: no K6, K8-K11 nor K12 ({c})")
+        return res
+
+    full = {}  # tier -> the backward error per cycle of its full CGSR solve
+
+    def cut(label, tier, cfg, **kw):
+        """A CB_CUT-restart solve, held within CB_CUT_FACTOR of its tier's
+        full CGSR solve after as many restarts."""
+        res = run(label, tier, cfg, converges=False, **kw)
+        ref = full[tier][CB_CUT]
+        ratio = res.backward_error / ref
+        log(f"  {label}: backward error {res.backward_error:.3e} after {res.restarts} "
+            f"restarts, {ratio:.3f} of {tier} CGSR's {ref:.3e}")
+        require(res.restarts == CB_CUT and 1 / CB_CUT_FACTOR <= ratio <= CB_CUT_FACTOR,
+                f"{label}: backward error {res.backward_error:.3e} after {res.restarts} "
+                f"restarts not within {CB_CUT_FACTOR}x of {tier} CGSR's {ref:.3e}")
+
+    for label, mode, basis in (("mixed-cb", "mixed", "bfloat16"),
+                               ("baseline-cb", "baseline", "float32")):
+        res = run(f"{label} cgsr", label, cb_config(mode, basis), history=True)
+        full[label] = [h["rel_initial"] for h in res.history]
+        lo, hi = CB_RESTARTS[label]
+        log(f"  {label}: {res.restarts}/{res.total_iters} (held to {lo}..{hi} restarts)")
+        require(lo <= res.restarts <= hi,
+                f"{label}: {res.restarts}/{res.total_iters} not within {lo}..{hi} restarts")
+        for form, low in (("sequential", False), ("icwy", True)):
+            res = run(f"{label} mgs {form}", label, cb_config(mode, basis, orth="mgs",
+                                                              low_sync_mgs=low))
+            log(f"  {label} mgs {form}: {res.restarts}/{res.total_iters}")
+        cut(f"{label} orth_steps=3", label,
+            cb_config(mode, basis, orth_steps=3, max_restarts=CB_CUT))
+    # single with a bf16 basis: the mixed-cb tier's iteration in an fp32 outer loop
+    cut("single-cb", "mixed-cb", cb_config("single", "bfloat16", max_restarts=CB_CUT))
+    res = run("mesh3d mixed-cb", "mixed-cb", cb_config("mixed", "bfloat16"), A_csr=mesh,
+              A_op=mesh_dev)
+    log(f"  mesh3d mixed-cb: {res.restarts}/{res.total_iters}")
+
+    # the bf16 inner tier, once, with its stall escalation: the bf16 cycles
+    # reach CB_BF16_BEST, stall within CB_BF16_STALL restarts and the fp32
+    # continuation converges within CB_BF16_AFTER
+    res = run("bf16 cgsr", "bf16", bf16_config(), history=True)
+    marks = [i for i, h in enumerate(res.history) if h.get("escalated")]
+    before = marks[0] if marks else res.restarts
+    bf16_rels = [h["rel_initial"] for h in res.history[:before]]
+    full["bf16"] = bf16_rels
+    best = min(bf16_rels)
+    log(f"  bf16 inner, escalation on: converged={res.converged} escalated={res.escalated} "
+        f"restarts {before} in bf16 (best backward error {best:.3e}), "
+        f"{res.restarts - before} after")
+    require(res.converged and (res.escalated or not marks),
+            f"bf16: escalated and converged, or converged without a stall "
+            f"(escalated={res.escalated})")
+    require(best <= CB_BF16_BEST, f"bf16: best backward error of the bf16 cycles "
+            f"{best:.3e} <= {CB_BF16_BEST:.0e}")
+    if res.escalated:
+        lo, hi = CB_BF16_STALL
+        require(lo <= before <= hi and res.restarts - before <= CB_BF16_AFTER,
+                f"bf16: stalled after {before} restarts (held to {lo}..{hi}) and converged "
+                f"{res.restarts - before} after (held to <= {CB_BF16_AFTER})")
+    for label, cfg in (("bf16 mgs sequential", bf16_config(orth="mgs", low_sync_mgs=False,
+                                                           max_restarts=CB_CUT)),
+                       ("bf16 orth_steps=3", bf16_config(orth_steps=3, max_restarts=CB_CUT)),
+                       ("bf16 fp32 outer", bf16_config(outer="float32",
+                                                       max_restarts=CB_CUT))):
+        cut(label, "bf16", cfg)
+    counts = launch_counts()
+    forms = form_launch_counts()
+    log(f"  launches convdiff-cb: {counts}")
+    log(f"  form launches convdiff-cb: {forms}")
+    for name, want in cb_forms()[2].items():
+        require(all(forms[name].get(f, 0) > 0 for f in want),
+                f"convdiff-cb: {name} launched in every form {sorted(want)} ({forms[name]})")
+    require(counts["dia_spmv"] > 0 and counts["dia_residual"] > 0 and counts["sell_spmv"] > 0
+            and counts["sell_residual"] > 0, f"convdiff-cb: K1 and K5 launched ({counts})")
+    require(all(counts[k] == 0 for k in ILU_KERNELS + DF64_KERNELS + DIST_KERNELS),
+            f"convdiff-cb: no K6, K8-K11 nor K12 ({counts})")
+    cb_solve_walls(torch, A, A_dev)
+    bf16_spmv_beside_k1(torch, A_dev, record.copy_gbs)
+    return counts, forms
+
+
 def main() -> int:
     import torch
 
@@ -1788,7 +2201,7 @@ def main() -> int:
     t0 = time.perf_counter()
     convdiff_counts, x_single, walls_single, A_dev = convdiff_path(torch, record, A)
     t1 = time.perf_counter()
-    mesh3d_counts = mesh3d_path(torch, record)
+    mesh3d_counts, mesh, mesh_dev = mesh3d_path(torch, record)
     t2 = time.perf_counter()
     ilu_counts = convdiff_ilu_path(torch, record, A, A_dev)
     t3 = time.perf_counter()
@@ -1797,10 +2210,14 @@ def main() -> int:
     df64_counts = convdiff_df64_path(torch, record, A, A_dev)
     t5 = time.perf_counter()
     dist_counts = convdiff_dist_path(torch, record, A, x_single, walls_single)
+    t6 = time.perf_counter()
+    cb_counts, form_counts = convdiff_cb_path(torch, record, A, A_dev, mesh, mesh_dev)
+    del mesh, mesh_dev
     log(f"path seconds: convdiff {t1 - t0:.1f}, mesh3d {t2 - t1:.1f}, "
         f"convdiff-ilu {t3 - t2:.1f}, convdiff-mgs {t4 - t3:.1f}, "
-        f"convdiff-df64 {t5 - t4:.1f}, convdiff-dist {time.perf_counter() - t5:.1f}")
-    path_counts = (convdiff_counts, mesh3d_counts, ilu_counts, mgs_counts)
+        f"convdiff-df64 {t5 - t4:.1f}, convdiff-dist {t6 - t5:.1f}, "
+        f"convdiff-cb {time.perf_counter() - t6:.1f}")
+    path_counts = (convdiff_counts, mesh3d_counts, ilu_counts, mgs_counts, cb_counts)
     require(all(c[k] == 0 for c in path_counts for k in DF64_KERNELS),
             f"K8-K11 launched on the df64 path only ({path_counts})")
     path_counts += (df64_counts,)
@@ -1810,14 +2227,16 @@ def main() -> int:
     counts = {k: sum(c[k] for c in path_counts) for k in kernel_wrappers()}
     require(all(v > 0 for v in counts.values()), f"every kernel launched on some path ({counts})")
     records = record.records
+    path_forms = cb_forms()[2]
 
     # kernel -> (source, the TPU kernels' pallas_calls it replaces); the
     # JSON numbers are the fp32 variant (the mixed inner loop; for the
     # residual modes the fp64 residual with its fp32-demoted norm; for K7,
     # K2x2 and K3 plain the 31-row basis) and for K8-K11 the df64 variant
     # (31 rows), for K12 the interior block, the other variants alongside;
-    # launches are summed over the six paths' solves (the distributed one's
-    # over its ranks)
+    # launches are summed over the seven paths' solves (the distributed one's
+    # over its ranks); a dtype form's variant (bf16_f32, f32_f64, bf16_bf16
+    # and K4's) carries its launches on the convdiff-cb path
     sources = {
         "dia_spmv": ("gmres_tpu_torch/csrc/dia_spmv.cu",
                      "gmres_tpu/ops/pallas/spmv_kernel.py:88"),
@@ -1871,7 +2290,9 @@ def main() -> int:
             "plain_ms": main_rec["plain_ms"], "bound_ms": main_rec["bound_ms"],
             "bound_by": main_rec["bound_by"], "library_ms": main_rec["library_ms"],
             "gb_per_s": main_rec["gb_per_s"], "copy_gb_per_s": copy_gbs,
-            "variants": {k: v for k, v in rec.items() if k != main},
+            "variants": {k: (dict(v, launches=form_counts[name].get(k, 0))
+                             if k in path_forms.get(name, ()) else v)
+                         for k, v in rec.items() if k != main},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

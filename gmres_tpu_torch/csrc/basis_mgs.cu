@@ -7,8 +7,16 @@
 // gmres_tpu/ops/pallas/orth_kernel.py:_mgs (the pallas_call at :381, kernel
 // _mgs_kernel :290-365).  The operation order is the reference's
 // (Orthogonalization.hpp:91-107): h_j from the already updated w, then
-// w - h_j v_j.  Sums are taken in the basis dtype: fp32 for the mixed inner
-// loop, fp64 for the baseline (the TPU kernel was fp32-only).
+// w - h_j v_j.  Sums are taken in acc_t<TW> (common.cuh): fp32 for the mixed
+// inner loop, fp64 for the baseline (the TPU kernel was fp32-only).
+//
+// Dtype forms (TV the basis, TW w and the outputs): (f32, f32), (f64, f64),
+// and for the compressed basis and the bf16 inner tier (bf16, f32), (f32,
+// f64) and (bf16, bf16).  As in the TPU kernel, h_j and w's update run in
+// the accumulation dtype; under a bf16 w, w is rounded to bf16 after every
+// row (its VMEM copy is stored in w's dtype, orth_kernel.py:353), so the
+// next h_j and ||w'||^2 read the rounded w; h and ||w'|| are rounded to TW
+// when written.
 //
 // What bounds it: each h_j is a reduction over all n columns, and the next
 // row's update needs it, so a step is `rows` dependent grid-wide exchanges;
@@ -150,24 +158,43 @@ __device__ __forceinline__ void exchange_barrier(int exchange) {
   if (exchange == kSync) cg::this_grid().sync();
 }
 
-template <typename T>
-__device__ __forceinline__ void store_tile(T* dst, size_t col0, int n, const T (&v)[kItems]) {
+template <typename T, typename TA>
+__device__ __forceinline__ void store_tile(T* dst, size_t col0, int n, const TA (&v)[kItems]) {
 #pragma unroll
   for (int it = 0; it < kItems; ++it) {
     const size_t c = col0 + (size_t)it * kThreads;
-    if (c < (size_t)n) dst[c] = v[it];
+    if (c < (size_t)n) dst[c] = down<T>(v[it]);
+  }
+}
+
+// load_tile of stored values, not widened (a bf16 zero past n)
+template <typename T>
+__device__ __forceinline__ void load_tile_raw(const T* __restrict__ src, size_t col0, int n,
+                                              T (&v)[kItems]) {
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const size_t c = col0 + (size_t)it * kThreads;
+    if constexpr (std::is_same_v<T, bf16>)
+      v[it] = c < (size_t)n ? src[c] : __ushort_as_bfloat16(0);
+    else
+      v[it] = c < (size_t)n ? src[c] : T(0);
   }
 }
 
 // a tile of w_out that this thread wrote earlier in the launch, read
-// through L2
-template <typename T>
+// through L2 (a bf16 tile through the same path, two bytes at a time)
+template <typename T, typename TA>
 __device__ __forceinline__ void load_tile_l2(const T* src, size_t col0, int n,
-                                             T (&v)[kItems]) {
+                                             TA (&v)[kItems]) {
 #pragma unroll
   for (int it = 0; it < kItems; ++it) {
     const size_t c = col0 + (size_t)it * kThreads;
-    v[it] = c < (size_t)n ? __ldcg(src + c) : T(0);
+    if constexpr (std::is_same_v<T, bf16>)
+      v[it] = c < (size_t)n ? up<TA>(__ushort_as_bfloat16(
+                                  __ldcg(reinterpret_cast<const unsigned short*>(src) + c)))
+                            : TA(0);
+    else
+      v[it] = c < (size_t)n ? (TA)__ldcg(src + c) : TA(0);
   }
 }
 
@@ -184,16 +211,17 @@ __device__ __forceinline__ T finish_group(const T* red) {
 template <typename T>
 __device__ __forceinline__ void write_h_tail(T* h, int rows, int m1) {
   if (blockIdx.x != 0) return;
-  for (int i = rows + threadIdx.x; i < m1; i += kThreads) h[i] = T(0);
+  for (int i = rows + threadIdx.x; i < m1; i += kThreads) h[i] = down<T>(0.0f);
 }
 
-// w and the current basis row in registers: TILES tiles (TILES / group
-// whole groups) per block
-template <typename T, int TILES>
+// w and the current basis row in registers (in the accumulation dtype):
+// TILES tiles (TILES / group whole groups) per block
+template <typename TV, typename TW, int TILES>
 __global__ void __launch_bounds__(kThreads)
-basis_mgs_kernel(const T* __restrict__ V, const T* __restrict__ w, T* __restrict__ w_out,
-                 T* __restrict__ h, unsigned long long* slots, int n, int rows, int m1,
+basis_mgs_kernel(const TV* __restrict__ V, const TW* __restrict__ w, TW* __restrict__ w_out,
+                 TW* __restrict__ h, unsigned long long* slots, int n, int rows, int m1,
                  int group, int n_groups, unsigned tag0, int exchange) {
+  using T = acc_t<TW>;
   constexpr int W = slot_words<T>();
   __shared__ T red[TILES * kWarps];
   __shared__ T scratch[kWarps];
@@ -205,8 +233,8 @@ basis_mgs_kernel(const T* __restrict__ V, const T* __restrict__ w, T* __restrict
 #pragma unroll
   for (int t = 0; t < TILES; ++t) {
     const size_t col0 = (size_t)(tile0 + t) * kTile + threadIdx.x;
-    load_tile(w, col0, n, wv[t]);
-    load_tile(V, col0, n, vc[t]);
+    load_tile_as(w, col0, n, wv[t]);
+    load_tile_as(V, col0, n, vc[t]);
   }
   for (int j = 0; j < rows; ++j) {
     T acc = T(0);
@@ -220,13 +248,16 @@ basis_mgs_kernel(const T* __restrict__ V, const T* __restrict__ w, T* __restrict
         acc = T(0);
       }
     }
-    T vn[TILES][kItems];
+    // the next row stays in the basis dtype until it is used: widened at
+    // its load, a bf16 or fp32 row would stall the thread on the load
+    // before the row's exchange instead of during it
+    TV vn[TILES][kItems];
     const bool more = j + 1 < rows;
     if (more) {
-      const T* next = V + (size_t)(j + 1) * n;
+      const TV* next = V + (size_t)(j + 1) * n;
 #pragma unroll
       for (int t = 0; t < TILES; ++t)
-        load_tile(next, (size_t)(tile0 + t) * kTile + threadIdx.x, n, vn[t]);
+        load_tile_raw(next, (size_t)(tile0 + t) * kTile + threadIdx.x, n, vn[t]);
     }
     __syncthreads();
     unsigned long long* row = slots + (size_t)j * n_groups * W;
@@ -234,18 +265,19 @@ basis_mgs_kernel(const T* __restrict__ V, const T* __restrict__ w, T* __restrict
       publish(row + (size_t)(group0 + threadIdx.x) * W, finish_group(red), tag0 + j);
     exchange_barrier(exchange);
     const T hj = sum_row<T>(row, n_groups, tag0 + j, scratch);
-    if (blockIdx.x == 0 && threadIdx.x == 0) h[j] = hj;
+    if (blockIdx.x == 0 && threadIdx.x == 0) h[j] = down<TW>(hj);
     const T nh = -hj;
 #pragma unroll
     for (int t = 0; t < TILES; ++t) {
 #pragma unroll
-      for (int it = 0; it < kItems; ++it) wv[t][it] = fmadd(nh, vc[t][it], wv[t][it]);
+      for (int it = 0; it < kItems; ++it)
+        wv[t][it] = rounded<TW>(fmadd(nh, vc[t][it], wv[t][it]));
     }
     if (more) {
 #pragma unroll
       for (int t = 0; t < TILES; ++t) {
 #pragma unroll
-        for (int it = 0; it < kItems; ++it) vc[t][it] = vn[t][it];
+        for (int it = 0; it < kItems; ++it) vc[t][it] = up<T>(vn[t][it]);
       }
     }
   }
@@ -271,17 +303,19 @@ basis_mgs_kernel(const T* __restrict__ V, const T* __restrict__ w, T* __restrict
   exchange_barrier(exchange);
   if (blockIdx.x != 0) return;
   const T ss = sum_row<T>(row, n_groups, tag0 + rows, scratch);
-  if (threadIdx.x == 0) h[m1] = sqrt(ss);
+  if (threadIdx.x == 0) h[m1] = down<TW>(sqrt(ss));
   write_h_tail(h, rows, m1);
 }
 
-// w in w_out: groups grid-stride, pass j applies h_{j-1} v_{j-1} and takes
-// the partials of <w, v_j> (pass `rows`: of ||w||^2)
-template <typename T>
+// w in w_out (in TW, so a bf16 w is rounded at every store, as the
+// registers form rounds it): groups grid-stride, pass j applies h_{j-1}
+// v_{j-1} and takes the partials of <w, v_j> (pass `rows`: of ||w||^2)
+template <typename TV, typename TW>
 __global__ void __launch_bounds__(kThreads)
-basis_mgs_global_kernel(const T* __restrict__ V, const T* __restrict__ w, T* w_out,
-                        T* __restrict__ h, unsigned long long* slots, int n, int rows, int m1,
+basis_mgs_global_kernel(const TV* __restrict__ V, const TW* __restrict__ w, TW* w_out,
+                        TW* __restrict__ h, unsigned long long* slots, int n, int rows, int m1,
                         int group, int n_groups, unsigned tag0, int exchange) {
+  using T = acc_t<TW>;
   constexpr int W = slot_words<T>();
   __shared__ T red[kWarps];
   __shared__ T scratch[kWarps];
@@ -294,18 +328,18 @@ basis_mgs_global_kernel(const T* __restrict__ V, const T* __restrict__ w, T* w_o
         const size_t col0 = (size_t)tile * kTile + threadIdx.x;
         T wv[kItems];
         if (j == 0) {
-          load_tile(w, col0, n, wv);
+          load_tile_as(w, col0, n, wv);
         } else {
           T vp[kItems];
           load_tile_l2(w_out, col0, n, wv);
-          load_tile(V + (size_t)(j - 1) * n, col0, n, vp);
+          load_tile_as(V + (size_t)(j - 1) * n, col0, n, vp);
           const T nh = -hp;
 #pragma unroll
-          for (int it = 0; it < kItems; ++it) wv[it] = fmadd(nh, vp[it], wv[it]);
+          for (int it = 0; it < kItems; ++it) wv[it] = rounded<TW>(fmadd(nh, vp[it], wv[it]));
         }
         store_tile(w_out, col0, n, wv);
         T vj[kItems];
-        if (j < rows) load_tile(V + (size_t)j * n, col0, n, vj);
+        if (j < rows) load_tile_as(V + (size_t)j * n, col0, n, vj);
 #pragma unroll
         for (int it = 0; it < kItems; ++it) acc = fmadd(wv[it], j < rows ? vj[it] : wv[it], acc);
       }
@@ -319,17 +353,17 @@ basis_mgs_global_kernel(const T* __restrict__ V, const T* __restrict__ w, T* w_o
     exchange_barrier(exchange);
     if (j < rows || blockIdx.x == 0)
       hp = sum_row<T>(slots + (size_t)j * n_groups * W, n_groups, tag0 + j, scratch);
-    if (blockIdx.x == 0 && threadIdx.x == 0) h[j < rows ? j : m1] = j < rows ? hp : sqrt(hp);
+    if (blockIdx.x == 0 && threadIdx.x == 0) h[j < rows ? j : m1] = down<TW>(j < rows ? hp : sqrt(hp));
   }
   write_h_tail(h, rows, m1);
 }
 
-template <typename T, int TILES>
+template <typename TV, typename TW, int TILES>
 const void* mgs_kernel() {
   if constexpr (TILES == 0)
-    return (const void*)basis_mgs_global_kernel<T>;
+    return (const void*)basis_mgs_global_kernel<TV, TW>;
   else
-    return (const void*)basis_mgs_kernel<T, TILES>;
+    return (const void*)basis_mgs_kernel<TV, TW, TILES>;
 }
 
 // blocks resident on the device for `fn`, per_sm > 0 capping the per-SM count
@@ -355,10 +389,10 @@ static int mgs_group(int n_tiles) {
 
 // Plan (the smallest register tiling of whole groups whose grid is resident
 // under the per-SM cap, else without it, else the L2 form) and launch.
-// slots: (rows, n_groups) slots of slot_words<T>() 64-bit words, whose tags
-// never equal this launch's (tag0 + j, j < rows)
-template <typename T>
-int launch_mgs(const T* V, const T* w, T* w_out, T* h, unsigned long long* slots, int n,
+// slots: (rows + 1, n_groups) slots of slot_words<acc_t<TW>>() 64-bit
+// words, whose tags never equal this launch's (tag0 + j, j <= rows)
+template <typename TV, typename TW>
+int launch_mgs(const TV* V, const TW* w, TW* w_out, TW* h, unsigned long long* slots, int n,
                int rows, int m1, int group, int n_groups, unsigned tag0, int per_sm,
                int max_tiles, int exchange, int* blocks_out, int* tiles_out, void* stream) {
   if (n <= 0 || rows <= 0 || rows > m1 || m1 > kMaxRows || per_sm < 0 || max_tiles < 0 ||
@@ -367,8 +401,8 @@ int launch_mgs(const T* V, const T* w, T* w_out, T* h, unsigned long long* slots
   const int n_tiles = blocks_for(n, kTile);
   if (group != mgs_group(n_tiles) || n_groups != blocks_for(n_tiles, group))
     return (int)cudaErrorInvalidValue;
-  const void* fns[] = {mgs_kernel<T, 1>(), mgs_kernel<T, 2>(), mgs_kernel<T, 4>(),
-                       mgs_kernel<T, kMaxTiles>()};
+  const void* fns[] = {mgs_kernel<TV, TW, 1>(), mgs_kernel<TV, TW, 2>(),
+                       mgs_kernel<TV, TW, 4>(), mgs_kernel<TV, TW, kMaxTiles>()};
   const int tiling[] = {1, 2, 4, kMaxTiles};
   const void* fn = nullptr;
   int tiles = 0, blocks = 0, cap = 0;
@@ -390,7 +424,7 @@ int launch_mgs(const T* V, const T* w, T* w_out, T* h, unsigned long long* slots
     }
   }
   if (fn == nullptr) {
-    fn = mgs_kernel<T, 0>();
+    fn = mgs_kernel<TV, TW, 0>();
     if ((err = resident_blocks(fn, per_sm, &cap)) != cudaSuccess) return (int)err;
     blocks = cap < n_groups ? cap : n_groups;
   }
@@ -416,26 +450,26 @@ __global__ void __launch_bounds__(kThreads) grid_sync_probe_kernel(int syncs) {
 
 }  // namespace
 
+// K7: h (m1,), then ||w'|| at h[m1], and w_out in one launch; slots the
+// (rows + 1, n_groups) tagged slots (mgs_kernel.py keeps them a card),
+// group/n_groups from mgs_groups (checked here), tag0 the launch's tag.
+// Suffixed by the basis dtype and w's (one name where both are the same).
+#define GMRES_MGS_FORM(SFX, TV, TW)                                                             \
+  int gmres_basis_mgs_##SFX(const TV* V, const TW* w, TW* w_out, TW* h,                        \
+                            unsigned long long* slots, int n, int rows, int m1, int group,     \
+                            int n_groups, unsigned tag0, int per_sm, int max_tiles,            \
+                            int exchange, int* blocks, int* tiles, void* stream) {             \
+    return launch_mgs<TV, TW>(V, w, w_out, h, slots, n, rows, m1, group, n_groups, tag0,       \
+                              per_sm, max_tiles, exchange, blocks, tiles, stream);             \
+  }
+
 extern "C" {
 
-// K7: h (m1,), w_out and the (n_groups,) ss partials in one launch; slots
-// the (rows, n_groups) tagged slots (mgs_kernel.py keeps them a card),
-// group/n_groups from mgs_groups (checked here), tag0 the launch's tag
-int gmres_basis_mgs_f32(const float* V, const float* w, float* w_out, float* h,
-                        unsigned long long* slots, int n, int rows, int m1,
-                        int group, int n_groups, unsigned tag0, int per_sm, int max_tiles,
-                        int exchange, int* blocks, int* tiles, void* stream) {
-  return launch_mgs<float>(V, w, w_out, h, slots, n, rows, m1, group, n_groups, tag0,
-                           per_sm, max_tiles, exchange, blocks, tiles, stream);
-}
-
-int gmres_basis_mgs_f64(const double* V, const double* w, double* w_out, double* h,
-                        unsigned long long* slots, int n, int rows, int m1,
-                        int group, int n_groups, unsigned tag0, int per_sm, int max_tiles,
-                        int exchange, int* blocks, int* tiles, void* stream) {
-  return launch_mgs<double>(V, w, w_out, h, slots, n, rows, m1, group, n_groups, tag0,
-                            per_sm, max_tiles, exchange, blocks, tiles, stream);
-}
+GMRES_MGS_FORM(f32, float, float)
+GMRES_MGS_FORM(f64, double, double)
+GMRES_MGS_FORM(bf16_f32, bf16, float)
+GMRES_MGS_FORM(f32_f64, float, double)
+GMRES_MGS_FORM(bf16_bf16, bf16, bf16)
 
 int gmres_grid_sync_probe(int blocks, int syncs, void* stream) {
   if (blocks <= 0 || syncs < 0) return (int)cudaErrorInvalidValue;

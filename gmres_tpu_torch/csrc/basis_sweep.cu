@@ -1,36 +1,49 @@
 // K2-K4 and K2x2: sweeps over the row-stored Krylov basis V (m+1, n).
 //
-// K2 basis_gram<TV>            u[j] = sum_i V[j,i] w[i]            for j < rows
+// K2 basis_gram<TV,TW>           u[j] = sum_i V[j,i] w[i]            for j < rows
 //   replaces gmres_tpu/ops/pallas/orth_kernel.py:_gram (pallas_call at :59).
-// K3 basis_update<TV,SUMSQ>    w' = w - sum_j u[j] V[j,:], fused with
+// K3 basis_update<TV,TW,SUMSQ>   w' = w - sum_j u[j] V[j,:], fused with
 //   ||w'||^2 (SUMSQ) over the same tile
 //   replaces orth_kernel.py:_update_sumsq (:216); with the flag off it is
 //   _update (:129), exported as basis_update (CGS passes of CGSR with
 //   orth_steps != 2).
-// K3 GRAM basis_update_gram<TV>  w' = w - sum_j u[j] V[j,:] and u2 = V w'
+// K3 GRAM basis_update_gram<TV,TW>  w' = w - sum_j u[j] V[j,:] and u2 = V w'
 //   replaces orth_kernel.py:_update_gram (:171, kernel body :144-163).  In
-//   fp32 each tile of the basis is staged in shared memory once and both
-//   passes read it there, in one launch (basis_update_gram_kernel); in fp64
-//   the one-row-at-a-time arithmetic, its rows loaded a batch at a time and
-//   its re-read served by L2 (basis_update_gram_blocks_kernel).  gram,
-//   update_gram and update_sumsq chained are one CGSR step
-//   (orth_kernel.py:cgsr2_pallas).
-// K2x2 basis_gram2<TV>        (u0, u1) = (V w0, V w1) over rows < rows
+//   fp32 and every mixed form each tile of the basis is staged in shared
+//   memory once and both passes read it there, in one launch
+//   (basis_update_gram_kernel); in fp64 the one-row-at-a-time arithmetic,
+//   its rows loaded a batch at a time and its re-read served by L2
+//   (basis_update_gram_blocks_kernel).  gram, update_gram and update_sumsq
+//   chained are one CGSR step (orth_kernel.py:cgsr2_pallas).
+// K2x2 basis_gram2<TV,TW>        (u0, u1) = (V w0, V w1) over rows < rows
 //   replaces orth_kernel.py:_gram2 (:102), the one reduction of an ICWY
 //   (one-reduce MGS) step: each tile of V is read once for both vectors,
 //   so the sweep costs one read of the basis where two K2 launches cost
 //   two.  Partials (n_blocks, m+1, 2), no atomics, as in K2.
-// K4 basis_axpy<TV,TX>         x[i] += (TX)(sum_{j<rows} y[j] V[j,i])
+// K4 basis_axpy<TV,TY,TX>        x[i] += (TX)(sum_{j<rows} y[j] V[j,i])
 //   replaces gmres_tpu/ops/pallas/df64_kernel.py:axpy_df64 (:295) and the
 //   basis combination gmres_tpu/solver/gmres.py:547 does with jnp.matmul:
-//   the increment is summed in the basis dtype and added to the fp64 iterate
-//   without ever being written to memory.  The TPU added it to a
+//   the increment is summed in the dtype jnp gives (y, V) and added to the
+//   iterate without ever being written to memory.  The TPU added it to a
 //   double-float pair; the H100 has native fp64.
 // K4 pair mode basis_axpy_pair   x[i] += sum_{j<rows} y[j] (Vh[j,i] + Vl[j,i])
 //   the solution update of a df64 cycle (gmres_tpu/solver/gmres.py:538-545,
 //   df_basis_comb then a pair add): each basis pair is merged to fp64 in
 //   registers and the sum taken in native fp64, so no fp64 copy of the basis
 //   (250 MB at m = 30, n = 1M) is ever made.
+//
+// Dtype forms (TV the basis, TW the vectors; sums in acc_t<TW>, common.cuh):
+// (f32, f32) and (f64, f64) for the native tiers; the compressed basis
+// (gmres_tpu/config.py:PrecisionSpec.basis) stores V narrower than the
+// arithmetic: (bf16, f32) under an fp32 inner loop, (f32, f64) under fp64;
+// the bf16 inner tier sweeps (bf16, bf16).  As in the TPU kernels, the
+// products and sums of a sweep run in the accumulation dtype and only the
+// outputs are rounded to TW: K3 GRAM's u2 and K3 SUMSQ's ||w'||^2 are taken
+// from w' before it is rounded (orth_kernel.py:144-160, :192-207), and K2's
+// u and K3 GRAM's u2 leave the kernel in TW (:70), so a bf16 u is rounded
+// between the passes.  K4's forms are those of jnp.matmul(y, V) promoted to
+// x: (f32 V, f32 y) and (bf16 V, f32 y) sum in fp32, (f32 V, f64 y) in fp64,
+// (bf16 V, bf16 y) in fp32 rounded to bf16 before the add.
 //
 // What bounds them: device-memory bandwidth.  Each sweep reads rows x n basis
 // values and does 2 flops per value (124 MB per full fp32 sweep at m+1 = 31,
@@ -48,8 +61,6 @@
 //   (n_blocks, m+1) that the wrapper finishes with torch.sum: no atomics.
 //   K2 and K3 GRAM (both redesigned) finish their own sums in the same
 //   launch: see basis_gram_kernel and basis_update_gram_kernel.
-// - Sums are taken in the basis dtype: fp32 for the mixed inner loop, fp64
-//   for the baseline (the TPU kernels were fp32-only; fp64 went to XLA).
 #include <cstdint>
 
 #include "common.cuh"
@@ -58,21 +69,21 @@ using namespace gmres;
 
 // K2, redesigned for Hopper: a persistent grid walks fixed column tiles of
 // kGramTileCols columns (tile t -> block t mod grid), each thread covering
-// gram_chunks 16-byte chunks of a tile; rows go kGramRows at a time, every
-// row's 16-byte loads of a chunk issued before any is used, so a thread
-// keeps kGramRows x 16 bytes in flight where one row at a time kept 16.
-// The warp sums run once per group of rows, the block's sum once per row
-// and tile.  Each tile writes its (rows,) partial; the last block to finish
-// (a ticket counter after __threadfence, no atomics on the values) adds the
-// tiles' partials in tile order and writes u, so a call is one launch and
-// its bits depend on n and the alignment only, not on the grid.
+// gram_chunks 16-byte chunks of a basis row's tile; rows go kGramRows at a
+// time, every row's 16-byte loads of a chunk issued before any is used, so a
+// thread keeps kGramRows x 16 bytes in flight where one row at a time kept
+// 16.  The warp sums run once per group of rows, the block's sum once per
+// row and tile.  Each tile writes its (rows,) partial; the last block to
+// finish (a ticket counter after __threadfence, no atomics on the values)
+// adds the tiles' partials in tile order and writes u, so a call is one
+// launch and its bits depend on n and the alignment only, not on the grid.
 //
 // Alignment: a row starts 16-byte aligned only where n is a multiple of
-// the vector width.  The aligned form keeps w's tile in registers; the
-// general form stages w's tile in shared memory and splits each row's tile
-// at its own phase a (the first column whose address is 16-byte aligned):
-// a scalar head [0, a), vector chunks from a, and the chunk that crosses
-// the tile's end (or n) in scalars.  orth_kernel.py:gram_plan and
+// the basis's vector width.  The aligned form keeps w's tile in registers;
+// the general form stages w's tile in shared memory and splits each row's
+// tile at its own phase a (the first column whose address is 16-byte
+// aligned): a scalar head [0, a), vector chunks from a, and the chunk that
+// crosses the tile's end (or n) in scalars.  orth_kernel.py:gram_plan and
 // tile_row_split hold the same geometry for the CPU tests.
 // 2048-column tiles (512 at n = 1M) and blocks of at most 64 registers a
 // thread, so that 4 blocks (128 KB of loads in flight) fit on an SM
@@ -80,105 +91,93 @@ constexpr int kGramRows = 8;
 constexpr int kGramTileCols = 2048;
 constexpr int kGramBlocksPerSM = 4;
 
-template <typename T>
-__host__ __device__ constexpr int gram_vec() { return 16 / (int)sizeof(T); }
-template <typename T>
-__host__ __device__ constexpr int gram_tile() { return kGramTileCols; }
-template <typename T>
-__host__ __device__ constexpr int gram_chunks() { return kGramTileCols / (kThreads * gram_vec<T>()); }
-
-template <typename T>
-__device__ __forceinline__ void load16(const T* p, T (&v)[gram_vec<T>()]) {
-  if constexpr (sizeof(T) == 4) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-  } else {
-    const double2 q = __ldg(reinterpret_cast<const double2*>(p));
-    v[0] = q.x; v[1] = q.y;
-  }
-}
+template <typename TV>
+__host__ __device__ constexpr int gram_chunks() { return kGramTileCols / (kThreads * vec16<TV>()); }
 
 // Row j's tile partial of this thread over its chunks, the general form:
 // w's tile in shared memory `ws`, the row split at its phase `a`
-template <typename T>
-__device__ __forceinline__ T gram_row_general(const T* __restrict__ vrow, const T* ws, int cols,
-                                              int a) {
-  constexpr int kVec = gram_vec<T>();
-  T acc = T(0);
+template <typename TA, typename TV>
+__device__ __forceinline__ TA gram_row_general(const TV* __restrict__ vrow, const TA* ws,
+                                               int cols, int a) {
+  constexpr int kVec = vec16<TV>();
+  TA acc = TA(0);
   if ((int)threadIdx.x < a && (int)threadIdx.x < cols)
-    acc = fmadd(__ldg(vrow + threadIdx.x), ws[threadIdx.x], acc);
+    acc = fmadd(up<TA>(vrow[threadIdx.x]), ws[threadIdx.x], acc);
 #pragma unroll
-  for (int u = 0; u < gram_chunks<T>(); ++u) {
+  for (int u = 0; u < gram_chunks<TV>(); ++u) {
     const int cc = a + (u * kThreads + (int)threadIdx.x) * kVec;
     if (cc + kVec <= cols) {
-      T v[kVec];
-      load16(vrow + cc, v);
+      TA v[kVec];
+      ldg_as(vrow + cc, v);
 #pragma unroll
       for (int e = 0; e < kVec; ++e) acc = fmadd(v[e], ws[cc + e], acc);
     } else {
       for (int e = 0; e < kVec && cc + e < cols; ++e)
-        acc = fmadd(__ldg(vrow + cc + e), ws[cc + e], acc);
+        acc = fmadd(up<TA>(vrow[cc + e]), ws[cc + e], acc);
     }
   }
   return acc;
 }
 
-template <typename T, bool kAligned>
+template <typename TV, typename TW, bool kAligned>
 __global__ void __launch_bounds__(kThreads, kGramBlocksPerSM)
-basis_gram_kernel(const T* __restrict__ V, const T* __restrict__ w, T* __restrict__ u,
-                  T* __restrict__ partials, unsigned* __restrict__ ticket, int n, int rows,
-                  int m1, int n_tiles) {
-  constexpr int kVec = gram_vec<T>();
-  constexpr int kTileCols = gram_tile<T>();
-  __shared__ T red[kWarps * kMaxRows];
-  __shared__ T ws[kAligned ? 1 : kTileCols];
+basis_gram_kernel(const TV* __restrict__ V, const TW* __restrict__ w, TW* __restrict__ u,
+                  acc_t<TW>* __restrict__ partials, unsigned* __restrict__ ticket, int n,
+                  int rows, int m1, int n_tiles) {
+  using TA = acc_t<TW>;
+  using R = typename Raw16<TV>::type;
+  constexpr int kVec = vec16<TV>();
+  constexpr int kTileCols = kGramTileCols;
+  __shared__ TA red[kWarps * kMaxRows];
+  __shared__ TA ws[kAligned ? 1 : kTileCols];
   __shared__ bool last;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   // element offset of V's first column from a 16-byte boundary
-  const int v_phase = (int)((reinterpret_cast<uintptr_t>(V) / sizeof(T)) % kVec);
+  const int v_phase = (int)((reinterpret_cast<uintptr_t>(V) / sizeof(TV)) % kVec);
 
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const size_t c0 = (size_t)t * kTileCols;
     const int cols = (int)min((size_t)kTileCols, (size_t)n - c0);
-    T wv[gram_chunks<T>()][kVec];
+    TA wv[gram_chunks<TV>()][kVec];
     if constexpr (kAligned) {
 #pragma unroll
-      for (int q = 0; q < gram_chunks<T>(); ++q) {
+      for (int q = 0; q < gram_chunks<TV>(); ++q) {
         const int c = (q * kThreads + (int)threadIdx.x) * kVec;
         if (c < cols) {
-          load16(w + c0 + c, wv[q]);
+          ldg_as(w + c0 + c, wv[q]);
         } else {
 #pragma unroll
-          for (int e = 0; e < kVec; ++e) wv[q][e] = T(0);
+          for (int e = 0; e < kVec; ++e) wv[q][e] = TA(0);
         }
       }
     } else {
-      for (int c = threadIdx.x; c < kTileCols; c += kThreads) ws[c] = c < cols ? w[c0 + c] : T(0);
+      for (int c = threadIdx.x; c < kTileCols; c += kThreads)
+        ws[c] = c < cols ? up<TA>(w[c0 + c]) : TA(0);
       __syncthreads();
     }
     for (int g = 0; g < rows; g += kGramRows) {
-      T acc[kGramRows];
+      TA acc[kGramRows];
 #pragma unroll
-      for (int r = 0; r < kGramRows; ++r) acc[r] = T(0);
+      for (int r = 0; r < kGramRows; ++r) acc[r] = TA(0);
       if constexpr (kAligned) {
 #pragma unroll
-        for (int q = 0; q < gram_chunks<T>(); ++q) {
+        for (int q = 0; q < gram_chunks<TV>(); ++q) {
           const int c = (q * kThreads + (int)threadIdx.x) * kVec;
           if (c >= cols) continue;
-          T v[kGramRows][kVec];
-#pragma unroll
-          for (int r = 0; r < kGramRows; ++r) {
-            if (g + r < rows) {
-              load16(V + (size_t)(g + r) * n + c0 + c, v[r]);
-            } else {
-#pragma unroll
-              for (int e = 0; e < kVec; ++e) v[r][e] = T(0);
-            }
-          }
+          // the rows' 16 bytes in flight together, widened where used
+          R raw[kGramRows];
 #pragma unroll
           for (int r = 0; r < kGramRows; ++r)
+            raw[r] = g + r < rows ? __ldg(reinterpret_cast<const R*>(V + (size_t)(g + r) * n +
+                                                                      c0 + c))
+                                  : R{};
 #pragma unroll
-            for (int e = 0; e < kVec; ++e) acc[r] = fmadd(v[r][e], wv[q][e], acc[r]);
+          for (int r = 0; r < kGramRows; ++r) {
+            TA v[kVec];
+            unpack16<TA>(raw[r], v);
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) acc[r] = fmadd(v[e], wv[q][e], acc[r]);
+          }
         }
       } else {
 #pragma unroll
@@ -192,13 +191,13 @@ basis_gram_kernel(const T* __restrict__ V, const T* __restrict__ w, T* __restric
 #pragma unroll
       for (int r = 0; r < kGramRows; ++r) {
         if (g + r >= rows) continue;
-        const T s = warp_sum(acc[r]);
+        const TA s = warp_sum(acc[r]);
         if (lane == 0) red[warp * kMaxRows + g + r] = s;
       }
     }
     __syncthreads();
     for (int j = threadIdx.x; j < rows; j += kThreads) {
-      T s = T(0);
+      TA s = TA(0);
 #pragma unroll
       for (int q = 0; q < kWarps; ++q) s += red[q * kMaxRows + j];
       partials[(size_t)j * n_tiles + t] = s;
@@ -217,9 +216,9 @@ basis_gram_kernel(const T* __restrict__ V, const T* __restrict__ w, T* __restric
   // flight at once); each lane takes tiles lane, lane + 32, ... in order
   constexpr int kSumRows = 4;
   for (int j0 = warp; j0 < m1; j0 += kSumRows * kWarps) {
-    T s[kSumRows];
+    TA s[kSumRows];
 #pragma unroll
-    for (int r = 0; r < kSumRows; ++r) s[r] = T(0);
+    for (int r = 0; r < kSumRows; ++r) s[r] = TA(0);
 #pragma unroll 4
     for (int t = lane; t < n_tiles; t += 32) {
 #pragma unroll
@@ -232,30 +231,31 @@ basis_gram_kernel(const T* __restrict__ V, const T* __restrict__ w, T* __restric
     for (int r = 0; r < kSumRows; ++r) {
       const int j = j0 + r * kWarps;  // the same in every lane
       if (j >= m1) continue;
-      const T v = j < rows ? warp_sum(s[r]) : T(0);
-      if (lane == 0) u[j] = v;
+      const TA v = j < rows ? warp_sum(s[r]) : TA(0);
+      if (lane == 0) u[j] = down<TW>(v);
     }
   }
   if (threadIdx.x == 0) *ticket = 0u;
 }
 
-template <typename T>
+template <typename TV, typename TW>
 __global__ void __launch_bounds__(kThreads)
-basis_gram2_kernel(const T* __restrict__ V, const T* __restrict__ w0,
-                   const T* __restrict__ w1, T* __restrict__ partials, int n, int rows,
-                   int m1) {
+basis_gram2_kernel(const TV* __restrict__ V, const TW* __restrict__ w0,
+                   const TW* __restrict__ w1, acc_t<TW>* __restrict__ partials, int n,
+                   int rows, int m1) {
+  using TA = acc_t<TW>;
   // red[(c * kWarps + warp) * kMaxRows + j]: warp `warp`'s share of row j
   // against vector c (32 KB in fp64)
-  __shared__ T red[2 * kWarps * kMaxRows];
+  __shared__ TA red[2 * kWarps * kMaxRows];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t col0 = (size_t)blockIdx.x * kTile + threadIdx.x;
-  T av[kItems], bv[kItems];
-  load_tile(w0, col0, n, av);
-  load_tile(w1, col0, n, bv);
+  TA av[kItems], bv[kItems];
+  load_tile_as(w0, col0, n, av);
+  load_tile_as(w1, col0, n, bv);
   for (int j = 0; j < rows; ++j) {
-    T rv[kItems];
-    load_tile(V + (size_t)j * n, col0, n, rv);
-    T p0 = T(0), p1 = T(0);
+    TA rv[kItems];
+    load_tile_as(V + (size_t)j * n, col0, n, rv);
+    TA p0 = TA(0), p1 = TA(0);
 #pragma unroll
     for (int it = 0; it < kItems; ++it) {
       p0 += rv[it] * av[it];
@@ -271,7 +271,7 @@ basis_gram2_kernel(const T* __restrict__ V, const T* __restrict__ w0,
   __syncthreads();
   // partials[block][j][c]; rows past `rows` get zeros (the zero tail)
   for (int j = threadIdx.x; j < m1; j += kThreads) {
-    T s0 = T(0), s1 = T(0);
+    TA s0 = TA(0), s1 = TA(0);
     if (j < rows) {
 #pragma unroll
       for (int q = 0; q < kWarps; ++q) {
@@ -279,33 +279,34 @@ basis_gram2_kernel(const T* __restrict__ V, const T* __restrict__ w0,
         s1 += red[(kWarps + q) * kMaxRows + j];
       }
     }
-    T* out = partials + ((size_t)blockIdx.x * m1 + j) * 2;
+    TA* out = partials + ((size_t)blockIdx.x * m1 + j) * 2;
     out[0] = s0;
     out[1] = s1;
   }
 }
 
-template <typename T, bool SUMSQ>
+template <typename TV, typename TW, bool SUMSQ>
 __global__ void __launch_bounds__(kThreads)
-basis_update_kernel(const T* __restrict__ V, const T* __restrict__ w,
-                    const T* __restrict__ u, T* __restrict__ w_out,
-                    T* __restrict__ partials, int n, int rows, int m1) {
-  __shared__ T us[kMaxRows];
-  __shared__ T red[kWarps];
-  for (int j = threadIdx.x; j < rows; j += kThreads) us[j] = u[j];
+basis_update_kernel(const TV* __restrict__ V, const TW* __restrict__ w,
+                    const TW* __restrict__ u, TW* __restrict__ w_out,
+                    acc_t<TW>* __restrict__ partials, int n, int rows, int m1) {
+  using TA = acc_t<TW>;
+  __shared__ TA us[kMaxRows];
+  __shared__ TA red[kWarps];
+  for (int j = threadIdx.x; j < rows; j += kThreads) us[j] = up<TA>(u[j]);
   __syncthreads();
 
   const size_t col0 = (size_t)blockIdx.x * kTile + threadIdx.x;
-  T wv[kItems], acc[kItems];
-  load_tile(w, col0, n, wv);
+  TA wv[kItems], acc[kItems];
+  load_tile_as(w, col0, n, wv);
 #pragma unroll
-  for (int it = 0; it < kItems; ++it) acc[it] = T(0);
+  for (int it = 0; it < kItems; ++it) acc[it] = TA(0);
   // w' = w - (u^T V): the combination is summed first and subtracted once,
   // the order of the reference formulation (orth_kernel.py:_update_kernel).
   for (int j = 0; j < rows; ++j) {
-    T rv[kItems];
-    load_tile(V + (size_t)j * n, col0, n, rv);
-    const T uj = us[j];
+    TA rv[kItems];
+    load_tile_as(V + (size_t)j * n, col0, n, rv);
+    const TA uj = us[j];
 #pragma unroll
     for (int it = 0; it < kItems; ++it) acc[it] += uj * rv[it];
   }
@@ -313,13 +314,14 @@ basis_update_kernel(const T* __restrict__ V, const T* __restrict__ w,
   for (int it = 0; it < kItems; ++it) {
     wv[it] -= acc[it];
     const size_t c = col0 + (size_t)it * kThreads;
-    if (c < (size_t)n) w_out[c] = wv[it];
+    if (c < (size_t)n) w_out[c] = down<TW>(wv[it]);
   }
   // out-of-range columns hold w = 0 and acc = 0, so wv is 0 there and adds
   // nothing to the sum below
 
   if constexpr (SUMSQ) {
-    T p = T(0);
+    // of w' before it is rounded to TW (orth_kernel.py:_update_sumsq_kernel)
+    TA p = TA(0);
 #pragma unroll
     for (int it = 0; it < kItems; ++it) p += wv[it] * wv[it];
     p = block_sum(p, red);
@@ -327,33 +329,36 @@ basis_update_kernel(const T* __restrict__ V, const T* __restrict__ w,
   }
 }
 
-// K3 GRAM in fp32, redesigned for Hopper: the update pass and the GRAM pass
-// both read the basis tile from shared memory, so V leaves device memory
-// once.
-// A persistent grid walks fixed column tiles of ug_tile<T>(rows) columns
-// (tile t -> block t mod grid).  A block stages all `rows` rows of a tile
-// and w's tile into shared memory with asynchronous copies (where every
-// row starts 16-byte aligned, one bulk copy (TMA) a row, issued by one
-// thread and completing on the stage's mbarrier; else one cp.async a
-// value), all of them in flight at once, in a ring of two stages: the next
-// tile's copies are issued before the current tile is computed, so a tile
-// is always in flight while the block computes.  Then
+// K3 GRAM in fp32 and the mixed forms, redesigned for Hopper: the update
+// pass and the GRAM pass both read the basis tile from shared memory, so V
+// leaves device memory once.
+// A persistent grid walks fixed column tiles of ug_tile<TV,TW>(rows)
+// columns (tile t -> block t mod grid).  A block stages all `rows` rows of
+// a tile and w's tile into shared memory with asynchronous copies (where
+// every row starts 16-byte aligned, one bulk copy (TMA) a row, issued by
+// one thread and completing on the stage's mbarrier; else one cp.async a
+// value, or for bf16 values, which cp.async cannot copy alone, a load and
+// a store), all of them in flight at once, in a ring of two stages: the
+// next tile's copies are issued before the current tile is computed, so a
+// tile is always in flight while the block computes.  Then
 // - the update pass: thread t owns 16-byte chunks t, t + kThreads, ... of
-//   the tile; per column the combination is summed over j in ascending
-//   order with one fmadd a row, starting from 0, and subtracted from w once
-//   (the reference's order, orth_kernel.py:_update_kernel), so w' has the
-//   bits of the one-row-at-a-time form it replaces; w' is written to device
-//   memory and over w's tile in the stage;
+//   the basis tile; per column the combination is summed over j in
+//   ascending order with one fmadd a row, starting from 0, and subtracted
+//   from w once (the reference's order, orth_kernel.py:_update_kernel), so
+//   w' has the bits of the one-row-at-a-time form it replaces; w' is
+//   written to device memory (rounded to TW) and, unrounded, over w's tile
+//   in the stage (TW = TA) or into a tile of its own (a bf16 w);
 // - the GRAM pass: warp q takes rows q, q + kWarps, ... (kUgRows of them at
-//   once, sharing each 16-byte read of w'), its lanes the tile's chunks in
-//   turn; each row's tile partial goes to partials[j * stride + t].
-// The tile width is the widest run of whole 128-byte lines whose two stages
-// ((rows + 1) rows of the tile each) and u fit kUgSmemBudget, at every rows
-// in 1..kMaxRows, and at most kUgMaxRowBytes a row; the grid holds up to
-// kUgBlocksPerSM blocks an SM, as many as the stages leave room for.  The
-// last block to finish (K2's ticket) adds each row's tile partials, 16
+//   once, sharing each read of w'), its lanes the tile's chunks in turn;
+//   each row's tile partial goes to partials[j * stride + t].
+// The tile width is the widest run of whole 128-byte lines of a basis row
+// whose two stages ((rows) basis rows and w's row of the tile each), the
+// unrounded w' of a bf16 w and u fit kUgSmemBudget, at every rows in
+// 1..kMaxRows, and at most kUgMaxRowBytes a basis row; the grid holds up
+// to kUgBlocksPerSM blocks an SM, as many as the stages leave room for.
+// The last block to finish (K2's ticket) adds each row's tile partials, 16
 // bytes a lane, in a fixed order, so a call is one launch and its bits
-// depend on n, rows, the dtype and the alignment, not on the grid.
+// depend on n, rows, the dtypes and the alignment, not on the grid.
 // orth_kernel.py:update_gram_plan holds the same geometry for the CPU tests.
 constexpr int kUgSmemBudget = 230400;   // dynamic bytes: 225 KB of a block's 227
 constexpr int kUgLine = 128;
@@ -361,44 +366,32 @@ constexpr int kUgMaxRowBytes = 8192;
 constexpr int kUgBlocksPerSM = 2;
 constexpr int kUgRows = 4;
 
-template <typename T>
-__host__ __device__ constexpr int ug_vec() { return 16 / (int)sizeof(T); }
-// u's slots in the stage, a whole number of 16-byte chunks
-template <typename T>
+// u's slots in the stage, a whole number of 16-byte chunks of TA
+template <typename TW>
 __host__ __device__ inline int ug_u_slots(int rows) {
-  return (rows + ug_vec<T>() - 1) / ug_vec<T>() * ug_vec<T>();
+  constexpr int vec = vec16<acc_t<TW>>();
+  return (rows + vec - 1) / vec * vec;
 }
-template <typename T>
+// bytes a tile column takes outside the ring: w' of a bf16 w
+template <typename TW>
+__host__ __device__ constexpr int ug_wp_bytes() {
+  return std::is_same_v<TW, acc_t<TW>> ? 0 : (int)sizeof(acc_t<TW>);
+}
+template <typename TV, typename TW>
 inline int ug_tile(int rows) {
-  const int line = kUgLine / (int)sizeof(T);
-  const int fit =
-      (kUgSmemBudget / (int)sizeof(T) - ug_u_slots<T>(rows)) / (2 * (rows + 1)) / line * line;
-  const int cap = kUgMaxRowBytes / (int)sizeof(T);
+  const int line = kUgLine / (int)sizeof(TV);
+  const int fixed = ug_u_slots<TW>(rows) * (int)sizeof(acc_t<TW>);
+  const int per_col = 2 * (rows * (int)sizeof(TV) + (int)sizeof(TW)) + ug_wp_bytes<TW>();
+  const int fit = (kUgSmemBudget - fixed) / per_col / line * line;
+  const int cap = kUgMaxRowBytes / (int)sizeof(TV);
   return fit < cap ? fit : cap;
 }
-template <typename T>
+template <typename TV, typename TW>
 inline size_t ug_smem(int rows, int tile) {
-  return ((size_t)2 * (rows + 1) * tile + ug_u_slots<T>(rows)) * sizeof(T);
+  return (size_t)ug_u_slots<TW>(rows) * sizeof(acc_t<TW>) +
+         (size_t)tile * (2 * (rows * sizeof(TV) + sizeof(TW)) + ug_wp_bytes<TW>());
 }
 
-// 16 bytes of shared memory (16-byte aligned) into and out of registers
-template <typename T>
-__device__ __forceinline__ void lds16(const T* p, T (&v)[gram_vec<T>()]) {
-  if constexpr (sizeof(T) == 4) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-  } else {
-    const double2 q = *reinterpret_cast<const double2*>(p);
-    v[0] = q.x; v[1] = q.y;
-  }
-}
-template <typename T>
-__device__ __forceinline__ void st16(T* p, const T (&v)[gram_vec<T>()]) {
-  if constexpr (sizeof(T) == 4)
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  else
-    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
-}
 // a[0] + ... + a[K-1] as a balanced tree
 template <typename T, int K>
 __device__ __forceinline__ T pairwise(const T* a) {
@@ -409,7 +402,7 @@ __device__ __forceinline__ T pairwise(const T* a) {
 }
 
 template <typename T>
-__device__ __forceinline__ void ldcg16(const T* p, T (&v)[gram_vec<T>()]) {
+__device__ __forceinline__ void ldcg16(const T* p, T (&v)[vec16<T>()]) {
   if constexpr (sizeof(T) == 4) {
     const float4 q = __ldcg(reinterpret_cast<const float4*>(p));
     v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
@@ -419,45 +412,66 @@ __device__ __forceinline__ void ldcg16(const T* p, T (&v)[gram_vec<T>()]) {
   }
 }
 
-// tile t's rows 0..rows-1 of V and w's tile (as row `rows`) into `vs`:
-// aligned, one bulk copy a row issued by thread 0 on `bar`; else one
-// cp.async a value, by every thread
-template <typename T, bool kAligned>
-__device__ __forceinline__ void stage_tile(T* vs, const T* __restrict__ V,
-                                           const T* __restrict__ w, int t, int n, int rows,
+// one value into shared memory for the general form: cp.async copies 4 or
+// 8 bytes, a bf16 is loaded and stored (the barrier before the tile is
+// read orders it)
+template <typename T>
+__device__ __forceinline__ void stage_value(T* dst, const T* src) {
+  if constexpr (sizeof(T) >= 4)
+    cp_async(dst, src);
+  else
+    *dst = *src;
+}
+
+// tile t's rows 0..rows-1 of V and w's tile into the stage at `stage`: row
+// j at stage + j * tile * sizeof(TV) bytes, w's at stage + rows * tile *
+// sizeof(TV); aligned, one bulk copy a row issued by thread 0 on `bar`;
+// else one copy a value, by every thread
+template <typename TV, typename TW, bool kAligned>
+__device__ __forceinline__ void stage_tile(unsigned char* stage, const TV* __restrict__ V,
+                                           const TW* __restrict__ w, int t, int n, int rows,
                                            int tile, unsigned long long* bar) {
   const size_t c0 = (size_t)t * tile;
   const int cols = (int)min((size_t)tile, (size_t)n - c0);
+  TV* vs = reinterpret_cast<TV*>(stage);
+  TW* ws = reinterpret_cast<TW*>(stage + (size_t)rows * tile * sizeof(TV));
   if constexpr (kAligned) {
     if (threadIdx.x != 0) return;
-    const unsigned bytes = (unsigned)(cols * sizeof(T));  // whole 16-byte chunks here
-    mbar_expect(bar, (rows + 1) * bytes);
-    for (int j = 0; j <= rows; ++j)
-      bulk_copy(vs + (size_t)j * tile, (j < rows ? V + (size_t)j * n : w) + c0, bytes, bar);
+    // whole 16-byte chunks here
+    const unsigned vbytes = (unsigned)(cols * sizeof(TV)), wbytes = (unsigned)(cols * sizeof(TW));
+    mbar_expect(bar, rows * vbytes + wbytes);
+    for (int j = 0; j < rows; ++j)
+      bulk_copy(vs + (size_t)j * tile, V + (size_t)j * n + c0, vbytes, bar);
+    bulk_copy(ws, w + c0, wbytes, bar);
   } else {
-    for (int j = 0; j <= rows; ++j) {
-      const T* src = (j < rows ? V + (size_t)j * n : w) + c0;
+    for (int j = 0; j < rows; ++j) {
+      const TV* src = V + (size_t)j * n + c0;
       for (int k = threadIdx.x; k < cols; k += kThreads)
-        cp_async(vs + (size_t)j * tile + k, src + k);
+        stage_value(vs + (size_t)j * tile + k, src + k);
     }
+    for (int k = threadIdx.x; k < cols; k += kThreads) stage_value(ws + k, w + c0 + k);
   }
 }
 
-template <typename T, bool kAligned>
+template <typename TV, typename TW, bool kAligned>
 __global__ void __launch_bounds__(kThreads, kUgBlocksPerSM)
-basis_update_gram_kernel(const T* __restrict__ V, const T* __restrict__ w,
-                         const T* __restrict__ u, T* __restrict__ w_out, T* __restrict__ u2,
-                         T* __restrict__ partials, unsigned* __restrict__ ticket, int n,
+basis_update_gram_kernel(const TV* __restrict__ V, const TW* __restrict__ w,
+                         const TW* __restrict__ u, TW* __restrict__ w_out, TW* __restrict__ u2,
+                         acc_t<TW>* __restrict__ partials, unsigned* __restrict__ ticket, int n,
                          int rows, int m1, int tile, int n_tiles, int stride) {
-  constexpr int kVec = ug_vec<T>();
+  using TA = acc_t<TW>;
+  constexpr int kVec = vec16<TV>();     // columns of a chunk: 16 bytes of a basis row
+  constexpr bool kOwnWp = !std::is_same_v<TW, TA>;
   extern __shared__ __align__(16) unsigned char ug_smem_raw[];
-  T* us = reinterpret_cast<T*>(ug_smem_raw);
-  const size_t stage = (size_t)(rows + 1) * tile;
-  T* const ring = us + ug_u_slots<T>(rows);  // stage s at ring + s * stage
+  TA* us = reinterpret_cast<TA*>(ug_smem_raw);
+  TA* const wp_own = us + ug_u_slots<TW>(rows);  // w' of a bf16 w: `tile` values
+  unsigned char* const ring =
+      reinterpret_cast<unsigned char*>(wp_own + (kOwnWp ? tile : 0));  // stage s at s * stage
+  const size_t stage = (size_t)tile * (rows * sizeof(TV) + sizeof(TW));
   __shared__ bool last;
   __shared__ __align__(8) unsigned long long bars[2];  // the stages' mbarriers
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int j = threadIdx.x; j < rows; j += kThreads) us[j] = u[j];
+  for (int j = threadIdx.x; j < rows; j += kThreads) us[j] = up<TA>(u[j]);
   if (kAligned && threadIdx.x == 0) {
     mbar_init(&bars[0]);
     mbar_init(&bars[1]);
@@ -466,15 +480,15 @@ basis_update_gram_kernel(const T* __restrict__ V, const T* __restrict__ w,
   __syncthreads();
 
   if ((int)blockIdx.x < n_tiles)
-    stage_tile<T, kAligned>(ring, V, w, blockIdx.x, n, rows, tile, &bars[0]);
+    stage_tile<TV, TW, kAligned>(ring, V, w, blockIdx.x, n, rows, tile, &bars[0]);
   if (!kAligned) cp_async_commit();
   int it = 0;
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++it) {
     // the next tile into the other stage (free since the last barrier),
     // then wait for this one (its stage's (it / 2)-th fill)
     if (t + (int)gridDim.x < n_tiles)
-      stage_tile<T, kAligned>(ring + ((it + 1) & 1) * stage, V, w, t + gridDim.x, n, rows,
-                              tile, &bars[(it + 1) & 1]);
+      stage_tile<TV, TW, kAligned>(ring + ((it + 1) & 1) * stage, V, w, t + gridDim.x, n, rows,
+                                   tile, &bars[(it + 1) & 1]);
     if constexpr (kAligned) {
       mbar_wait(&bars[it & 1], (it >> 1) & 1);
     } else {
@@ -482,33 +496,34 @@ basis_update_gram_kernel(const T* __restrict__ V, const T* __restrict__ w,
       cp_async_wait<1>();
       __syncthreads();
     }
-    T* vs = ring + (it & 1) * stage;  // row j of the tile at j * tile
-    T* ws = vs + (size_t)rows * tile;  // w's tile, then w''s
+    const TV* vs = reinterpret_cast<const TV*>(ring + (it & 1) * stage);  // row j at j * tile
+    TW* ws = reinterpret_cast<TW*>(ring + (it & 1) * stage + (size_t)rows * tile * sizeof(TV));
+    TA* wp = kOwnWp ? wp_own : reinterpret_cast<TA*>(ws);  // w' as the GRAM pass reads it
     const size_t c0 = (size_t)t * tile;
     const int cols = (int)min((size_t)tile, (size_t)n - c0);
 
     // update pass; a chunk that crosses `cols` (general form only) computes
     // on stale slots past it and stores only its live columns
     for (int c = threadIdx.x * kVec; c < cols; c += kThreads * kVec) {
-      T acc[kVec];
+      TA acc[kVec];
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) acc[e] = T(0);
+      for (int e = 0; e < kVec; ++e) acc[e] = TA(0);
       for (int j = 0; j < rows; ++j) {
-        const T uj = us[j];
-        T v[kVec];
-        lds16(vs + (size_t)j * tile + c, v);
+        const TA uj = us[j];
+        TA v[kVec];
+        lds_as(vs + (size_t)j * tile + c, v);
 #pragma unroll
         for (int e = 0; e < kVec; ++e) acc[e] = fmadd(uj, v[e], acc[e]);
       }
-      T wv[kVec];
-      lds16(ws + c, wv);
+      TA wv[kVec];
+      lds_as(ws + c, wv);
 #pragma unroll
       for (int e = 0; e < kVec; ++e) wv[e] -= acc[e];
-      st16(ws + c, wv);
+      st_as(wp + c, wv);
       if constexpr (kAligned) {
-        st16(w_out + c0 + c, wv);
+        st_as(w_out + c0 + c, wv);
       } else {
-        for (int e = 0; e < kVec && c + e < cols; ++e) w_out[c0 + c + e] = wv[e];
+        for (int e = 0; e < kVec && c + e < cols; ++e) w_out[c0 + c + e] = down<TW>(wv[e]);
       }
     }
     __syncthreads();
@@ -519,20 +534,20 @@ basis_update_gram_kernel(const T* __restrict__ V, const T* __restrict__ w,
     // chunks a lane takes
     const int full = cols / kVec * kVec;
     for (int j0 = warp; j0 < rows; j0 += kWarps * kUgRows) {
-      T p[kUgRows][kVec];
+      TA p[kUgRows][kVec];
 #pragma unroll
       for (int r = 0; r < kUgRows; ++r)
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) p[r][e] = T(0);
+        for (int e = 0; e < kVec; ++e) p[r][e] = TA(0);
       for (int c = lane * kVec; c < full; c += 32 * kVec) {
-        T wv[kVec];
-        lds16(ws + c, wv);
+        TA wv[kVec];
+        lds_as(wp + c, wv);
 #pragma unroll
         for (int r = 0; r < kUgRows; ++r) {
           const int j = j0 + r * kWarps;
           if (j >= rows) continue;
-          T v[kVec];
-          lds16(vs + (size_t)j * tile + c, v);
+          TA v[kVec];
+          lds_as(vs + (size_t)j * tile + c, v);
 #pragma unroll
           for (int e = 0; e < kVec; ++e) p[r][e] = fmadd(v[e], wv[e], p[r][e]);
         }
@@ -541,14 +556,14 @@ basis_update_gram_kernel(const T* __restrict__ V, const T* __restrict__ w,
 #pragma unroll
         for (int r = 0; r < kUgRows; ++r) {
           const int j = j0 + r * kWarps;
-          if (j < rows) p[r][0] = fmadd(vs[(size_t)j * tile + c], ws[c], p[r][0]);
+          if (j < rows) p[r][0] = fmadd(up<TA>(vs[(size_t)j * tile + c]), wp[c], p[r][0]);
         }
       }
 #pragma unroll
       for (int r = 0; r < kUgRows; ++r) {
         const int j = j0 + r * kWarps;  // the same in every lane
         if (j >= rows) continue;
-        const T s = warp_sum(pairwise<T, kVec>(p[r]));
+        const TA s = warp_sum(pairwise<TA, kVec>(p[r]));
         if (lane == 0) partials[(size_t)j * stride + t] = s;
       }
     }
@@ -567,26 +582,27 @@ basis_update_gram_kernel(const T* __restrict__ V, const T* __restrict__ w,
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const int full = n_tiles / kVec * kVec;
+  constexpr int kVecA = vec16<TA>();
+  const int full = n_tiles / kVecA * kVecA;
   for (int j0 = warp; j0 < m1; j0 += kWarps * kUgRows) {
-    T s[kUgRows][2 * kVec];
+    TA s[kUgRows][2 * kVecA];
 #pragma unroll
     for (int r = 0; r < kUgRows; ++r)
 #pragma unroll
-      for (int e = 0; e < 2 * kVec; ++e) s[r][e] = T(0);
-    for (int k = lane * kVec; k < full; k += 64 * kVec) {
+      for (int e = 0; e < 2 * kVecA; ++e) s[r][e] = TA(0);
+    for (int k = lane * kVecA; k < full; k += 64 * kVecA) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int kk = k + h * 32 * kVec;
+        const int kk = k + h * 32 * kVecA;
         if (kk >= full) continue;
 #pragma unroll
         for (int r = 0; r < kUgRows; ++r) {
           const int j = j0 + r * kWarps;
           if (j >= rows) continue;
-          T v[kVec];
+          TA v[kVecA];
           ldcg16(partials + (size_t)j * stride + kk, v);
 #pragma unroll
-          for (int e = 0; e < kVec; ++e) s[r][h * kVec + e] += v[e];
+          for (int e = 0; e < kVecA; ++e) s[r][h * kVecA + e] += v[e];
         }
       }
     }
@@ -601,8 +617,8 @@ basis_update_gram_kernel(const T* __restrict__ V, const T* __restrict__ w,
     for (int r = 0; r < kUgRows; ++r) {
       const int j = j0 + r * kWarps;
       if (j >= m1) continue;
-      const T v = j < rows ? warp_sum(pairwise<T, 2 * kVec>(s[r])) : T(0);
-      if (lane == 0) u2[j] = v;
+      const TA v = j < rows ? warp_sum(pairwise<TA, 2 * kVecA>(s[r])) : TA(0);
+      if (lane == 0) u2[j] = down<TW>(v);
     }
   }
   if (threadIdx.x == 0) *ticket = 0u;
@@ -689,28 +705,30 @@ basis_update_gram_blocks_kernel(const T* __restrict__ V, const T* __restrict__ w
   }
 }
 
-template <typename T, typename TX>
+template <typename TV, typename TY, typename TX>
 __global__ void __launch_bounds__(kThreads)
-basis_axpy_kernel(const T* __restrict__ V, const T* __restrict__ y,
+basis_axpy_kernel(const TV* __restrict__ V, const TY* __restrict__ y,
                   TX* __restrict__ x, int n, int rows) {
-  __shared__ T ys[kMaxRows];
-  for (int j = threadIdx.x; j < rows; j += kThreads) ys[j] = y[j];
+  using TA = acc_t<TY>;
+  __shared__ TA ys[kMaxRows];
+  for (int j = threadIdx.x; j < rows; j += kThreads) ys[j] = up<TA>(y[j]);
   __syncthreads();
   const size_t col0 = (size_t)blockIdx.x * kTile + threadIdx.x;
-  T acc[kItems];
+  TA acc[kItems];
 #pragma unroll
-  for (int it = 0; it < kItems; ++it) acc[it] = T(0);
+  for (int it = 0; it < kItems; ++it) acc[it] = TA(0);
   for (int j = 0; j < rows; ++j) {
-    T rv[kItems];
-    load_tile(V + (size_t)j * n, col0, n, rv);
-    const T yj = ys[j];
+    TA rv[kItems];
+    load_tile_as(V + (size_t)j * n, col0, n, rv);
+    const TA yj = ys[j];
 #pragma unroll
     for (int it = 0; it < kItems; ++it) acc[it] += yj * rv[it];
   }
 #pragma unroll
   for (int it = 0; it < kItems; ++it) {
     const size_t c = col0 + (size_t)it * kThreads;
-    if (c < (size_t)n) x[c] += (TX)acc[it];
+    // a bf16 y gives a bf16 increment (jnp.matmul of two bf16 operands)
+    if (c < (size_t)n) x[c] += (TX)rounded<TY>(acc[it]);
   }
 }
 
@@ -743,34 +761,35 @@ static bool bad_shape(int n, int rows, int m1) {
   return n <= 0 || rows <= 0 || rows > m1 || m1 > kMaxRows;
 }
 
-template <typename T>
-static int launch_gram(const T* V, const T* w, T* u, T* partials, unsigned* ticket, int n,
-                       int rows, int m1, int tile, int n_tiles, int grid, void* stream) {
-  if (bad_shape(n, rows, m1) || tile != gram_tile<T>() ||
-      n_tiles != blocks_for(n, gram_tile<T>()) || grid < 1)
+static bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <typename TV, typename TW>
+static int launch_gram(const TV* V, const TW* w, TW* u, acc_t<TW>* partials, unsigned* ticket,
+                       int n, int rows, int m1, int tile, int n_tiles, int grid, void* stream) {
+  if (bad_shape(n, rows, m1) || tile != kGramTileCols ||
+      n_tiles != blocks_for(n, kGramTileCols) || grid < 1)
     return (int)cudaErrorInvalidValue;
-  const bool aligned = n % gram_vec<T>() == 0 && reinterpret_cast<uintptr_t>(V) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  auto kernel = aligned ? basis_gram_kernel<T, true> : basis_gram_kernel<T, false>;
+  const bool aligned = n % vec16<TV>() == 0 && aligned16(V) && aligned16(w);
+  auto kernel = aligned ? basis_gram_kernel<TV, TW, true> : basis_gram_kernel<TV, TW, false>;
   kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(V, w, u, partials, ticket, n, rows, m1,
                                                       n_tiles);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int launch_gram2(const T* V, const T* w0, const T* w1, T* partials, int n, int rows,
-                        int m1, void* stream) {
+template <typename TV, typename TW>
+static int launch_gram2(const TV* V, const TW* w0, const TW* w1, acc_t<TW>* partials, int n,
+                        int rows, int m1, void* stream) {
   if (bad_shape(n, rows, m1)) return (int)cudaErrorInvalidValue;
-  basis_gram2_kernel<T><<<blocks_for(n, kTile), kThreads, 0, (cudaStream_t)stream>>>(
+  basis_gram2_kernel<TV, TW><<<blocks_for(n, kTile), kThreads, 0, (cudaStream_t)stream>>>(
       V, w0, w1, partials, n, rows, m1);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool SUMSQ>
-static int launch_update(const T* V, const T* w, const T* u, T* w_out, T* partials,
+template <typename TV, typename TW, bool SUMSQ>
+static int launch_update(const TV* V, const TW* w, const TW* u, TW* w_out, acc_t<TW>* partials,
                          int n, int rows, int m1, void* stream) {
   if (bad_shape(n, rows, m1)) return (int)cudaErrorInvalidValue;
-  basis_update_kernel<T, SUMSQ>
+  basis_update_kernel<TV, TW, SUMSQ>
       <<<blocks_for(n, kTile), kThreads, 0, (cudaStream_t)stream>>>(
           V, w, u, w_out, partials, n, rows, m1);
   return (int)cudaGetLastError();
@@ -778,13 +797,13 @@ static int launch_update(const T* V, const T* w, const T* u, T* w_out, T* partia
 
 // K3 GRAM's stages are dynamic shared memory above the 48 KB default, with
 // the largest shared-memory carveout; set once a device for each form
-template <typename T, bool kAligned>
+template <typename TV, typename TW, bool kAligned>
 static cudaError_t allow_ug_stages() {
   static bool done[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
-  const void* kernel = (const void*)basis_update_gram_kernel<T, kAligned>;
+  const void* kernel = (const void*)basis_update_gram_kernel<TV, TW, kAligned>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kUgSmemBudget);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -793,19 +812,21 @@ static cudaError_t allow_ug_stages() {
   return err;
 }
 
-template <typename T>
-static int launch_update_gram(const T* V, const T* w, const T* u, T* w_out, T* u2, T* partials,
-                              unsigned* ticket, int n, int rows, int m1, int tile, int n_tiles,
-                              int stride, int grid, int smem, void* stream) {
-  if (bad_shape(n, rows, m1) || tile != ug_tile<T>(rows) || n_tiles != blocks_for(n, tile) ||
-      stride != blocks_for(n_tiles, ug_vec<T>()) * ug_vec<T>() ||
-      (size_t)smem != ug_smem<T>(rows, tile) || grid < 1 || grid > n_tiles)
+template <typename TV, typename TW>
+static int launch_update_gram(const TV* V, const TW* w, const TW* u, TW* w_out, TW* u2,
+                              acc_t<TW>* partials, unsigned* ticket, int n, int rows, int m1,
+                              int tile, int n_tiles, int stride, int grid, int smem,
+                              void* stream) {
+  constexpr int vec_a = vec16<acc_t<TW>>();
+  if (bad_shape(n, rows, m1) || tile != ug_tile<TV, TW>(rows) ||
+      n_tiles != blocks_for(n, tile) || stride != blocks_for(n_tiles, vec_a) * vec_a ||
+      (size_t)smem != ug_smem<TV, TW>(rows, tile) || grid < 1 || grid > n_tiles)
     return (int)cudaErrorInvalidValue;
-  const bool aligned = n % ug_vec<T>() == 0 && reinterpret_cast<uintptr_t>(V) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(w_out) % 16 == 0;
-  auto kernel = aligned ? basis_update_gram_kernel<T, true> : basis_update_gram_kernel<T, false>;
-  const cudaError_t err = aligned ? allow_ug_stages<T, true>() : allow_ug_stages<T, false>();
+  const bool aligned = n % vec16<TV>() == 0 && aligned16(V) && aligned16(w) && aligned16(w_out);
+  auto kernel = aligned ? basis_update_gram_kernel<TV, TW, true>
+                        : basis_update_gram_kernel<TV, TW, false>;
+  const cudaError_t err =
+      aligned ? allow_ug_stages<TV, TW, true>() : allow_ug_stages<TV, TW, false>();
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(V, w, u, w_out, u2, partials, ticket, n,
                                                          rows, m1, tile, n_tiles, stride);
@@ -831,63 +852,83 @@ static int launch_update_gram_blocks(const double* V, const double* w, const dou
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename TX>
-static int launch_axpy(const T* V, const T* y, TX* x, int n, int rows, void* stream) {
+template <typename TV, typename TY, typename TX>
+static int launch_axpy(const TV* V, const TY* y, TX* x, int n, int rows, void* stream) {
   if (bad_shape(n, rows, rows)) return (int)cudaErrorInvalidValue;
-  basis_axpy_kernel<T, TX><<<blocks_for(n, kTile), kThreads, 0, (cudaStream_t)stream>>>(
+  basis_axpy_kernel<TV, TY, TX><<<blocks_for(n, kTile), kThreads, 0, (cudaStream_t)stream>>>(
       V, y, x, n, rows);
   return (int)cudaGetLastError();
 }
 
+// The C entry points of one (TV, TW) form, suffixed by the basis dtype and
+// the vectors' (one name where both are the same: f32, f64):
+//   gram          K2: u (m1,) from V and w in one launch; partials (rows,
+//                 n_tiles) of the accumulation dtype, scratch; ticket one
+//                 zeroed counter that the kernel leaves zeroed
+//   gram2         K2x2: the (n_blocks, m1, 2) block partials
+//   update        K3 with the flag off: w' = w - u^T V alone
+//                 (orth_kernel.py:_update)
+//   update_sumsq  K3 with SUMSQ: w' and the (n_blocks,) partials of ||w'||^2
+//   update_gram   K3 GRAM: w_out and u2 (m1,) in one launch over the plan of
+//                 orth_kernel.py:update_gram_plan (tile, n_tiles, partials'
+//                 row stride, grid, dynamic shared bytes; checked here);
+//                 partials (rows, stride) scratch, ticket K2's zeroed
+//                 counter, left zeroed
+#define GMRES_SWEEP_FORM(SFX, TV, TW)                                                          \
+  int gmres_basis_gram_##SFX(const TV* V, const TW* w, TW* u, acc_t<TW>* partials,            \
+                             unsigned* ticket, int n, int rows, int m1, int tile, int n_tiles,  \
+                             int grid, void* stream) {                                          \
+    return launch_gram<TV, TW>(V, w, u, partials, ticket, n, rows, m1, tile, n_tiles, grid,    \
+                               stream);                                                         \
+  }                                                                                             \
+  int gmres_basis_update_##SFX(const TV* V, const TW* w, const TW* u, TW* w_out, int n,        \
+                               int rows, int m1, void* stream) {                                \
+    return launch_update<TV, TW, false>(V, w, u, w_out, nullptr, n, rows, m1, stream);         \
+  }                                                                                             \
+  int gmres_basis_update_sumsq_##SFX(const TV* V, const TW* w, const TW* u, TW* w_out,         \
+                                     acc_t<TW>* partials, int n, int rows, int m1,              \
+                                     void* stream) {                                            \
+    return launch_update<TV, TW, true>(V, w, u, w_out, partials, n, rows, m1, stream);         \
+  }
+#define GMRES_GRAM2_FORM(SFX, TV, TW)                                                           \
+  int gmres_basis_gram2_##SFX(const TV* V, const TW* w0, const TW* w1, acc_t<TW>* partials,    \
+                              int n, int rows, int m1, void* stream) {                          \
+    return launch_gram2<TV, TW>(V, w0, w1, partials, n, rows, m1, stream);                     \
+  }
+#define GMRES_UPDATE_GRAM_FORM(SFX, TV, TW)                                                     \
+  int gmres_basis_update_gram_##SFX(const TV* V, const TW* w, const TW* u, TW* w_out, TW* u2,  \
+                                    acc_t<TW>* partials, unsigned* ticket, int n, int rows,     \
+                                    int m1, int tile, int n_tiles, int stride, int grid,        \
+                                    int smem, void* stream) {                                   \
+    return launch_update_gram<TV, TW>(V, w, u, w_out, u2, partials, ticket, n, rows, m1, tile, \
+                                      n_tiles, stride, grid, smem, stream);                     \
+  }
+// K4: suffix the basis dtype, then the iterate's, where y is in the basis
+// dtype; else the basis's, y's and the iterate's
+#define GMRES_AXPY_FORM(SFX, TV, TY, TX)                                                        \
+  int gmres_basis_axpy_##SFX(const TV* V, const TY* y, TX* x, int n, int rows, void* stream) { \
+    return launch_axpy<TV, TY, TX>(V, y, x, n, rows, stream);                                   \
+  }
+
 extern "C" {
 
-// K2: u (m1,) from V and w in one launch; partials (rows, n_tiles) scratch,
-// ticket one zeroed counter that the kernel leaves zeroed
-int gmres_basis_gram_f32(const float* V, const float* w, float* u, float* partials,
-                         unsigned* ticket, int n, int rows, int m1, int tile, int n_tiles,
-                         int grid, void* stream) {
-  return launch_gram<float>(V, w, u, partials, ticket, n, rows, m1, tile, n_tiles, grid, stream);
-}
+GMRES_SWEEP_FORM(f32, float, float)
+GMRES_SWEEP_FORM(f64, double, double)
+GMRES_SWEEP_FORM(bf16_f32, bf16, float)
+GMRES_SWEEP_FORM(f32_f64, float, double)
+GMRES_SWEEP_FORM(bf16_bf16, bf16, bf16)
 
-int gmres_basis_gram_f64(const double* V, const double* w, double* u, double* partials,
-                         unsigned* ticket, int n, int rows, int m1, int tile, int n_tiles,
-                         int grid, void* stream) {
-  return launch_gram<double>(V, w, u, partials, ticket, n, rows, m1, tile, n_tiles, grid,
-                             stream);
-}
+// the ICWY step feeds K2x2 its vectors in the accumulation dtype
+// (gmres_tpu/ops/orth.py:163-164), so a bf16 vector never reaches it
+GMRES_GRAM2_FORM(f32, float, float)
+GMRES_GRAM2_FORM(f64, double, double)
+GMRES_GRAM2_FORM(bf16_f32, bf16, float)
+GMRES_GRAM2_FORM(f32_f64, float, double)
 
-int gmres_basis_gram2_f32(const float* V, const float* w0, const float* w1, float* partials,
-                          int n, int rows, int m1, void* stream) {
-  return launch_gram2<float>(V, w0, w1, partials, n, rows, m1, stream);
-}
-
-int gmres_basis_gram2_f64(const double* V, const double* w0, const double* w1,
-                          double* partials, int n, int rows, int m1, void* stream) {
-  return launch_gram2<double>(V, w0, w1, partials, n, rows, m1, stream);
-}
-
-// K3 with the flag off: w' = w - u^T V alone (orth_kernel.py:_update)
-int gmres_basis_update_f32(const float* V, const float* w, const float* u, float* w_out,
-                           int n, int rows, int m1, void* stream) {
-  return launch_update<float, false>(V, w, u, w_out, nullptr, n, rows, m1, stream);
-}
-
-int gmres_basis_update_f64(const double* V, const double* w, const double* u,
-                           double* w_out, int n, int rows, int m1, void* stream) {
-  return launch_update<double, false>(V, w, u, w_out, nullptr, n, rows, m1, stream);
-}
-
-// K3 GRAM: w_out and u2 (m1,) in one launch over the plan of
-// orth_kernel.py:update_gram_plan (tile, n_tiles, partials' row stride,
-// grid, dynamic shared bytes; checked here); partials (rows, stride)
-// scratch, ticket K2's zeroed counter, left zeroed
-int gmres_basis_update_gram_f32(const float* V, const float* w, const float* u, float* w_out,
-                                float* u2, float* partials, unsigned* ticket, int n, int rows,
-                                int m1, int tile, int n_tiles, int stride, int grid, int smem,
-                                void* stream) {
-  return launch_update_gram<float>(V, w, u, w_out, u2, partials, ticket, n, rows, m1, tile,
-                                   n_tiles, stride, grid, smem, stream);
-}
+GMRES_UPDATE_GRAM_FORM(f32, float, float)
+GMRES_UPDATE_GRAM_FORM(bf16_f32, bf16, float)
+GMRES_UPDATE_GRAM_FORM(f32_f64, float, double)
+GMRES_UPDATE_GRAM_FORM(bf16_bf16, bf16, bf16)
 
 // K3 GRAM in fp64: w_out and the (n_blocks, m1) block partials that the
 // wrapper adds; pad: dynamic shared bytes that cap the blocks an SM
@@ -897,35 +938,14 @@ int gmres_basis_update_gram_f64(const double* V, const double* w, const double* 
   return launch_update_gram_blocks(V, w, u, w_out, partials, n, rows, m1, pad, stream);
 }
 
-int gmres_basis_update_sumsq_f32(const float* V, const float* w, const float* u,
-                                 float* w_out, float* partials, int n, int rows,
-                                 int m1, void* stream) {
-  return launch_update<float, true>(V, w, u, w_out, partials, n, rows, m1,
-                                           stream);
-}
-
-int gmres_basis_update_sumsq_f64(const double* V, const double* w, const double* u,
-                                 double* w_out, double* partials, int n, int rows,
-                                 int m1, void* stream) {
-  return launch_update<double, true>(V, w, u, w_out, partials, n, rows, m1,
-                                            stream);
-}
-
-// suffix: basis dtype, then iterate dtype
-int gmres_basis_axpy_f32_f64(const float* V, const float* y, double* x, int n, int rows,
-                             void* stream) {
-  return launch_axpy<float, double>(V, y, x, n, rows, stream);
-}
-
-int gmres_basis_axpy_f64_f64(const double* V, const double* y, double* x, int n,
-                             int rows, void* stream) {
-  return launch_axpy<double, double>(V, y, x, n, rows, stream);
-}
-
-int gmres_basis_axpy_f32_f32(const float* V, const float* y, float* x, int n, int rows,
-                             void* stream) {
-  return launch_axpy<float, float>(V, y, x, n, rows, stream);
-}
+GMRES_AXPY_FORM(f32_f64, float, float, double)
+GMRES_AXPY_FORM(f64_f64, double, double, double)
+GMRES_AXPY_FORM(f32_f32, float, float, float)
+GMRES_AXPY_FORM(bf16_f32_f64, bf16, float, double)
+GMRES_AXPY_FORM(bf16_f32_f32, bf16, float, float)
+GMRES_AXPY_FORM(f32_f64_f64, float, double, double)
+GMRES_AXPY_FORM(bf16_bf16_f64, bf16, bf16, double)
+GMRES_AXPY_FORM(bf16_bf16_f32, bf16, bf16, float)
 
 // pair mode: the basis as (hi, lo) fp32 pairs, y and x fp64
 int gmres_basis_axpy_pair(const float* Vh, const float* Vl, const double* y, double* x, int n,

@@ -11,9 +11,54 @@
 // repeats bit for bit.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace gmres {
+
+// Dtype forms of the basis sweeps.  A sweep reads a basis stored in TV
+// against vectors in TW (the work dtype) and sums in acc_t<TW>: fp64 under
+// an fp64 vector, else fp32 (a bf16 basis or vector is widened to fp32
+// before any product, as the TPU kernels do in VMEM).  up() widens a
+// stored value exactly; down() rounds a sum to a stored dtype, to nearest
+// even (RNE, as torch's and JAX's astype); rounded() is that rounding kept
+// in the wide dtype.  For TV = TW = float or double every conversion is the
+// identity, so those instantiations keep their arithmetic.
+using bf16 = __nv_bfloat16;
+template <typename TW>
+struct AccOf {
+  using type = float;
+};
+template <>
+struct AccOf<double> {
+  using type = double;
+};
+template <typename TW>
+using acc_t = typename AccOf<TW>::type;
+
+template <typename TA, typename T>
+__device__ __forceinline__ TA up(T v) {
+  if constexpr (std::is_same_v<T, bf16>)
+    return (TA)__bfloat162float(v);
+  else
+    return (TA)v;
+}
+template <typename T, typename TA>
+__device__ __forceinline__ T down(TA v) {
+  if constexpr (std::is_same_v<T, bf16>)
+    return __float2bfloat16_rn((float)v);
+  else
+    return (T)v;
+}
+template <typename T, typename TA>
+__device__ __forceinline__ TA rounded(TA v) {
+  if constexpr (std::is_same_v<T, TA>)
+    return v;
+  else
+    return up<TA>(down<T>(v));
+}
 
 // Threads per block for every kernel.  The Python wrappers read these
 // through gmres_kernel_shape() and size their partial buffers from them.
@@ -69,6 +114,94 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src, size_t col0
   for (int it = 0; it < kItems; ++it) {
     const size_t c = col0 + (size_t)it * kThreads;
     v[it] = c < (size_t)n ? src[c] : T(0);
+  }
+}
+
+// load_tile of a TV basis row or TW vector, widened to TA
+template <typename TA, typename T>
+__device__ __forceinline__ void load_tile_as(const T* __restrict__ src, size_t col0, int n,
+                                             TA (&v)[kItems]) {
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const size_t c = col0 + (size_t)it * kThreads;
+    v[it] = c < (size_t)n ? up<TA>(src[c]) : TA(0);
+  }
+}
+
+// 16 bytes of T values as one vector load (Raw16<T>), and the values it
+// holds widened to TA: 4 floats, 2 doubles or 8 bf16 (a bf16 is the high
+// half of the float with the same bits)
+template <typename T>
+struct Raw16;
+template <>
+struct Raw16<float> {
+  using type = float4;
+};
+template <>
+struct Raw16<double> {
+  using type = double2;
+};
+template <>
+struct Raw16<bf16> {
+  using type = uint4;
+};
+template <typename T>
+__host__ __device__ constexpr int vec16() { return 16 / (int)sizeof(T); }
+
+template <typename TA>
+__device__ __forceinline__ void unpack16(const float4& q, TA* v) {
+  v[0] = (TA)q.x; v[1] = (TA)q.y; v[2] = (TA)q.z; v[3] = (TA)q.w;
+}
+template <typename TA>
+__device__ __forceinline__ void unpack16(const double2& q, TA* v) {
+  v[0] = (TA)q.x; v[1] = (TA)q.y;
+}
+template <typename TA>
+__device__ __forceinline__ void unpack16(const uint4& q, TA* v) {
+  const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = (TA)__uint_as_float(w[k] << 16);
+    v[2 * k + 1] = (TA)__uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+// N values of T at p (16-byte aligned; N a whole number of 16-byte chunks),
+// widened to TA: through the read-only cache (global) or from shared memory
+template <typename TA, typename T, int N>
+__device__ __forceinline__ void ldg_as(const T* p, TA (&v)[N]) {
+  static_assert(N % vec16<T>() == 0, "whole 16-byte chunks");
+  using R = typename Raw16<T>::type;
+#pragma unroll
+  for (int q = 0; q < N / vec16<T>(); ++q)
+    unpack16<TA>(__ldg(reinterpret_cast<const R*>(p) + q), v + q * vec16<T>());
+}
+template <typename TA, typename T, int N>
+__device__ __forceinline__ void lds_as(const T* p, TA (&v)[N]) {
+  static_assert(N % vec16<T>() == 0, "whole 16-byte chunks");
+  using R = typename Raw16<T>::type;
+#pragma unroll
+  for (int q = 0; q < N / vec16<T>(); ++q)
+    unpack16<TA>(reinterpret_cast<const R*>(p)[q], v + q * vec16<T>());
+}
+// N values rounded to T and stored at p (16-byte aligned), 16 bytes a store
+template <typename T, typename TA, int N>
+__device__ __forceinline__ void st_as(T* p, const TA (&v)[N]) {
+  static_assert(N % vec16<T>() == 0, "whole 16-byte chunks");
+#pragma unroll
+  for (int q = 0; q < N / vec16<T>(); ++q) {
+    const TA* s = v + q * vec16<T>();
+    if constexpr (std::is_same_v<T, float>) {
+      reinterpret_cast<float4*>(p)[q] = make_float4(s[0], s[1], s[2], s[3]);
+    } else if constexpr (std::is_same_v<T, double>) {
+      reinterpret_cast<double2*>(p)[q] = make_double2(s[0], s[1]);
+    } else {
+      unsigned w[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        w[k] = (unsigned)__bfloat16_as_ushort(down<bf16>(s[2 * k])) |
+               ((unsigned)__bfloat16_as_ushort(down<bf16>(s[2 * k + 1])) << 16);
+      reinterpret_cast<uint4*>(p)[q] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
   }
 }
 

@@ -2,7 +2,10 @@
 
 Each wrapper keeps a plain-int launch count (``wrapper.launches``), so a
 run can show that the main path went through its kernels.  K4's pair mode
-(``outer_kernel.basis_axpy_pair_cuda``) counts into ``basis_axpy``.
+(``outer_kernel.basis_axpy_pair_cuda``) counts into ``basis_axpy``.  The
+wrappers of kernels with dtype forms (K2, K2x2, K3's three modes, K4, K7)
+also count each form's launches (``wrapper.forms``, by entry-point suffix;
+K4's pair mode as "pair").
 """
 
 from __future__ import annotations
@@ -59,7 +62,15 @@ def kernel_wrappers() -> dict:
 def reset_launch_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "forms"):
+            fn.forms.clear()
 
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def form_launch_counts() -> dict:
+    """Kernel -> {form: launches} for the kernels with dtype forms."""
+    return {name: dict(fn.forms) for name, fn in kernel_wrappers().items()
+            if hasattr(fn, "forms")}

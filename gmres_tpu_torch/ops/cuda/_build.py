@@ -58,30 +58,12 @@ _SIGNATURES = {
     "gmres_sell_spmv_f64": (_P, _P, _P, _P, _P, _I, _P),
     "gmres_sell_residual_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "gmres_sell_residual_f64": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-    "gmres_basis_gram_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "gmres_basis_gram_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "gmres_basis_gram2_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "gmres_basis_gram2_f64": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "gmres_basis_update_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "gmres_basis_update_f64": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "gmres_basis_update_gram_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                    _I, _P),
-    "gmres_basis_update_gram_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "gmres_basis_update_sumsq_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "gmres_basis_update_sumsq_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "gmres_basis_axpy_f32_f64": (_P, _P, _P, _I, _I, _P),
-    "gmres_basis_axpy_f64_f64": (_P, _P, _P, _I, _I, _P),
-    "gmres_basis_axpy_f32_f32": (_P, _P, _P, _I, _I, _P),
     "gmres_basis_axpy_pair": (_P, _P, _P, _P, _I, _I, _P),
     "gmres_dia_spmv_df64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "gmres_df_gram": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "gmres_df_update_gram": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _P),
     "gmres_df_update_sumsq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "gmres_basis_mgs_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _I, _P, _P,
-                            _P),
-    "gmres_basis_mgs_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _I, _P, _P,
-                            _P),
     "gmres_grid_sync_probe": (_I, _I, _P),
     "gmres_ilu_levels_f32": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
                              _I, _I, _P, _P),
@@ -90,6 +72,36 @@ _SIGNATURES = {
     "gmres_level_sync_probe": (_I, _I, _I, _P, _P),
 }
 SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+_f32, _f64, _bf16 = torch.float32, torch.float64, torch.bfloat16
+# The dtype forms of the basis sweeps (K2, K3 in its three modes, K7:
+# csrc/basis_sweep.cu, csrc/basis_mgs.cu): (basis dtype, vector dtype) ->
+# entry-point suffix.  The native tiers sweep (f32, f32) and (f64, f64); the
+# compressed basis (bf16, f32) and (f32, f64); the bf16 inner tier (bf16,
+# bf16).  K2x2 takes no bf16 vector: the ICWY step feeds it its vectors in
+# the accumulation dtype.
+SWEEP_FORMS = {(_f32, _f32): "f32", (_f64, _f64): "f64", (_bf16, _f32): "bf16_f32",
+               (_f32, _f64): "f32_f64", (_bf16, _bf16): "bf16_bf16"}
+GRAM2_FORMS = {k: v for k, v in SWEEP_FORMS.items() if k[1] != _bf16}
+# K4's forms, (basis, coefficients, iterate) -> suffix: the dtype of
+# jnp.matmul(y, V) promoted into x (gmres_tpu/solver/gmres.py:546-550)
+AXPY_FORMS = {(_f32, _f32, _f64): "f32_f64", (_f64, _f64, _f64): "f64_f64",
+              (_f32, _f32, _f32): "f32_f32", (_bf16, _f32, _f64): "bf16_f32_f64",
+              (_bf16, _f32, _f32): "bf16_f32_f32", (_f32, _f64, _f64): "f32_f64_f64",
+              (_bf16, _bf16, _f64): "bf16_bf16_f64", (_bf16, _bf16, _f32): "bf16_bf16_f32"}
+for _sfx in SWEEP_FORMS.values():
+    _SIGNATURES[f"gmres_basis_gram_{_sfx}"] = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+    _SIGNATURES[f"gmres_basis_update_{_sfx}"] = (_P, _P, _P, _P, _I, _I, _I, _P)
+    _SIGNATURES[f"gmres_basis_update_sumsq_{_sfx}"] = (_P, _P, _P, _P, _P, _I, _I, _I, _P)
+    _SIGNATURES[f"gmres_basis_update_gram_{_sfx}"] = (
+        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P) if _sfx == "f64" else
+        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P))
+    _SIGNATURES[f"gmres_basis_mgs_{_sfx}"] = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I,
+                                              _I, _I, _P, _P, _P)
+for _sfx in GRAM2_FORMS.values():
+    _SIGNATURES[f"gmres_basis_gram2_{_sfx}"] = (_P, _P, _P, _P, _I, _I, _I, _P)
+for _sfx in AXPY_FORMS.values():
+    _SIGNATURES[f"gmres_basis_axpy_{_sfx}"] = (_P, _P, _P, _I, _I, _P)
 
 
 class KernelLibrary:
@@ -255,6 +267,26 @@ def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def acc_dtype(w_dtype: torch.dtype) -> torch.dtype:
+    """The accumulation dtype of a sweep against vectors of ``w_dtype``:
+    fp64 under fp64, else fp32 (csrc/common.cuh: acc_t)."""
+    return _f64 if w_dtype == _f64 else _f32
+
+
+def form(name: str, forms: dict, *dtypes: torch.dtype) -> str:
+    """The entry-point suffix of the dtype form ``dtypes`` in ``forms``;
+    raise TypeError for a combination the kernel has no form for (checked
+    before anything is built)."""
+    sfx = forms.get(tuple(dtypes))
+    if sfx is None:
+        have = ", ".join("(" + ", ".join(str(d).removeprefix("torch.") for d in k) + ")"
+                         for k in forms)
+        raise TypeError(f"{name}: no kernel form for "
+                        f"({', '.join(str(d).removeprefix('torch.') for d in dtypes)}); "
+                        f"the forms are {have}")
+    return sfx
 
 
 def kernel_dtype(name: str, t: torch.Tensor) -> str:

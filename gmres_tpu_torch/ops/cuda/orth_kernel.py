@@ -15,18 +15,37 @@ Replaces ``gmres_tpu/ops/pallas/orth_kernel.py``'s ``_gram``, ``_gram2``,
 rows are read: inside the Arnoldi loop rows k+1..m are still zero, so the
 solver passes ``rows = k + 1`` (the host loop index) and the result is the
 same as a sweep over all m+1 rows.  Outputs keep the full (m+1,) length
-with zeros past ``rows``.  Sums are taken in the basis dtype (fp32 or
-fp64), as in the TPU kernels for fp32.
+with zeros past ``rows``.
+
+Dtype forms (``_build.SWEEP_FORMS``): the basis V in fp32 or fp64 against
+vectors of its own dtype, and for the compressed-basis and bf16 tiers a
+bf16 basis against fp32 or bf16 vectors and an fp32 basis against fp64
+ones.  Sums run in the accumulation dtype (``_build.acc_dtype``: fp64 under
+fp64 vectors, else fp32) and the outputs are rounded to the vectors'
+dtype, as the TPU kernels do: u2 of ``update_gram`` and ||w'||^2 of
+``update_sumsq`` are taken from w' before it is rounded, and the sum of
+squares stays in the accumulation dtype.  K2x2's outputs are its
+partials' dtype; the ICWY step passes it vectors in the accumulation
+dtype.  A CUDA tensor in a combination without a form raises; the plain
+versions compute every combination the same way.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections import Counter
 
 import torch
 
 from gmres_tpu_torch.ops.blas import all_reduce
-from gmres_tpu_torch.ops.cuda._build import check, kernel_dtype, library
+from gmres_tpu_torch.ops.cuda._build import (
+    GRAM2_FORMS,
+    SWEEP_FORMS,
+    acc_dtype,
+    check,
+    form,
+    library,
+)
 
 # K2's tile width (csrc/basis_sweep.cu: kGramTileCols) and the blocks per SM
 # of its persistent grid (4 fit an SM; the fastest in the grid table of
@@ -41,25 +60,41 @@ def _rows_ok(V: torch.Tensor, rows: int) -> None:
                          f"{tuple(V.shape)}")
 
 
-def _sweep_args(name: str, V: torch.Tensor, rows: int, **vecs):
-    """Validate the sweep's arguments (before anything is built); return
-    (library, suffix, m+1, n, number of blocks)."""
+def _sweep_args(name: str, V: torch.Tensor, rows: int, forms=SWEEP_FORMS, **vecs):
+    """Validate the sweep's arguments (before anything is built): the
+    (basis, vector) dtype form first, then every vector against the first
+    one's dtype; return (library, suffix, m+1, n, number of blocks)."""
     _rows_ok(V, rows)
-    sfx = kernel_dtype(name, V)
+    w_dtype = next(iter(vecs.values()))[0].dtype
+    sfx = form(name, forms, V.dtype, w_dtype)
     m1, n = V.shape
     check("V", V, V.dtype, (m1, n), V.device)
     for vname, (t, length) in vecs.items():
-        check(vname, t, V.dtype, (length,), V.device)
+        check(vname, t, w_dtype, (length,), V.device)
     lib = library()
     if m1 > lib.max_rows:
         raise ValueError(f"{name}: basis height {m1} > {lib.max_rows}")
     return lib, sfx, m1, n, -(-n // lib.tile)
 
 
+def _count(wrapper, sfx: str) -> None:
+    """One launch of ``wrapper``'s kernel in the form ``sfx``."""
+    wrapper.launches += 1
+    wrapper.forms[sfx] += 1
+
+
+def _combination(V, coef, rows: int, acc: torch.dtype) -> torch.Tensor:
+    """sum_j coef[j] V[j] over the first ``rows`` rows, in ``acc``."""
+    return torch.mv(V[:rows].to(acc).t(), coef[:rows].to(acc))
+
+
 def gram_plain(V: torch.Tensor, w: torch.Tensor, rows: int) -> torch.Tensor:
+    """u = V w over the first ``rows`` rows, summed in the accumulation
+    dtype and rounded to w's."""
     _rows_ok(V, rows)
-    u = torch.zeros(V.shape[0], dtype=V.dtype, device=V.device)
-    u[:rows] = torch.mv(V[:rows], w)
+    acc = acc_dtype(w.dtype)
+    u = torch.zeros(V.shape[0], dtype=w.dtype, device=V.device)
+    u[:rows] = torch.mv(V[:rows].to(acc), w.to(acc)).to(w.dtype)
     return u
 
 
@@ -84,8 +119,9 @@ class GramPlan:
 def gram_plan(n: int, itemsize: int, sms: int, blocks_per_sm: int = GRAM_BLOCKS_PER_SM,
               threads: int = 256) -> GramPlan:
     """Tiles of GRAM_TILE columns (each thread covering GRAM_TILE / (threads
-    x 16 / itemsize) 16-byte chunks of one), and a grid of blocks_per_sm
-    blocks on each SM, no more than there are tiles."""
+    x 16 / itemsize) 16-byte chunks of a basis row of ``itemsize``-byte
+    values), and a grid of blocks_per_sm blocks on each SM, no more than
+    there are tiles."""
     if GRAM_TILE % (threads * (16 // itemsize)):
         raise ValueError(f"K2: tile of {GRAM_TILE} columns for {threads} threads")
     n_tiles = -(-n // GRAM_TILE)
@@ -96,7 +132,8 @@ def gram_plan(n: int, itemsize: int, sms: int, blocks_per_sm: int = GRAM_BLOCKS_
 def tile_row_split(cols: int, phase: int, vec: int, threads: int = 256):
     """How K2's general form splits one row's tile of ``cols`` columns whose
     first 16-byte aligned column is ``phase``: (starts of the vec-column
-    vector loads, columns read one by one).  Thread t reads head column t <
+    vector loads, columns read one by one); ``vec`` is the basis's values
+    in 16 bytes (8 bf16, 4 fp32, 2 fp64).  Thread t reads head column t <
     phase and chunks phase + (u*threads + t)*vec for u < GRAM_TILE / (threads
     x vec), in scalars where a chunk crosses the tile's end."""
     vector, scalar = [], [c for c in range(min(phase, threads)) if c < cols]
@@ -126,9 +163,10 @@ UG_STATIC_BYTES = 128  # the kernel's static shared memory, rounded up
 class UpdateGramPlan(GramPlan):
     """K3 GRAM's launch geometry: GramPlan's tiles and persistent grid, the
     stride of the (rows, stride) tile partials (n_tiles rounded up to whole
-    16-byte chunks) and the dynamic shared bytes of a block (u's ``rows``
-    values and a ring of two stages, each the tile's ``rows`` basis rows and
-    w's tile)."""
+    16-byte chunks of the accumulation dtype) and the dynamic shared bytes
+    of a block (u's ``rows`` values in the accumulation dtype, the
+    unrounded w' of a bf16 w, and a ring of two stages, each the tile's
+    ``rows`` basis rows and w's tile)."""
 
     rows: int
     stride: int
@@ -137,17 +175,24 @@ class UpdateGramPlan(GramPlan):
 
 
 def update_gram_plan(n: int, rows: int, itemsize: int, sms: int,
-                     blocks_per_sm: int | None = None) -> UpdateGramPlan:
-    """The widest tile of whole UG_LINE-byte lines whose two stages, each
-    (rows + 1) tile rows, and u's ``rows`` values in whole 16-byte chunks
-    fit UG_SMEM_BUDGET, capped at UG_MAX_ROW_BYTES a row; as many blocks an
-    SM as the stages leave room for, up to UG_BLOCKS_PER_SM (or
-    ``blocks_per_sm``), no more than there are tiles."""
-    vec, line = 16 // itemsize, UG_LINE // itemsize
-    u_slots = -(-rows // vec) * vec
-    fit = (UG_SMEM_BUDGET // itemsize - u_slots) // (2 * (rows + 1)) // line * line
+                     blocks_per_sm: int | None = None,
+                     w_itemsize: int | None = None) -> UpdateGramPlan:
+    """The widest tile of whole UG_LINE-byte lines of a basis row
+    (``itemsize`` bytes a value) whose two stages, each ``rows`` basis rows
+    and w's row (``w_itemsize``, by default the basis's), the unrounded w'
+    of a bf16 w and u's ``rows`` values in whole 16-byte chunks of the
+    accumulation dtype fit UG_SMEM_BUDGET, capped at UG_MAX_ROW_BYTES a
+    basis row; as many blocks an SM as the stages leave room for, up to
+    UG_BLOCKS_PER_SM (or ``blocks_per_sm``), no more than there are
+    tiles."""
+    w_itemsize = w_itemsize or itemsize
+    acc = 8 if w_itemsize == 8 else 4
+    vec, line = 16 // acc, UG_LINE // itemsize
+    u_bytes = -(-rows // vec) * vec * acc
+    per_col = 2 * (rows * itemsize + w_itemsize) + (acc if w_itemsize != acc else 0)
+    fit = (UG_SMEM_BUDGET - u_bytes) // per_col // line * line
     tile = min(fit, UG_MAX_ROW_BYTES // itemsize)
-    shared = (2 * (rows + 1) * tile + u_slots) * itemsize
+    shared = u_bytes + tile * per_col
     per_sm = blocks_per_sm or min(
         UG_BLOCKS_PER_SM,
         SM_SHARED_BYTES // (shared + UG_STATIC_BYTES + BLOCK_RESERVED_BYTES))
@@ -191,17 +236,18 @@ def gram_cuda(V: torch.Tensor, w: torch.Tensor, rows: int,
     sms, ticket = _gram_state(V.device)
     plan = gram_plan(n, V.element_size(), sms, blocks_per_sm or GRAM_BLOCKS_PER_SM,
                      lib.threads)
-    u = torch.empty(m1, dtype=V.dtype, device=V.device)
-    partials = torch.empty(rows * plan.n_tiles, dtype=V.dtype, device=V.device)
+    u = torch.empty(m1, dtype=w.dtype, device=V.device)
+    partials = torch.empty(rows * plan.n_tiles, dtype=acc_dtype(w.dtype), device=V.device)
     lib.call(f"gmres_basis_gram_{sfx}", V.data_ptr(), w.data_ptr(), u.data_ptr(),
              partials.data_ptr(), ticket.data_ptr(), n, rows, m1, plan.tile, plan.n_tiles,
              plan.grid)
-    gram_cuda.launches += 1
+    _count(gram_cuda, sfx)
     gram_cuda.grid = plan.grid
     return u
 
 
 gram_cuda.launches = 0
+gram_cuda.forms = Counter()
 gram_cuda.grid = 0
 
 
@@ -210,23 +256,28 @@ def gram2_plain(V: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor, rows: int):
 
 
 def gram2_cuda(V: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor, rows: int):
-    """K2x2: (V w0, V w1) from per-block partials, V read once."""
-    lib, sfx, m1, n, nb = _sweep_args("gram2", V, rows, w0=(w0, V.shape[1]),
+    """K2x2: (V w0, V w1) from per-block partials, V read once; the
+    outputs in the accumulation dtype (w0's for every form it has)."""
+    lib, sfx, m1, n, nb = _sweep_args("gram2", V, rows, GRAM2_FORMS, w0=(w0, V.shape[1]),
                                       w1=(w1, V.shape[1]))
-    partials = torch.empty((nb, m1, 2), dtype=V.dtype, device=V.device)
+    partials = torch.empty((nb, m1, 2), dtype=acc_dtype(w0.dtype), device=V.device)
     lib.call(f"gmres_basis_gram2_{sfx}", V.data_ptr(), w0.data_ptr(), w1.data_ptr(),
              partials.data_ptr(), n, rows, m1)
-    gram2_cuda.launches += 1
+    _count(gram2_cuda, sfx)
     u = partials.sum(dim=0)
     return u[:, 0], u[:, 1]
 
 
 gram2_cuda.launches = 0
+gram2_cuda.forms = Counter()
 
 
 def update_plain(V, w, u, rows: int):
+    """w - u^T V over the first ``rows`` rows, in the accumulation dtype,
+    rounded to w's."""
     _rows_ok(V, rows)
-    return w - torch.mv(V[:rows].t(), u[:rows])
+    acc = acc_dtype(w.dtype)
+    return (w.to(acc) - _combination(V, u, rows, acc)).to(w.dtype)
 
 
 def update_cuda(V, w, u, rows: int):
@@ -235,17 +286,21 @@ def update_cuda(V, w, u, rows: int):
     w1 = torch.empty_like(w)
     lib.call(f"gmres_basis_update_{sfx}", V.data_ptr(), w.data_ptr(), u.data_ptr(),
              w1.data_ptr(), n, rows, m1)
-    update_cuda.launches += 1
+    _count(update_cuda, sfx)
     return w1
 
 
 update_cuda.launches = 0
+update_cuda.forms = Counter()
 
 
 def update_gram_plain(V, w, u, rows: int):
+    """(w', V w') with w' = w - u^T V: u2 from w' before it is rounded to
+    w's dtype (``orth_kernel.py:144-160``)."""
     _rows_ok(V, rows)
-    w1 = w - torch.mv(V[:rows].t(), u[:rows])
-    return w1, gram_plain(V, w1, rows)
+    acc = acc_dtype(w.dtype)
+    w1 = w.to(acc) - _combination(V, u, rows, acc)
+    return w1.to(w.dtype), gram_plain(V, w1, rows).to(w.dtype)
 
 
 # K3 GRAM in fp64: dynamic shared bytes a block requests, and does not use,
@@ -256,56 +311,64 @@ UG_F64_PAD = 100_000
 
 
 def update_gram_cuda(V, w, u, rows: int, blocks_per_sm: int | None = None):
-    """K3 GRAM: (w - u^T V, V (w - u^T V)).  fp32: one launch, each basis
-    tile read from device memory once (the last block adds the tiles'
-    partials); ``blocks_per_sm`` overrides the plan's, and the bits do not
-    depend on the grid.  fp64: the one-row-at-a-time arithmetic and bits,
-    block partials added by torch.sum (``blocks_per_sm`` does not apply)."""
+    """K3 GRAM: (w - u^T V, V (w - u^T V)).  fp32 and the mixed forms:
+    one launch, each basis tile read from device memory once (the last
+    block adds the tiles' partials); ``blocks_per_sm`` overrides the plan's,
+    and the bits do not depend on the grid.  fp64: the one-row-at-a-time
+    arithmetic and bits, block partials added by torch.sum
+    (``blocks_per_sm`` does not apply)."""
     lib, sfx, m1, n, nb = _sweep_args("update_gram", V, rows, w=(w, V.shape[1]),
                                       u=(u, V.shape[0]))
     w1 = torch.empty_like(w)
-    if V.dtype == torch.float64:
+    if sfx == "f64":
         partials = torch.empty((nb, m1), dtype=V.dtype, device=V.device)
         lib.call("gmres_basis_update_gram_f64", V.data_ptr(), w.data_ptr(), u.data_ptr(),
                  w1.data_ptr(), partials.data_ptr(), n, rows, m1, UG_F64_PAD)
-        update_gram_cuda.launches += 1
+        _count(update_gram_cuda, sfx)
         update_gram_cuda.grid = nb
         return w1, partials.sum(dim=0)
     sms, ticket = _gram_state(V.device)
-    plan = update_gram_plan(n, rows, V.element_size(), sms, blocks_per_sm)
-    u2 = torch.empty(m1, dtype=V.dtype, device=V.device)
-    partials = torch.empty(rows * plan.stride, dtype=V.dtype, device=V.device)
+    plan = update_gram_plan(n, rows, V.element_size(), sms, blocks_per_sm, w.element_size())
+    u2 = torch.empty(m1, dtype=w.dtype, device=V.device)
+    partials = torch.empty(rows * plan.stride, dtype=acc_dtype(w.dtype), device=V.device)
     lib.call(f"gmres_basis_update_gram_{sfx}", V.data_ptr(), w.data_ptr(), u.data_ptr(),
              w1.data_ptr(), u2.data_ptr(), partials.data_ptr(), ticket.data_ptr(), n, rows,
              m1, plan.tile, plan.n_tiles, plan.stride, plan.grid, plan.shared_bytes)
-    update_gram_cuda.launches += 1
+    _count(update_gram_cuda, sfx)
     update_gram_cuda.grid = plan.grid
     return w1, u2
 
 
 update_gram_cuda.launches = 0
+update_gram_cuda.forms = Counter()
 update_gram_cuda.grid = 0
 
 
 def update_sumsq_plain(V, w, u, rows: int):
+    """(w', ||w'||^2) with w' = w - u^T V: the sum of squares of w' before
+    it is rounded to w's dtype, in the accumulation dtype
+    (``orth_kernel.py:192-207``)."""
     _rows_ok(V, rows)
-    w2 = w - torch.mv(V[:rows].t(), u[:rows])
-    return w2, torch.dot(w2, w2)
+    acc = acc_dtype(w.dtype)
+    w2 = w.to(acc) - _combination(V, u, rows, acc)
+    return w2.to(w.dtype), torch.dot(w2, w2)
 
 
 def update_sumsq_cuda(V, w, u, rows: int):
-    """K3 with SUMSQ: (w - u^T V, ||w - u^T V||^2) in one sweep."""
+    """K3 with SUMSQ: (w - u^T V, ||w - u^T V||^2) in one sweep, the sum of
+    squares in the accumulation dtype."""
     lib, sfx, m1, n, nb = _sweep_args("update_sumsq", V, rows, w=(w, V.shape[1]),
                                       u=(u, V.shape[0]))
     w2 = torch.empty_like(w)
-    partials = torch.empty(nb, dtype=V.dtype, device=V.device)
+    partials = torch.empty(nb, dtype=acc_dtype(w.dtype), device=V.device)
     lib.call(f"gmres_basis_update_sumsq_{sfx}", V.data_ptr(), w.data_ptr(), u.data_ptr(),
              w2.data_ptr(), partials.data_ptr(), n, rows, m1)
-    update_sumsq_cuda.launches += 1
+    _count(update_sumsq_cuda, sfx)
     return w2, partials.sum()
 
 
 update_sumsq_cuda.launches = 0
+update_sumsq_cuda.forms = Counter()
 
 
 def gram(V, w, rows: int):
@@ -334,12 +397,13 @@ def cgsr2(V, w, rows: int, comm=None):
 
         u1 = V w;  (w1, u2) = update_gram;  (w2, ss) = update_sumsq
 
-    Returns (h = u1 + u2, w2, ||w2||), the norm exact for the returned
-    vector (``orth_kernel.py:cgsr2_pallas``).  With ``comm`` each sweep's
+    Returns (h = u1 + u2, w2, ||w2||) in w's dtype, the norm taken from
+    the sum of squares of w2 before it is rounded (``orth_kernel.py:
+    cgsr2_pallas``).  With ``comm`` each sweep's
     reduction (u1, u2, ss) is summed over the ranks before the next sweep
     uses it (``orth_kernel.py:248-256``)."""
     u1 = all_reduce(gram(V, w, rows), comm)
     w1, u2 = update_gram(V, w, u1, rows)
     u2 = all_reduce(u2, comm)
     w2, ss = update_sumsq(V, w1, u2, rows)
-    return u1 + u2, w2, torch.sqrt(all_reduce(ss, comm))
+    return u1 + u2, w2, torch.sqrt(all_reduce(ss, comm)).to(w.dtype)

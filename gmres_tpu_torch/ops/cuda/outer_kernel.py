@@ -16,9 +16,12 @@ the port's outer phase matches the reference's CPU branch.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
-from gmres_tpu_torch.ops.cuda._build import check, kernel_dtype, library
+from gmres_tpu_torch.ops.blas import all_reduce
+from gmres_tpu_torch.ops.cuda._build import AXPY_FORMS, acc_dtype, check, form, library
 from gmres_tpu_torch.ops.cuda.sell_kernel import sell_residual_cuda, sell_residual_plain
 from gmres_tpu_torch.ops.cuda.spmv_kernel import dia_residual_cuda, dia_residual_plain
 from gmres_tpu_torch.ops.dia import DIAMatrix
@@ -33,7 +36,15 @@ def outer_residual(A, b: torch.Tensor, x: torch.Tensor, inner_dtype: torch.dtype
     DIA operator takes K1's residual mode, a SELL operator K5's and a
     rank's block of a halo DIA operator K12's; a CPU operator, or a CSR
     one, the plain version.  With ``comm`` the rows are the rank's and the
-    two sums are summed over the ranks in one collective."""
+    two sums are summed over the ranks in one collective.  The residual
+    modes round r' to fp32 or fp64; under a bf16 inner dtype ||r'||^2 is
+    taken from r rounded to bf16 by torch ops (``gmres_tpu/solver/gmres.py:
+    498-500``: the norm of the bf16 start vector, taken in bf16)."""
+    if inner_dtype == torch.bfloat16:
+        r, _, x_ss = outer_residual(A, b, x, A.dtype, comm)
+        ri = r.to(inner_dtype)
+        r_norm = torch.sqrt(all_reduce(torch.dot(ri, ri), comm))
+        return r, r_norm.to(torch.float64) ** 2, x_ss
     if isinstance(A, DIAMatrix):
         fn = dia_residual_cuda if A.data.is_cuda else dia_residual_plain
         return fn(A.data, A.offsets, b, x, inner_dtype)
@@ -52,36 +63,42 @@ def outer_residual(A, b: torch.Tensor, x: torch.Tensor, inner_dtype: torch.dtype
 
 
 def basis_axpy_plain(x: torch.Tensor, V: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """x += (y @ V[:len(y)]) promoted to x's dtype, in place; returns x."""
+    """x += (y @ V[:len(y)]) promoted to x's dtype, in place; returns x.
+    The increment has the dtype of ``jnp.matmul(y, V)`` (the promotion of
+    y's and V's dtypes; ``gmres_tpu/solver/gmres.py:546-550``), summed in
+    its accumulation dtype (fp32 for a bf16 increment)."""
     rows = y.shape[0]
-    x += torch.mv(V[:rows].t(), y).to(x.dtype)
+    inc = torch.promote_types(y.dtype, V.dtype)
+    acc = acc_dtype(inc)
+    x += torch.mv(V[:rows].to(acc).t(), y.to(acc)).to(inc).to(x.dtype)
     return x
 
 
 def basis_axpy_cuda(x: torch.Tensor, V: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """K4: x += sum_j y[j] V[j], summed in the basis dtype and added to x
-    (fp64, or fp32 under uniform fp32) in place; the increment is never
-    written to memory."""
-    name = f"gmres_basis_axpy_{kernel_dtype('V', V)}_{kernel_dtype('x', x)}"
-    if name not in ("gmres_basis_axpy_f32_f64", "gmres_basis_axpy_f64_f64",
-                    "gmres_basis_axpy_f32_f32"):
-        raise TypeError(f"basis_axpy: basis {V.dtype} into iterate {x.dtype}")
+    """K4: x += sum_j y[j] V[j] in place, in one of ``AXPY_FORMS``: summed
+    in the accumulation dtype of jnp's promotion of (y, V) (fp64 for an fp64
+    y, else fp32; a bf16 y rounds the increment to bf16) and added to x; the
+    increment is never written to memory."""
+    sfx = form("basis_axpy", AXPY_FORMS, V.dtype, y.dtype, x.dtype)
+    name = f"gmres_basis_axpy_{sfx}"
     rows = y.shape[0]
     if V.dim() != 2 or not 1 <= rows <= V.shape[0]:
         raise ValueError(f"basis_axpy: {rows} coefficients for V of shape {tuple(V.shape)}")
     n = V.shape[1]
     check("V", V, V.dtype, tuple(V.shape), V.device)
-    check("y", y, V.dtype, (rows,), V.device)
+    check("y", y, y.dtype, (rows,), V.device)
     check("x", x, x.dtype, (n,), V.device)
     lib = library()
     if rows > lib.max_rows:
         raise ValueError(f"basis_axpy: {rows} basis rows > {lib.max_rows}")
     lib.call(name, V.data_ptr(), y.data_ptr(), x.data_ptr(), n, rows)
     basis_axpy_cuda.launches += 1
+    basis_axpy_cuda.forms[sfx] += 1
     return x
 
 
 basis_axpy_cuda.launches = 0
+basis_axpy_cuda.forms = Counter()
 
 
 def basis_axpy(x, V, y):
@@ -118,6 +135,7 @@ def basis_axpy_pair_cuda(x: torch.Tensor, Vh: torch.Tensor, Vl: torch.Tensor,
     lib.call("gmres_basis_axpy_pair", Vh.data_ptr(), Vl.data_ptr(), y.data_ptr(), x.data_ptr(),
              n, rows)
     basis_axpy_cuda.launches += 1
+    basis_axpy_cuda.forms["pair"] += 1
     return x
 
 

@@ -10,7 +10,8 @@ host, with the same gates as ``gmres_tpu.ops.dia.from_csr``: DIA stores
 D*n values against CSR's nnz.
 
 ``dia_spmv`` sends a CUDA tensor to kernel K1 (``csrc/dia_spmv.cu``) in
-fp32 and fp64 at every size, and a CPU tensor to the plain version.
+fp32 and fp64 at every size, and a CPU tensor to the plain version; a bf16
+operator runs plain torch ops on either device.
 ``DF64Dia`` is the df64 tier's view of an fp64 DIA matrix as (hi, lo) fp32
 band pairs; ``dia_spmv_df64`` sends it to kernel K8 (``csrc/df64_spmv.cu``)
 on the card and to K8's plain version on the CPU.
@@ -114,8 +115,14 @@ def from_csr(A: CSRMatrix, max_fill: float = 3.0, max_diags: int = 256) -> DIAMa
 
 
 def dia_spmv(A: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x in A's dtype (x is cast first)."""
+    """y = A @ x in A's dtype (x is cast first).  A bf16 operator (the bf16
+    inner tier) takes plain torch ops on either device, the JAX package's
+    XLA formula ``y = y + data[d] * shift(x)`` with every product and sum
+    rounded to bf16 (``gmres_tpu/ops/dia.py:175-205``: bf16 DIA stays on
+    XLA there); K1 has no bf16 form."""
     x = x.to(A.data.dtype)
+    if A.data.dtype == torch.bfloat16:
+        return dia_spmv_plain(A.data, A.offsets, x)
     if A.data.is_cuda:
         return dia_spmv_cuda(A.data, A.offsets, x)
     return dia_spmv_plain(A.data, A.offsets, x)

@@ -9,6 +9,13 @@ basis sweep reads only those rows, through the kernels on the card
 in fp32 and fp64 alike.  The JAX package's ``assume_zero_tail`` flag has
 nothing left to select and is not carried.
 
+The compressed basis stores ``V`` narrower than ``w`` (bf16 under an fp32
+``w``, fp32 under fp64), and the bf16 inner tier sweeps a bf16 ``V`` against
+a bf16 ``w``: the kernels' dtype forms sum in the accumulation dtype (fp32,
+or fp64 under fp64) and return ``w``'s dtype (``ops/cuda/orth_kernel.py``),
+and the norms here are taken in the accumulation dtype too, as the JAX
+package takes them for a bf16 ``w`` (``gmres_tpu/ops/orth.py:318-323``).
+
 In a distributed solve ``V`` and ``w`` are the rank's rows and ``comm``
 (``parallel/comm.py``) sums each reduction over the ranks where the JAX
 package psums: once after each gram and sum of squares, and for
@@ -21,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from gmres_tpu_torch.ops.blas import all_reduce, dot, nrm2
+from gmres_tpu_torch.ops.cuda._build import acc_dtype
 from gmres_tpu_torch.ops.cuda.mgs_kernel import mgs as mgs_sweep
 from gmres_tpu_torch.ops.cuda.orth_kernel import cgsr2, gram, gram2, update, update_sumsq
 
@@ -53,18 +61,23 @@ def mgs_lowsync_step(V: torch.Tensor, k: int, w: torch.Tensor, L: torch.Tensor, 
 
     two basis sweeps (K2x2, then K3 SUMSQ) and a unit-lower-triangular
     (m+1)x(m+1) solve; distributed, one collective after each sweep.  ``L``
-    is the strictly lower coupling matrix in the basis dtype (fp32 for an
-    fp32 basis, fp64 for fp64), updated in place.  Rows > k of V and L are
-    zero, so h is zero past k.  Returns (h, w', ||w'||^2, L)."""
+    is the strictly lower coupling matrix in the accumulation dtype (fp32
+    under an fp32 or bf16 ``w``, fp64 under fp64; ``gmres_tpu/solver/
+    gmres.py:209,222``), updated in place; both sweeps take w and v_k in that
+    dtype, and h and w' return in w's (``gmres_tpu/ops/orth.py:159-181``).
+    Rows > k of V and L are zero, so h is zero past k.  Returns (h, w',
+    ||w'||^2, L)."""
     rows = k + 1
-    u, ell = gram2(V, w, V[k], rows)
+    acc = L.dtype
+    wa = w.to(acc)
+    u, ell = gram2(V, wa, V[k].to(acc), rows)
     if comm is not None:
         u, ell = comm.all_reduce_sum(torch.stack([u, ell], dim=1)).unbind(1)
     L[k, :k] = ell[:k]
     h = torch.linalg.solve_triangular(L, u.unsqueeze(1), upper=False,
                                       unitriangular=True).squeeze(1)
-    w2, ss = update_sumsq(V, w, h, rows)
-    return h, w2, all_reduce(ss, comm), L
+    w2, ss = update_sumsq(V, wa, h, rows)
+    return h.to(w.dtype), w2.to(w.dtype), all_reduce(ss, comm), L
 
 
 def cgsr(V: torch.Tensor, k: int, w: torch.Tensor, orth_steps: int = 2, comm=None):
@@ -98,8 +111,12 @@ def orthonormalize_step(kind: str, V, k: int, w, orth_steps: int = 2, comm=None)
     if kind == "cgs":
         u = all_reduce(gram(V, w, k + 1), comm)
         w2, ss = update_sumsq(V, w, u, k + 1)
-        return u, w2, torch.sqrt(all_reduce(ss, comm))
+        return u, w2, torch.sqrt(all_reduce(ss, comm)).to(w.dtype)
     if kind == "mgs":
         return mgs(V, k, w, comm)
     h, w = orthogonalize(kind, V, k, w, orth_steps, comm)
-    return h, w, nrm2(w, comm)
+    acc = acc_dtype(w.dtype)
+    if acc == w.dtype:
+        return h, w, nrm2(w, comm)
+    wa = w.to(acc)
+    return h, w, torch.sqrt(all_reduce(torch.dot(wa, wa), comm)).to(w.dtype)

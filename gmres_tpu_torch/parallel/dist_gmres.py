@@ -174,6 +174,10 @@ def _require_supported_dist(A, cfg: GmresConfig, checkpoint) -> None:
     if not isinstance(A, CSRMatrix):
         raise TypeError(f"solve_distributed partitions a CSRMatrix, got {type(A).__name__}")
     _require_supported(cfg.with_(axis_name=None))
+    p = cfg.precision
+    if p.basis is not None or "bfloat16" in (p.outer, p.inner, p.precond):
+        raise NotImplementedError(
+            "the distributed compressed basis and bf16 tier are slice 7b of the port")
     if cfg.precision.df64_inner:
         raise NotImplementedError(
             "the distributed df64 tier (pair halo exchange and pair reductions) is slice 7b "

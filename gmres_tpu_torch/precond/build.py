@@ -148,10 +148,16 @@ class ExactILUDIAPrec:
             self.seg))
 
 
-def _safeguarded_inverse(dv: np.ndarray, row_abs: np.ndarray, dtype) -> torch.Tensor:
+def _rounded(values: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    """``values`` rounded to ``dtype`` (to nearest even; torch also rounds
+    to bf16, which numpy has no dtype for), returned in fp64."""
+    return torch.from_numpy(np.asarray(values, dtype=np.float64)).to(dtype).double().numpy()
+
+
+def _safeguarded_inverse(dv: np.ndarray, row_abs: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     alpha = float(np.finfo(np.float32).eps) * float(row_abs.max(initial=0.0))
     clamped = np.where(dv >= 0, np.maximum(dv, alpha), np.minimum(dv, -alpha))
-    return torch.from_numpy((1.0 / clamped).astype(dtype))
+    return torch.from_numpy(1.0 / clamped).to(dtype)
 
 
 def build_jacobi(A: CSRMatrix, dtype: torch.dtype) -> JacobiPrec:
@@ -161,26 +167,24 @@ def build_jacobi(A: CSRMatrix, dtype: torch.dtype) -> JacobiPrec:
     ci = ci[:nnz].astype(np.int64)
     # the reference builds Jacobi<PrecType> from a PrecType copy of A, so
     # the row norms and the diagonal come from the downcast values
-    ndt = _NUMPY_DTYPE[dtype]
-    v = vals[:nnz].astype(ndt).astype(np.float64)
+    v = _rounded(vals[:nnz], dtype)
     row_ids = np.repeat(np.arange(A.n_rows, dtype=np.int64), np.diff(rp))
     row_abs = np.zeros(A.n_rows)
     np.add.at(row_abs, row_ids, np.abs(v))
     dv = v[diag_positions(rp, ci)]
-    return JacobiPrec(inv_diag=_safeguarded_inverse(dv, row_abs, ndt))
+    return JacobiPrec(inv_diag=_safeguarded_inverse(dv, row_abs, dtype))
 
 
 def build_jacobi_from_dia(A, dtype: torch.dtype) -> JacobiPrec:
     """Jacobi from a DIA operator: the offset-0 band is the diagonal and the
     row 1-norms sum |data| down the bands."""
-    ndt = _NUMPY_DTYPE[dtype]
-    data = A.data.cpu().numpy().astype(np.float64).astype(ndt).astype(np.float64)
+    data = _rounded(A.data.cpu().double().numpy(), dtype)
     try:
         d0 = A.offsets.index(0)
     except ValueError:
         raise ValueError("Jacobi preconditioner: DIA operator has no main diagonal")
     return JacobiPrec(inv_diag=_safeguarded_inverse(
-        data[d0], np.abs(data).sum(axis=0), ndt))
+        data[d0], np.abs(data).sum(axis=0), dtype))
 
 
 def _split_triangles(row_ptr, col_idx, fvals, diag, dtype):
@@ -340,9 +344,6 @@ def build_preconditioner(A, cfg: GmresConfig):
         )
     if cfg.precond == Precond.IDENTITY:
         return IdentityPrec()
-    if dtype not in _NUMPY_DTYPE:
-        raise NotImplementedError(
-            f"a {dtype} preconditioner is slice 5b of the port (bf16 tier)")
     if cfg.precond == Precond.JACOBI:
         if isinstance(A, CSRMatrix):
             return build_jacobi(A, dtype)
@@ -354,6 +355,10 @@ def build_preconditioner(A, cfg: GmresConfig):
             f"{cfg.precond.value} preconditioner needs the CSR matrix; pass the CSR "
             "form to solve() or prebuild M with build_preconditioner(csr, cfg) and "
             "pass it as M=")
+    if dtype not in _NUMPY_DTYPE:
+        raise NotImplementedError(
+            f"a {dtype} ILU preconditioner (ILU-Jacobi or exact ILU) is slice 5c of the "
+            "port; build M in float32 (PrecisionSpec precond='float32')")
     if cfg.precond == Precond.ILU_JACOBI:
         return build_ilu_jacobi(A, dtype, cfg.jacobi_steps)
     if cfg.precond == Precond.ILU:

@@ -56,11 +56,24 @@ uniform fp64 from the caller's matrix with a newly built preconditioner
 (``utils/checkpoint.py``) saves x, the restart count, the iteration count
 and the policy state every ``every`` restarts and resumes from the file.
 
+The compressed basis (``PrecisionSpec.basis``) stores V narrower than the
+inner dtype (bf16 under fp32, fp32 under fp64) while w, H, the Givens
+rotations and every reduction stay in the inner dtype
+(``gmres_tpu/solver/gmres.py:173-179``): the sweeps take the kernels'
+mixed dtype forms, and the solution update sums in the dtype that jnp
+gives (y, V).  The bf16 inner tier runs the whole cycle in bf16; a solve
+that stalls (no 10% gain of the relative residual in 6 restarts, at tol <
+1e-5 with ``bf16_escalation``) continues in fp32 from its iterate
+(``gmres_tpu/solver/gmres.py:1158-1197``; ``GmresResult.stalled``,
+``escalated``).  The JAX package tests for the stall after a chunk of up to
+``host_sync_every`` cycles and escalates from the chunk's last iterate; the
+port reads every cycle, so it escalates from the iterate of the cycle that
+stalled.
+
 Not ported, because they exist for the TPU only: the padding of n to the
 Pallas block size (and of the preconditioner with it), the double-float
 staging of the outer operator and of x (the H100 runs the outer phase in
-native fp64) and the staging cache.  The bf16 escalation comes with the
-bf16 tier (slice 5b of the port).
+native fp64) and the staging cache.
 """
 
 from __future__ import annotations
@@ -74,6 +87,7 @@ import torch
 from gmres_tpu_torch.config import GmresConfig, PrecisionSpec, RestartPolicy, use_lowsync_mgs
 from gmres_tpu_torch.ops import df64
 from gmres_tpu_torch.ops.blas import all_reduce, nrm2
+from gmres_tpu_torch.ops.cuda._build import acc_dtype
 from gmres_tpu_torch.ops.cuda.orth_kernel import gram
 from gmres_tpu_torch.ops.cuda.outer_kernel import basis_axpy, basis_axpy_pair, outer_residual
 from gmres_tpu_torch.ops.dia import DF64Dia, DIAMatrix, from_csr
@@ -139,22 +153,30 @@ class GmresResult:
     history: list | None = None   # per-cycle (i, k, rel_initial, prec_rel0, ...)
     diverged: bool = False
     fellback_to_fp64: bool = False  # diverged, then solved again in uniform fp64
+    stalled: bool = False         # no progress for a window of restarts (bf16 inner)
+    escalated: bool = False       # a bf16 inner loop continued in fp32
 
 
 class _NativeBasis:
-    """The Krylov basis of a cycle in the inner dtype (fp32 or fp64): V of
-    shape (m+1, n), swept by K2/K3 (CGS, CGSR), K7 (sequential MGS) or
-    K2x2 and K3 (ICWY MGS, with its coupling matrix L in the same dtype)."""
+    """The Krylov basis of a cycle: V of shape (m+1, n) stored in the basis
+    dtype (the inner dtype, or narrower under ``PrecisionSpec.basis``),
+    swept by K2/K3 (CGS, CGSR), K7 (sequential MGS) or K2x2 and K3 (ICWY
+    MGS, with its coupling matrix L in the accumulation dtype,
+    ``gmres_tpu/solver/gmres.py:209,222``); w and the scalars stay in the
+    inner dtype, and each new row is rounded to the basis dtype only where
+    it is stored."""
 
     def __init__(self, cfg: GmresConfig, A_in, M, w0: torch.Tensor, beta: torch.Tensor,
                  comm=None):
         self.cfg, self.A_in, self.M, self.comm = cfg, A_in, M, comm
         self.dtype = cfg.precision.inner_dtype
         m, dev = cfg.m, w0.device
-        self.V = torch.zeros((m + 1, w0.shape[0]), dtype=self.dtype, device=dev)
+        self.V = torch.zeros((m + 1, w0.shape[0]), dtype=cfg.precision.basis_dtype,
+                             device=dev)
         self.V[0] = torch.where(beta != 0, w0 / beta, torch.zeros_like(w0))
+        self.v_next = None  # v_{k+1} in the inner dtype, before it is stored
         self.lowsync = use_lowsync_mgs(cfg, dev.type, distributed=comm is not None)
-        self.L = (torch.zeros((m + 1, m + 1), dtype=self.dtype, device=dev)
+        self.L = (torch.zeros((m + 1, m + 1), dtype=acc_dtype(self.dtype), device=dev)
                   if self.lowsync else None)
 
     def step(self, k: int):
@@ -170,12 +192,15 @@ class _NativeBasis:
                                                    comm)
         # the reference divides unconditionally (Orthogonalization.hpp:59);
         # a zero h(k+1,k) gives a zero vector instead of NaNs
-        V[k + 1] = torch.where(h_next != 0, w / h_next, torch.zeros_like(w))
+        self.v_next = torch.where(h_next != 0, w / h_next, torch.zeros_like(w))
+        V[k + 1] = self.v_next
         return h_col, h_next
 
     def gram_next(self, k: int) -> torch.Tensor:
-        """<v_j, v_{k+1}> for j <= k: K2 over rows 0..k leaves row k+1 out."""
-        return all_reduce(gram(self.V, self.V[k + 1], k + 1), self.comm)
+        """<v_j, v_{k+1}> for j <= k: K2 over rows 0..k against v_{k+1} in
+        the inner dtype, as the JAX package sweeps it
+        (``gmres_tpu/solver/gmres.py:250,265``), not the stored row."""
+        return all_reduce(gram(self.V, self.v_next, k + 1), self.comm)
 
     def update(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return basis_axpy(x, self.V, y)
@@ -336,7 +361,8 @@ def restart_cycle(cfg: GmresConfig, A_out, A_in, M, b, x, b_norm, minvb_norm,
 
 
 def drive_restarts(cycle, x, cfg: GmresConfig, record_history=False,
-                   progress=None, checkpoint=None) -> GmresResult:
+                   progress=None, checkpoint=None,
+                   stall_window: int | None = None) -> GmresResult:
     """The host outer loop: the reference's ``check_initial`` bookkeeping
     (restart counting, abort, convergence; ``IterUtil.hpp:42-51``,
     including the count-before-test quirk).  ``cycle(x, pstate, pending)``
@@ -351,7 +377,12 @@ def drive_restarts(cycle, x, cfg: GmresConfig, record_history=False,
     ``checkpoint`` (a ``utils.checkpoint.CheckpointSpec``): a solve resumes
     from the file when it exists, and after every ``every``-th restart the
     pending cycle's length is read first, so that the saved restart count,
-    iteration count, x and policy state describe the same cycle."""
+    iteration count, x and policy state describe the same cycle.
+
+    ``stall_window``: a cycle whose relative residual is not below 0.9 of
+    the best so far, ``stall_window`` or more restarts after the best, ends
+    the solve with ``stalled`` set (``gmres_tpu/solver/gmres.py:1300-1322``),
+    that cycle's update included."""
     pstate = initial_policy_state()
     history = [] if record_history else None
     total_iters = 0
@@ -361,8 +392,9 @@ def drive_restarts(cycle, x, cfg: GmresConfig, record_history=False,
         if state is not None:
             x_np, i, total_iters, pstate = state
             x = torch.tensor(x_np, dtype=x.dtype, device=x.device)
-    converged = aborted = diverged = False
+    converged = aborted = diverged = stalled = False
     rel_prec_res = float("nan")
+    best_rel, best_i = float("inf"), 0
     last = None  # (i, CycleInfo) of the cycle whose tail is still on the device
 
     def settle(tail):
@@ -397,6 +429,11 @@ def drive_restarts(cycle, x, cfg: GmresConfig, record_history=False,
             break
         last = (i, info)
         i += 1
+        if info.rel_initial < 0.9 * best_rel:
+            best_rel, best_i = info.rel_initial, i - 1
+        elif stall_window is not None and i - 1 - best_i >= stall_window:
+            stalled = True
+            break
         if checkpoint is not None and i % checkpoint.every == 0:
             k, arn = last[1].tail.tolist()
             settle((int(k), arn))
@@ -409,7 +446,7 @@ def drive_restarts(cycle, x, cfg: GmresConfig, record_history=False,
     return GmresResult(x=x, converged=converged, aborted=aborted,
                        total_iters=total_iters, restarts=i, final_k=0,
                        rel_prec_res=rel_prec_res, history=history,
-                       diverged=diverged)
+                       diverged=diverged, stalled=stalled)
 
 
 def resolve_device(device) -> torch.device:
@@ -433,10 +470,6 @@ def _vector(v, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
 
 def _require_supported(cfg: GmresConfig) -> None:
     """Raise for configuration values that need parts not ported yet."""
-    p = cfg.precision
-    if p.basis is not None or "bfloat16" in (p.outer, p.inner, p.precond):
-        raise NotImplementedError(
-            "the compressed-basis and bf16 precision tiers are slice 5b of the port")
     if cfg.axis_name is not None:
         raise NotImplementedError(
             "axis_name names the JAX package's mesh axis; a distributed solve is "
@@ -446,11 +479,13 @@ def _require_supported(cfg: GmresConfig) -> None:
 def _format(A, cfg: GmresConfig):
     """With ``cfg.auto_format`` a CSR matrix is repacked on the host: to DIA
     when it is banded enough, else to SELL unless the padding is too large
-    (``gmres_tpu/solver/gmres.py:862-915``); anything else is kept."""
+    (``gmres_tpu/solver/gmres.py:862-915``); anything else is kept.  A bf16
+    inner operator that DIA refuses stays CSR: the JAX package packs SELL
+    for an fp32 inner operator only (``:889-898``), and K5 has no bf16 form."""
     if not (cfg.auto_format and isinstance(A, CSRMatrix)):
         return A
     packed = from_csr(A)
-    if packed is None:
+    if packed is None and cfg.precision.inner_dtype != torch.bfloat16:
         packed = sell_from_csr(A)
     return A if packed is None else packed
 
@@ -510,11 +545,16 @@ def solve(A, b, cfg: GmresConfig | None = None, x0=None, M=None,
     returns the un-permuted solution (``gmres_tpu/solver/gmres.py:1038-1062``).
 
     ``checkpoint`` is a ``utils.checkpoint.CheckpointSpec`` (see
-    ``drive_restarts``).  With ``cfg.nan_fallback`` a diverged solve in any
-    other precision than ``baseline`` is solved again in ``baseline`` from
-    ``A`` with M rebuilt from it (``fellback_to_fp64`` is set and the first
-    solve's times are added); a staged operator with an ILU preconditioner
-    raises ``TypeError`` there, as any solve that needs to build M from it."""
+    ``drive_restarts``).  A bf16 inner loop that stalls (``bf16_escalation``,
+    tol < 1e-5) is continued from its iterate by a solve with an fp32 inner
+    dtype and the restarts left (at least 1), with M rebuilt from ``A`` unless
+    one was given; ``escalated`` is set, the restarts, iterations and times
+    are summed and the histories joined by ``{"escalated": True}``.  Then,
+    with ``cfg.nan_fallback``, a diverged solve in any other precision than
+    ``baseline`` is solved again in ``baseline`` from ``A`` with M rebuilt
+    from it (``fellback_to_fp64`` is set and the first solve's times are
+    added); a staged operator with an ILU preconditioner raises
+    ``TypeError`` there, as any solve that needs to build M from it."""
     cfg = cfg or GmresConfig()
     dev = resolve_device(device)
     _require_supported(cfg)
@@ -536,7 +576,7 @@ def solve(A, b, cfg: GmresConfig | None = None, x0=None, M=None,
             x0 = _permuted(x0, perm)
     out_dt = cfg.precision.outer_dtype
     in_dt = cfg.precision.inner_dtype
-    b_in = b
+    b_in, M_in = b, M
 
     t0 = time.perf_counter()
     if M is None:
@@ -564,12 +604,31 @@ def solve(A, b, cfg: GmresConfig | None = None, x0=None, M=None,
         return restart_cycle(cfg, A_out, A_in, M, b, x, b_norm, minvb_norm,
                              a_norm, pstate, pending)
 
-    result = drive_restarts(cycle, x, cfg, record_history, progress, checkpoint)
+    # a bf16 inner loop floors around a relative residual of ~1e-6: watch
+    # for a stall so that the solve can continue in fp32
+    stall_window = (6 if in_dt == torch.bfloat16 and cfg.bf16_escalation and cfg.tol < 1e-5
+                    else None)
+    result = drive_restarts(cycle, x, cfg, record_history, progress, checkpoint, stall_window)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     result.prec_seconds = prec_seconds
     result.setup_seconds = setup_seconds
     result.solve_seconds = time.perf_counter() - t1
+    if result.stalled and not result.converged and in_dt == torch.bfloat16:
+        p = cfg.precision
+        esc = solve(A, b_in, cfg.with_(
+            precision=PrecisionSpec(outer=p.outer, inner="float32", precond=p.precond),
+            max_restarts=max(1, cfg.max_restarts - result.restarts)),
+            x0=result.x, M=M_in, record_history=record_history, progress=progress,
+            device=dev, checkpoint=checkpoint)
+        esc.escalated = True
+        esc.total_iters += result.total_iters
+        esc.restarts += result.restarts
+        esc.prec_seconds += prec_seconds
+        esc.solve_seconds += result.solve_seconds
+        if record_history:
+            esc.history = result.history + [dict(escalated=True)] + esc.history
+        result = esc
     baseline = PrecisionSpec.from_mode("baseline")
     if result.diverged and cfg.nan_fallback and cfg.precision != baseline:
         fb = solve(A, b_in, cfg.with_(precision=baseline), record_history=record_history,

@@ -3,7 +3,9 @@
 and ``dia_residual_halo``), K10 (``df_update_gram``) and K11
 (``df_update_sumsq``) of one checkout of gmres_tpu_torch on one CUDA
 device, timed as ``chip_smoke.py`` times them, with their outputs saved for
-a bit-for-bit comparison of two checkouts.
+a bit-for-bit comparison of two checkouts; beside them the outputs (and
+times) of K2, K3 SUMSQ, K3 plain, K2x2 and K4 in fp32 and fp64, whose bits
+every change of the sweeps' dtype forms keeps.
 
     python3 scripts/port_kernels.py [--checkout DIR] [--save FILE]
     python3 scripts/port_kernels.py --compare A.pt B.pt
@@ -18,7 +20,10 @@ Shapes are the main path's:
 - K3 GRAM and K7 at convdiff@1M: n = 1,048,576, a 31-row basis of N(0, 1/n)
   entries, w and u of N(0, 1) entries (numpy seed 0, as
   ``chip_smoke.check_kernels``), rows 31 and 16, fp32 and fp64; K7 on the
-  near-orthonormal basis of ``chip_smoke.mgs_basis`` (seed 3).
+  near-orthonormal basis of ``chip_smoke.mgs_basis`` (seed 3).  K2, K3
+  SUMSQ, K3 plain and K2x2 (against w and row rows - 1) on the same inputs
+  as K3 GRAM; K4 with the first 30 values of u into an fp64 x of U(0, 1)
+  entries (seed 1).
 - K12 at the row blocks of convdiff@1M over 4 ranks (r = 262,144, offsets
   +-1 and +-1024, edges of 1024 values; the interior block and the first
   and last, whose open edge is zeros), inputs as
@@ -39,7 +44,8 @@ outputs to FILE with ``torch.save``.
 ``--compare`` reads two such files and prints, for each output, whether the
 two are bit-equal; it exits 1 if K3 GRAM's w', K12's y or residual r,
 K10's w' or K11's w' and sum of squares differ (each redesign keeps those
-bits), else 0.
+bits), or any output of K2, K3 (every mode), K2x2, K7 or K4 in fp32 or
+fp64 (the dtype forms keep those), else 0.
 """
 
 from __future__ import annotations
@@ -60,7 +66,12 @@ ROWS = (31, 16)
 RANKS = 4
 # outputs whose bits each redesign keeps (suffixes of the saved keys)
 KEPT = (("update_gram", "w1"), ("halo_spmv", "y"), ("halo_residual", "r"),
-        ("df_update_gram", "w1"), ("df_update_sumsq", "w1"), ("df_update_sumsq", "sumsq"))
+        ("df_update_gram", "w1"), ("df_update_sumsq", "w1"), ("df_update_sumsq", "sumsq"),
+        # every output of the fp32 and fp64 sweep forms, which the forms for
+        # other dtypes leave as they were
+        ("gram", "u"), ("update_gram", "u2"), ("update_sumsq", "w1"), ("update_sumsq", "ss"),
+        ("update", "w1"), ("gram2", "u0"), ("gram2", "u1"), ("mgs", "h"), ("mgs", "w1"),
+        ("mgs", "norm"), ("axpy", "x"))
 
 
 def _timer_module():
@@ -111,6 +122,40 @@ def measure_sweeps(torch, cs, timer, copy_gbs, times, outs):
             times[f"mgs {key}"] = dict(ms=ms, of_copy=_of_copy(nbytes, ms, copy_gbs),
                                        grid=list(mk.mgs_cuda.grid))
         del V, w, u, Vm, wm
+
+
+def measure_forms_kept(torch, timer, times, outs):
+    """K2, K3 SUMSQ, K3 plain, K2x2 and K4 in fp32 and fp64 on
+    measure_sweeps' inputs: their outputs (and times), after the profiled
+    measurements (late in a long process the profiler records nothing)."""
+    from gmres_tpu_torch.ops.cuda import orth_kernel as ok
+    from gmres_tpu_torch.ops.cuda import outer_kernel as ou
+
+    rng = np.random.default_rng(0)
+    rng.random(N)
+    rng.standard_normal(N)
+    V_np = rng.standard_normal((M1, N)) / np.sqrt(N)
+    w_np = rng.standard_normal(N)
+    u_np = rng.standard_normal(M1)
+    x_np = np.random.default_rng(1).random(N)
+    for name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        V, w, u = (torch.tensor(a, dtype=dt, device="cuda") for a in (V_np, w_np, u_np))
+        for rows in ROWS:
+            key = f"{name} rows {rows}"
+            for label, fn, names in (
+                    ("gram", lambda: ok.gram_cuda(V, w, rows), ("u",)),
+                    ("update_sumsq", lambda: ok.update_sumsq_cuda(V, w, u, rows), ("w1", "ss")),
+                    ("update", lambda: ok.update_cuda(V, w, u, rows), ("w1",)),
+                    ("gram2", lambda: ok.gram2_cuda(V, w, V[rows - 1], rows), ("u0", "u1"))):
+                got = fn()
+                for nm, t in zip(names, got if isinstance(got, tuple) else (got,)):
+                    outs[f"{label} {key} {nm}"] = t.cpu()
+                times[f"{label} {key}"] = dict(ms=timer(fn))
+        x = torch.tensor(x_np, device="cuda")
+        y = u[:M1 - 1].contiguous()
+        outs[f"axpy {name} x"] = ou.basis_axpy_cuda(x.clone(), V, y).cpu()
+        times[f"axpy {name}"] = dict(ms=timer(lambda: ou.basis_axpy_cuda(x.clone(), V, y)))
+        del V, w, u
 
 
 def measure_halo(torch, cs, timer, copy_gbs, times, outs):
@@ -225,6 +270,7 @@ def main() -> int:
     measure_sweeps(torch, cs, timer, copy_gbs, times, outs)
     measure_halo(torch, cs, timer, copy_gbs, times, outs)
     measure_df64(torch, cs, timer, copy_gbs, times, outs)
+    measure_forms_kept(torch, timer, times, outs)
     if args.save:
         torch.save(outs, args.save)
     print(json.dumps(dict(checkout=args.checkout, device=torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Kernels K1-K11 and K2x2 on the card against their plain PyTorch versions,
+"""Kernels K1-K12 and K2x2 on the card against their plain PyTorch versions,
 at small and ragged sizes (n not a multiple of the block, tile, slice or
 segment; n below one tile; empty rows; a long row; n_cols != n_rows;
 one-sided factors; identity tail segments; rows < m+1), K7 bit for bit
@@ -6,7 +6,11 @@ across grid sizes and forms, the df64 kernels K8-K11 and K4's pair mode
 (K8 and the updated pair of K10/K11 bit for bit), K12 (a rank's halo DIA
 block) in plain and residual modes at interior and boundary shards, and
 small DIA, SELL, ILU, MGS, df64 and distributed (two gloo ranks sharing the
-card) solves on the card against the same solves on the CPU.
+card) solves on the card against the same solves on the CPU; the dtype
+forms of the compressed-basis and bf16 tiers (K2, K2x2, K3's three modes,
+K7, K4) against their plain versions at an aligned and a ragged n, K2's and
+K3 GRAM's forms bit for bit across grids and one device kernel a call, and
+compressed-basis and bf16 solves on the card against the CPU.
 
 These need an NVIDIA GPU with the CUDA toolkit: they carry the ``cuda``
 marker and skip elsewhere.  On the card:
@@ -29,7 +33,8 @@ from gmres_tpu_torch.io.synth import convection_diffusion_2d, random_sparse, uns
 from gmres_tpu_torch.ops import eft
 from gmres_tpu_torch.ops.cuda import df64_orth_kernel as dk
 from gmres_tpu_torch.ops.cuda import df64_spmv_kernel as ds
-from gmres_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+from gmres_tpu_torch.ops.cuda import form_launch_counts, launch_counts, reset_launch_counts
+from gmres_tpu_torch.ops.cuda._build import SWEEP_FORMS
 from gmres_tpu_torch.ops.cuda import mgs_kernel as mk
 from gmres_tpu_torch.ops.cuda import orth_kernel as ok
 from gmres_tpu_torch.ops.cuda import outer_kernel as ou
@@ -198,8 +203,18 @@ def test_update_gram_w_keeps_the_one_row_at_a_time_bits():
 
 
 def _one_call(name):
-    """The wrapper call whose device kernels a test counts, on its inputs."""
+    """The wrapper call whose device kernels a test counts, on its inputs
+    ("gram:<form>" and "update_gram:<form>" for the dtype forms)."""
     from gmres_tpu_torch.ops.cuda import halo_kernel as hk
+
+    if ":" in name:
+        kernel, form = name.split(":")
+        vt, wt = next(k for k, v in SWEEP_FORMS.items() if v == form)
+        V = torch.randn((31, 1 << 20), device="cuda").to(vt)
+        w, u = torch.randn(1 << 20, device="cuda").to(wt), torch.randn(31, device="cuda").to(wt)
+        if kernel == "gram":
+            return lambda: ok.gram_cuda(V, w, 31)
+        return lambda: ok.update_gram_cuda(V, w, u, 31)
 
     if name == "update_gram":
         V, w, u = torch.randn((31, 1 << 20), device="cuda"), torch.randn(
@@ -328,8 +343,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     V = torch.zeros((4, 100), device="cuda")
     with pytest.raises(ValueError):
         ok.gram_cuda(V.cpu(), torch.zeros(100), 2)
-    with pytest.raises(TypeError):
-        ok.gram_cuda(V, torch.zeros(100, device="cuda", dtype=torch.float64), 2)
+    with pytest.raises(TypeError):  # an fp64 basis against fp32 vectors: no form
+        ok.gram_cuda(V.double(), torch.zeros(100, device="cuda"), 2)
     with pytest.raises(ValueError):
         ok.gram_cuda(V, torch.zeros(200, device="cuda")[::2], 2)
     with pytest.raises(ValueError):
@@ -984,3 +999,209 @@ def test_distributed_solve_on_card_matches_cpu(mode):
             ref["restarts"], ref["total_iters"])
         tol = 1e-9 if mode == "baseline" else 1e-5
         assert np.linalg.norm(got["x"] - ref["x"]) / np.linalg.norm(ref["x"]) <= tol
+
+
+# The dtype forms of the compressed-basis and bf16 tiers: (basis, vectors).
+# A form's kernel and its plain version sum in the same accumulation dtype in
+# another order: an output is held to the accumulation dtype's tolerance of
+# its scale and, rounded to bf16, one bf16 ulp (2^-7 of the value itself)
+# more; K7's bf16 w, rounded after every row, to MGS_FLIPS such ulps of the
+# largest value an element takes.  The inputs are an Arnoldi step's, w =
+# V^T c + e with the projection most of w, so a sweep that skips it fails.
+NEW_FORMS = pytest.mark.parametrize(
+    "vt,wt", [(torch.bfloat16, torch.float32), (torch.float32, torch.float64),
+              (torch.bfloat16, torch.bfloat16)], ids=["bf16_f32", "f32_f64", "bf16_bf16"])
+FORM_TOL = {torch.float32: 1e-5, torch.float64: 1e-13}
+BF16_ULP = 2.0 ** -7
+MGS_FLIPS = 2
+
+
+def _acc(wt):
+    return torch.float64 if wt == torch.float64 else torch.float32
+
+
+def _form_close(got, want, scale, dt, of=None, ulps=1.0):
+    """got within FORM_TOL of the accumulation dtype x max|scale| of want,
+    plus, for a bf16 output, `ulps` bf16 ulps of `of` (want unless given)
+    elementwise."""
+    assert got.dtype == want.dtype == dt
+    bound = FORM_TOL[_acc(dt)] * float(scale.double().abs().max())
+    if dt == torch.bfloat16:
+        bound = bound + ulps * BF16_ULP * (want if of is None else of).double().abs()
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= bound).all()), (float(err.max()), dt)
+
+
+def _form_basis(vt, wt, n, m1=31, seed=0):
+    rng = np.random.default_rng(seed + n)
+    V = rng.standard_normal((m1, n)) / np.sqrt(n)
+    c = rng.standard_normal(m1)
+    w = V.T @ c + 0.5 * np.sqrt(m1 / n) * rng.standard_normal(n)
+    return (torch.tensor(V, dtype=vt, device="cuda"), torch.tensor(w, dtype=wt, device="cuda"),
+            torch.tensor(c, dtype=wt, device="cuda"))
+
+
+@NEW_FORMS
+@pytest.mark.parametrize("n", [70_008, 70_001], ids=["aligned", "ragged"])
+def test_basis_sweep_forms(vt, wt, n):
+    # K2, K3 plain, K3 GRAM, K3 SUMSQ, K2x2 (no bf16 vectors) and K7 of each
+    # form against their plain versions, at n a multiple of 8 (every row 16-
+    # byte aligned) and not; outputs in the vectors' dtype (K2x2 and K3
+    # SUMSQ's sum of squares in the accumulation dtype), zero past rows
+    acc = _acc(wt)
+    V, w, u = _form_basis(vt, wt, n)
+    Va, wa, ua = V.to(acc).abs(), w.to(acc).abs(), u.to(acc).abs()
+    for rows in (1, 16, 31):
+        reset_launch_counts()
+        got = ok.gram_cuda(V, w, rows)
+        _form_close(got, ok.gram_plain(V, w, rows), ok.gram_plain(Va, wa, rows), wt)
+        assert not got[rows:].any()
+        sw = wa + torch.mv(Va[:rows].t(), ua[:rows])
+        _form_close(ok.update_cuda(V, w, u, rows), ok.update_plain(V, w, u, rows), sw, wt)
+        w1, u2 = ok.update_gram_cuda(V, w, u, rows)
+        pw, pu = ok.update_gram_plain(V, w, u, rows)
+        _form_close(w1, pw, sw, wt)
+        _form_close(u2, pu, ok.gram_plain(Va, sw, rows), wt)
+        assert not u2[rows:].any()
+        w2, ss = ok.update_sumsq_cuda(V, w, u, rows)
+        pw2, pss = ok.update_sumsq_plain(V, w, u, rows)
+        assert torch.equal(w2, w1)  # both keep the one-row-at-a-time bits
+        _form_close(w2, pw2, sw, wt)
+        _form_close(ss, pss, torch.dot(sw, sw), acc)
+        if wt != torch.bfloat16:
+            vk = V[rows - 1].to(acc)
+            for g, p_ in zip(ok.gram2_cuda(V, w, vk, rows), ok.gram2_plain(V, w, vk, rows)):
+                _form_close(g, p_, ok.gram_plain(Va, wa + vk.abs(), rows), acc)
+        h, wm, hn = mk.mgs_cuda(V, w, rows)
+        ph, pwm, phn = mk.mgs_plain(V, w, rows)
+        sm = wa + torch.mv(Va[:rows].t(), ph[:rows].to(acc).abs())
+        _form_close(h, ph, ok.gram_plain(Va, sm, rows), wt)
+        _form_close(wm, pwm, sm, wt, of=sm, ulps=MGS_FLIPS)
+        _form_close(hn, phn, torch.linalg.vector_norm(sm), wt)
+        counts, sfx = form_launch_counts(), SWEEP_FORMS[(vt, wt)]
+        for name in ("basis_gram", "basis_update", "basis_update_gram", "basis_update_sumsq",
+                     "basis_mgs"):
+            assert counts[name] == {sfx: 1}, (name, counts)
+
+
+@pytest.mark.parametrize("n", [70_008, 70_001], ids=["aligned", "ragged"])
+@pytest.mark.parametrize("vt,yt,xt", [(torch.bfloat16, torch.float32, torch.float64),
+                                      (torch.bfloat16, torch.float32, torch.float32),
+                                      (torch.float32, torch.float64, torch.float64),
+                                      (torch.bfloat16, torch.bfloat16, torch.float64),
+                                      (torch.bfloat16, torch.bfloat16, torch.float32)])
+def test_basis_axpy_forms(vt, yt, xt, n):
+    # K4: the increment summed in the accumulation dtype of (y, V) (fp64
+    # for an fp64 y) and, for a bf16 y, rounded to bf16 before the add
+    V, _, _ = _form_basis(vt, yt, n)
+    y = torch.tensor(np.random.default_rng(n).standard_normal(30), dtype=yt, device="cuda")
+    x = torch.tensor(np.random.default_rng(1).random(n), dtype=xt, device="cuda")
+    got = ou.basis_axpy_cuda(x.clone(), V, y)
+    want = ou.basis_axpy_plain(x.clone(), V, y)
+    inc = torch.promote_types(yt, vt)
+    scale = x.abs().double() + torch.mv(V[:30].double().abs().t(), y.double().abs())
+    bound = (FORM_TOL[_acc(inc)] if inc != torch.float32 or xt != torch.float32 else 2e-5) \
+        * float(scale.max())
+    if inc == torch.bfloat16:
+        # the increment rounded to bf16: one ulp of it more
+        bound = bound + BF16_ULP * ou.basis_axpy_plain(torch.zeros_like(x), V, y).double().abs()
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= bound).all()), float(err.max())
+
+
+@NEW_FORMS
+@pytest.mark.parametrize("n", [70_008, 2 ** 20 + 3])
+@pytest.mark.parametrize("shift", [0, 1], ids=["aligned", "unaligned_base"])
+def test_gram_and_update_gram_forms_bits_independent_of_grid(vt, wt, n, shift):
+    # K2's and K3 GRAM's forms: one launch each, and the same bits on every
+    # grid, also where V and w start one value past a 16-byte boundary
+    rng = np.random.default_rng(n + shift)
+    m1 = 31
+    Vb = torch.tensor(rng.standard_normal(m1 * n + shift) / np.sqrt(n), dtype=vt, device="cuda")
+    wb = torch.tensor(rng.standard_normal(n + shift), dtype=wt, device="cuda")
+    V, w = Vb[shift:].view(m1, n), wb[shift:]
+    u = torch.tensor(rng.standard_normal(m1), dtype=wt, device="cuda")
+    for rows in (7, 31):
+        reset_launch_counts()
+        g = ok.gram_cuda(V, w, rows)
+        w1, u2 = ok.update_gram_cuda(V, w, u, rows)
+        assert launch_counts()["basis_gram"] == launch_counts()["basis_update_gram"] == 1
+        for per_sm in (1, 2, 3, 4, None):
+            assert torch.equal(ok.gram_cuda(V, w, rows, blocks_per_sm=per_sm), g)
+            if per_sm != 4:
+                a, b = ok.update_gram_cuda(V, w, u, rows, blocks_per_sm=per_sm)
+                assert torch.equal(a, w1) and torch.equal(b, u2)
+
+
+@pytest.mark.parametrize("form", ["bf16_f32", "f32_f64", "bf16_bf16"])
+@pytest.mark.parametrize("kernel", ["gram", "update_gram"])
+def test_gram_and_update_gram_forms_are_one_device_kernel(kernel, form):
+    names = _device_kernels(f"{kernel}:{form}")
+    assert len(names) == 1 and kernel in names[0], names
+
+
+@pytest.mark.parametrize("orth,low", [("cgsr", None), ("cgs", None), ("mgs", False),
+                                      ("mgs", True), ("cgsr3", None)])
+@pytest.mark.parametrize("mode,basis", [("mixed", "bfloat16"), ("baseline", "float32"),
+                                        ("single", "bfloat16")])
+def test_compressed_basis_solve_on_card_matches_cpu(mode, basis, orth, low):
+    # the solve launches its orthogonalization's forms only, and converges
+    # as the same solve on the CPU does: restarts within one, x within 1e4
+    # x tol of the CPU's (both stop at a backward error of tol; the
+    # operator's condition number is ~1e3)
+    A = convection_diffusion_2d(32, beta=2.0)
+    x_true = gmres_tpu_torch.rand_vect(A.n_rows, 42)
+    b = A.to_scipy() @ x_true
+    kw = dict(orth_steps=3) if orth == "cgsr3" else {}
+    cfg = gmres_tpu_torch.GmresConfig(
+        precision=dataclasses.replace(gmres_tpu_torch.PrecisionSpec.from_mode(mode),
+                                      basis=basis),
+        orth=orth[:4], low_sync_mgs=low, precond="identity", restart_length=30,
+        tol=1e-8 if mode != "single" else 1e-5, max_restarts=80, **kw)
+    reset_launch_counts()
+    res = gmres_tpu_torch.solve(A, b, cfg)
+    forms = form_launch_counts()
+    inner = "f32" if mode != "baseline" else "f64"
+    want = f"{'bf16' if basis == 'bfloat16' else 'f32'}_{inner}"
+    for name, fc in forms.items():
+        assert set(fc) <= {want} | ({"bf16_f32_f32"} if mode == "single" else
+                                    {f"{want}_f64"}), (name, fc)
+    assert forms["basis_axpy"] == {f"{want}_{'f32' if mode == 'single' else 'f64'}":
+                                   res.restarts}, forms
+    ref = gmres_tpu_torch.solve(A, b, cfg, device="cpu")
+    assert res.x.is_cuda and res.converged and ref.converged
+    assert abs(res.restarts - ref.restarts) <= 1
+    xr = ref.x.numpy()
+    assert np.linalg.norm(res.x.cpu().numpy() - xr) / np.linalg.norm(xr) <= 1e4 * cfg.tol
+
+
+@pytest.mark.parametrize("fmt", ["dia", "csr"])
+@pytest.mark.parametrize("orth,low", [("cgsr", None), ("mgs", False), ("mgs", True)])
+def test_bf16_solve_on_card_converges(orth, low, fmt):
+    # the bf16 inner tier (bf16 SpMV in plain torch ops on DIA, the CSR
+    # route's index_add_ otherwise) reaches tol 1e-6 on the card as on the
+    # CPU; its sweeps are the (bf16, bf16) forms, ICWY's the (bf16, f32)
+    A = convection_diffusion_2d(12, beta=2.0)
+    x_true = gmres_tpu_torch.rand_vect(A.n_rows, 42)
+    b = A.to_scipy() @ x_true
+    cfg = gmres_tpu_torch.GmresConfig(
+        precision=gmres_tpu_torch.PrecisionSpec("float64", "bfloat16", "bfloat16"), orth=orth,
+        low_sync_mgs=low, precond="identity", restart_length=20, tol=1e-6, max_restarts=500,
+        auto_format=fmt == "dia")
+    reset_launch_counts()
+    res = gmres_tpu_torch.solve(A, b, cfg)
+    counts, forms = launch_counts(), form_launch_counts()
+    assert counts["dia_spmv"] == 0 and counts["sell_spmv"] == 0, counts
+    assert forms["basis_axpy"] == {"bf16_bf16_f64": res.restarts}, forms
+    sweeps = ("basis_gram2", "basis_update_sumsq") if low else (
+        ("basis_mgs",) if orth == "mgs" else ("basis_gram", "basis_update_gram",
+                                              "basis_update_sumsq"))
+    want = "bf16_f32" if low else "bf16_bf16"
+    assert all(set(forms[k]) == {want} for k in sweeps), forms
+    ref = gmres_tpu_torch.solve(A, b, cfg, device="cpu")
+    assert res.converged and ref.converged and not res.escalated
+    # the stopping test reads the norm of the residual rounded to bf16, so
+    # the fp64 backward error is held to twice the tolerance
+    x = res.x.cpu().numpy()
+    assert np.linalg.norm(A.to_scipy() @ x - b) <= 2e-6 * (
+        np.linalg.norm(b) + np.linalg.norm(A.vals.numpy()) * np.linalg.norm(x))

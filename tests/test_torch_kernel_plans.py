@@ -1,11 +1,14 @@
 """The launch geometry of the redesigned K3 GRAM and K7, on the CPU (no
 kernel runs here; the card tests hold the kernels themselves).
 
-- ``update_gram_plan`` (K3 GRAM in fp32, ``csrc/basis_sweep.cu``): its
-  tiles cover every column exactly once over the persistent grid, its tile
-  is a whole number of 128-byte lines, and its two stages (each the tile's
-  rows and w's tile) and u fit the per-block budget, for every rows in
-  1..256.
+- ``update_gram_plan`` (K3 GRAM in fp32 and its dtype forms,
+  ``csrc/basis_sweep.cu``): its tiles cover every column exactly once over
+  the persistent grid, its tile is a whole number of 128-byte lines of a
+  basis row, and its two stages (each the tile's rows and w's tile, each
+  row in its own dtype), u and a bf16 w's unrounded w' fit the per-block
+  budget, for every rows in 1..256; where n is a multiple of the basis's
+  vector width every staged row of every tile is whole 16-byte chunks (the
+  bulk copies' sizes).
 - ``mgs_groups`` (K7, ``csrc/basis_mgs.cu``): a row's partials are those
   of fixed groups of tiles that depend on n only; the groups cover every
   column once, and every register tiling and grid-stride grid the kernel
@@ -57,6 +60,56 @@ def test_update_gram_plan_covers_every_column_once(n, rows, itemsize=4):
             for t in plan.tiles_of(b):
                 cols = plan.columns(t)
                 seen[cols.start:cols.stop] += 1
+        assert np.all(seen == 1)
+
+
+# the dtype forms of the compressed-basis and bf16 tiers: (basis, w) item sizes
+FORMS = pytest.mark.parametrize("itemsize,w_itemsize", [(2, 4), (4, 8), (2, 2)],
+                                ids=["bf16_f32", "f32_f64", "bf16_bf16"])
+
+
+@FORMS
+def test_update_gram_forms_fit_for_every_height(itemsize, w_itemsize):
+    # the stages hold the basis rows in their dtype and w's row in its own,
+    # u in the accumulation dtype, and a bf16 w's unrounded w' in fp32 beside
+    # them; every staged row starts on a 16-byte boundary
+    acc = 8 if w_itemsize == 8 else 4
+    for rows in range(1, 257):
+        plan = ok.update_gram_plan(1 << 20, rows, itemsize, 132, w_itemsize=w_itemsize)
+        line = ok.UG_LINE // itemsize
+        assert plan.tile >= line and plan.tile % line == 0
+        assert plan.tile * itemsize <= ok.UG_MAX_ROW_BYTES
+        assert plan.tile * w_itemsize % 16 == 0 and plan.tile * acc % 16 == 0
+        u_bytes = -(-rows // (16 // acc)) * 16
+        wp = plan.tile * acc if w_itemsize != acc else 0
+        assert plan.shared_bytes == u_bytes + wp + 2 * plan.tile * (rows * itemsize + w_itemsize)
+        assert plan.shared_bytes <= ok.UG_SMEM_BUDGET
+        per_block = plan.shared_bytes + ok.UG_STATIC_BYTES + ok.BLOCK_RESERVED_BYTES
+        assert per_block <= 232_448
+        assert 1 <= plan.blocks_per_sm <= ok.UG_BLOCKS_PER_SM
+        assert plan.blocks_per_sm * per_block <= ok.SM_SHARED_BYTES
+        assert plan.stride >= plan.n_tiles and plan.stride % (16 // acc) == 0
+        # the fp32 form's plan is the one-item-size plan
+        assert ok.update_gram_plan(1 << 20, rows, 4, 132, w_itemsize=4) == \
+            ok.update_gram_plan(1 << 20, rows, 4, 132)
+
+
+@FORMS
+@pytest.mark.parametrize("n", [1, 3, 447, 1025, 70_001, 70_008, 2 ** 20, 2 ** 20 + 3])
+@pytest.mark.parametrize("rows", [1, 31, 256])
+def test_update_gram_forms_cover_every_column_once(itemsize, w_itemsize, n, rows):
+    # n not a multiple of 8 included; where it is a multiple of the basis's
+    # vector width (the aligned form's bulk copies), every tile, the last
+    # too, copies whole 16-byte chunks of each staged row
+    for sms, per_sm in ((132, None), (7, 3)):
+        plan = ok.update_gram_plan(n, rows, itemsize, sms, per_sm, w_itemsize)
+        seen = np.zeros(n, dtype=np.int64)
+        for b in range(plan.grid):
+            for t in plan.tiles_of(b):
+                cols = plan.columns(t)
+                seen[cols.start:cols.stop] += 1
+                if n % (16 // itemsize) == 0:
+                    assert len(cols) * itemsize % 16 == 0 and len(cols) * w_itemsize % 16 == 0
         assert np.all(seen == 1)
 
 

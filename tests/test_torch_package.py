@@ -179,20 +179,23 @@ def test_solve_on_cuda_never_falls_back_to_cpu():
 
 
 @pytest.mark.parametrize("cfg", [
-    dict(orth="cgsr", precond="identity",
-         precision=gmres_tpu_torch.PrecisionSpec("float64", "float64", "float64",
-                                                 basis="float32")),
-    # distributed: the df64 tier (no ranks needed, it raises first)
+    # distributed: the compressed basis (no ranks needed, it raises first)
     dict(orth="cgsr", precond="identity", distributed=True,
-         precision=gmres_tpu_torch.PrecisionSpec.from_mode("df64")),
-    dict(orth="mgs", precond="identity",
          precision=gmres_tpu_torch.PrecisionSpec("float64", "float32", "float32",
                                                  basis="bfloat16")),
+    # distributed: the df64 tier
+    dict(orth="cgsr", precond="identity", distributed=True,
+         precision=gmres_tpu_torch.PrecisionSpec.from_mode("df64")),
+    # a bf16 ILU-Jacobi preconditioner
+    dict(orth="mgs", precond="ilu_jacobi", jacobi_steps=3,
+         precision=gmres_tpu_torch.PrecisionSpec("float64", "bfloat16", "bfloat16")),
     # distributed: checkpoint=
     dict(orth="cgsr", precond="identity", distributed=True, checkpoint=True),
-    dict(orth="cgsr", precond="identity",
+    # a bf16 exact-ILU preconditioner
+    dict(orth="cgsr", precond="ilu",
          precision=gmres_tpu_torch.PrecisionSpec("float32", "bfloat16", "bfloat16")),
-    dict(orth="cgsr", precond="identity",
+    # distributed: the bf16 inner tier
+    dict(orth="cgsr", precond="identity", distributed=True,
          precision=gmres_tpu_torch.PrecisionSpec("float64", "bfloat16", "bfloat16")),
 ])
 def test_unported_options_raise(cfg):

@@ -294,7 +294,7 @@ def test_level_grid_follows_the_widest_level():
 
 
 @pytest.mark.parametrize("n", [1, 3, 1023, 1025, 2048, 70_001, 2 ** 20 + 3])
-@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("itemsize", [4, 8, 2])
 def test_gram_plan_covers_every_column_once(n, itemsize):
     for sms, per_sm in ((132, 4), (132, 1), (7, 3)):
         plan = ok.gram_plan(n, itemsize, sms, per_sm)
@@ -307,7 +307,7 @@ def test_gram_plan_covers_every_column_once(n, itemsize):
         assert np.all(seen == 1)
 
 
-@pytest.mark.parametrize("vec", [2, 4])
+@pytest.mark.parametrize("vec", [2, 4, 8])
 def test_gram_row_split_covers_the_tile_once(vec):
     # every phase of a row's first aligned column, full and ragged tiles;
     # vector loads start on the phase's aligned columns

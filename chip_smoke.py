@@ -6,7 +6,8 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels (and the host helper of the ILU
-preconditioners) from the sources in the checkout and drives seven paths,
+preconditioners) from the sources in the checkout and drives seven paths
+and a phase of the command-line entry points,
 the first five through ``gmres_tpu_torch.stage`` and ``solve`` in the
 ``baseline`` and ``mixed`` modes (x_true = rand_vect(n, 42), b = A x_true
 in fp64 numpy, CGSR unless said otherwise, restart length 30, tol 1e-8):
@@ -60,6 +61,27 @@ in fp64 numpy, CGSR unless said otherwise, restart length 30, tol 1e-8):
    interleaved walls of mixed, mixed-cb, baseline and baseline-cb, and the
    bf16 DIA SpMV (plain torch) beside K1 in fp32.
 
+Then the cli phase: the reference-format entry points at convdiff@1M, each
+through the function a user calls: the matrix written by
+``io.mmio.write_coordinate`` and read back by ``load_matrix`` to the same
+arrays (x_true and b through ``write_array`` and ``load_vector``); three
+runs of ``cli.solve.main`` at that file (mixed and baseline with
+``--bpath``, CGSR identity, within one restart of 26/780, the summary block
+parsed by the reference's regex; the reference's defaults, MGS and exact
+ILU, in mixed, equal in counts to the same ``solve`` called directly; the
+CGSR runs launch K1, its residual mode, K2, K3 GRAM and SUMSQ and K4, the
+defaults K1, its residual mode, K7, K6 fused and K4; K1 in fp32 in mixed
+and fp64 in baseline; no K8-K12); ``cli.condest_cli.main`` as the TPU
+campaign ran it, on convdiff:1024 (K1 fp64 only; sigma_max held to the
+TPU's, t and the LSQR wall a step logged with whether the run was capped)
+and mesh3d:262144 (K5 fp64 only; t and sigma_max held to the TPU's, cond
+to an extended-precision estimate), each operator's product held to its
+plain version first; ``experiments.sweep.main`` over the ``.mtx``
+(baseline and mixed rows within one restart of 26/780) and
+``experiments.findmin.main`` on its history.  Each entry point's launches
+are read around its own call (counts set to 0 just before it), so the
+direct ``solve`` and the operators' checks count for nothing.
+
 Before each path's solves it holds each of the path's kernels against its
 plain PyTorch version at the path's shapes (fp32 and fp64; a 31-row Krylov
 basis) and times both (the card kept busy while the host enqueues the
@@ -92,7 +114,8 @@ lines, K2's and K3 GRAM's grid tables, K6's sync candidates, the
 exact-ILU solve walls,
 K7's grid-size table and the sequential-vs-ICWY MGS walls, the
 df64 step and solve walls, the distributed solves and walls beside the
-single card's, the compressed-basis and bf16 solves and walls; then one
+single card's, the compressed-basis and bf16 solves and walls, the cli
+phase's outputs, times and launches; then one
 JSON line with the 19 kernels (launch counts from the solves, the
 distributed ones summed over the ranks; measured errors and times, bounds,
 one-call times; the dtype forms as variants with their launches on the
@@ -104,10 +127,12 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -235,7 +260,48 @@ DIST_IDLE = ("dia_spmv", "dia_residual", "sell_spmv", "sell_residual", *ILU_KERN
 DIST_MGS_REPS = 3
 DIST_MGS_RESTARTS = 4
 DIST_TIMEOUT = 600     # seconds for the spawned ranks, and for each collective
-
+# the cli phase: the reference-format entry points at convdiff@1M.  The
+# solve command line's summary block as the reference's sweep runner scrapes
+# it (automated.py:33-38; tests/test_cli.py:SUMMARY_REGEX)
+SUMMARY_REGEX = (
+    r"Found solution with rel prec res norm = (\d\.?\d*e(?:\+|-)\d+|\d+\.?\d*) when k = "
+    r"(\d+) and i = (\d+)\n  total iterations = (\d+)\n  ilu took "
+    r"(\d\.?\d*e(?:\+|-)\d+|\d+\.?\d*)s; gmres took (\d\.?\d*e(?:\+|-)\d+|\d+\.?\d*)s\n"
+    r"  resNorm = (\d\.?\d*e(?:\+|-)\d+|\d+\.?\d*); errNorm = (\d\.?\d*e(?:\+|-)\d+|\d+\.?\d*)\n")
+CLI_HISTORY = (26, 780)   # the reference's convdiff@1M history, CGSR, identity
+# the cli phase's solve runs: (label, flags beyond --Apath, --rlen 30,
+# --tol 1e-8, --json; the kernels the run must launch; K1's dtype form).
+# CGSR launches K2, K3 GRAM and SUMSQ; the defaults (sequential MGS, exact
+# ILU) K7 and K6 fused; every run K1 in its inner dtype, K1's residual mode
+# and K4
+CLI_SOLVES = (
+    ("mixed cgsr", ["--mode", "mixed", "--orth", "cgsr", "--prec", "identity"],
+     ("dia_spmv", "dia_residual", "basis_gram", "basis_update_gram", "basis_update_sumsq",
+      "basis_axpy"), "f32"),
+    ("baseline cgsr --bpath", ["--mode", "baseline", "--orth", "cgsr", "--prec", "identity",
+                               "--bpath", None],
+     ("dia_spmv", "dia_residual", "basis_gram", "basis_update_gram", "basis_update_sumsq",
+      "basis_axpy"), "f64"),
+    ("defaults (mgs, ilu) mixed", [],
+     ("dia_spmv", "dia_residual", "basis_mgs", "ilu_trisolve_fused", "basis_axpy"), "f32"))
+# condest as the TPU campaign ran it (scripts/round5_hw_campaign.sh:113-116):
+# (spec, --max-iters, the TPU's printed sigma_max, sigma_min and t;
+# results/round5/condest_convdiff.txt and condest_mesh3d.txt).  convdiff:1024
+# is make_synth's beta = 20; the TPU reached its cap there (t = 20001)
+CONDEST_RUNS = (("convdiff:1024", 20000, 8.03743, 9.3754e-05, 20001),
+                ("mesh3d:262144", 20000, 30.9516, 7.76345, 25))
+CONDEST_SIGMA_MAX_REL = 1e-5   # sigma_max against the TPU's, relative
+CONDEST_T_SLACK = 1            # mesh3d's t against the TPU's 25
+# mesh3d:262144's cond is held to an extended-precision estimate, not to the
+# TPU's 3.98683: ``python scripts/port_condest_cpu.py --n 262144 --routes
+# jax,extended`` gives 4.004401852575535 on its numpy route, whose LSQR loop
+# runs in np.longdouble, and 4.003861567590559 on the JAX package's fp64 CSR
+# route.  The Golub-Kahan recurrence amplifies rounding, and sigma_min is set
+# at step 14 of 24 there, so fp64 routes that sum in other orders land
+# 1.35e-4 apart and the TPU's double-float SELL 4.4e-3 off (PERF.md section 6)
+CONDEST_MESH3D_EXTENDED = 4.004401852575535
+CONDEST_MESH3D_JAX_FP64 = 4.003861567590559
+CONDEST_COND_REL = 1e-4
 
 def log(*a):
     print(*a, flush=True)
@@ -395,23 +461,30 @@ def check_residual(torch, record, kname, dt, dt_name, timer, fn_cuda, fn_plain, 
            timer(fn_cuda), timer(fn_plain), nbytes, flops, key=key)
 
 
-def device_kernels(torch, fn):
-    """Names of the device kernels one call of fn launches (torch.profiler).
-    No device kernel at all fails the run: a call launches at least one.
-    Late in a long process the card's profiler has recorded no device
-    activity at all, for any kernel, so the counts are taken before the
-    solves (one_kernel_checks)."""
+def device_kernels(torch, fn, sessions=3):
+    """Names of the device kernels one call of fn launches (torch.profiler):
+    the most that any of `sessions` profiled calls recorded.  A session can
+    drop device kernels but not invent them: on the card one has recorded
+    none (the first session of a fresh process) and one only the second of
+    K3 GRAM fp64's two kernels.  A session that records none in all fails
+    the run.  Late in a long process the card's profiler has recorded no
+    device activity at all, for any kernel, so the counts are taken before
+    the solves (one_kernel_checks)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    require(names, "torch.profiler recorded no device kernel")
-    return names
+    best = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(names) > len(best):
+            best = names
+    require(best, f"torch.profiler recorded no device kernel in {sessions} sessions")
+    return best
 
 
 def gram_grid_table(torch, timer, V, w, ref, dt_name, copy_gbs):
@@ -2163,6 +2236,230 @@ def convdiff_cb_path(torch, record, A, A_dev, mesh, mesh_dev):
     return counts, forms
 
 
+def run_main(main_fn, argv, label):
+    """main_fn(argv) with its standard output captured and logged; returns
+    the output.  A nonzero exit code fails the run."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    out = buf.getvalue()
+    log(f"{label} ({time.perf_counter() - t0:.1f} s): {' '.join(argv)}")
+    for line in out.splitlines():
+        log(f"  | {line}")
+    require(rc == 0, f"{label}: exit code {rc}")
+    return out
+
+
+def check_condest_operators(torch, A_csr, label):
+    """condest's operators of A_csr on the card (fp64 DIA or sliced ELL, A
+    and A^T): K1's or K5's plain mode held to its plain version at these
+    shapes, outside the counted runs.  Returns the route's type name."""
+    from gmres_tpu_torch.ops.cuda import sell_kernel as sl
+    from gmres_tpu_torch.ops.cuda import spmv_kernel as sk
+    from gmres_tpu_torch.ops.dia import DIAMatrix
+    from gmres_tpu_torch.solver.condest import condest_operators
+
+    ops = condest_operators(A_csr, torch.device("cuda"))
+    x = torch.tensor(np.random.default_rng(3).standard_normal(A_csr.n_rows),
+                     dtype=torch.float64, device="cuda")
+    for name, op in zip(("A", "A^T"), ops):
+        require(op.dtype == torch.float64, f"condest {label}: {name} in fp64")
+        if isinstance(op, DIAMatrix):
+            got = sk.dia_spmv_cuda(op.data, op.offsets, x)
+            want = sk.dia_spmv_plain(op.data, op.offsets, x)
+            scale = sk.dia_spmv_plain(op.data.abs(), op.offsets, x.abs())
+        else:
+            got = sl.sell_spmv_cuda(op.vals, op.cols, op.slice_ptr, x, op.n_rows)
+            want = sl.sell_spmv_plain(op.vals, op.cols, op.slice_ptr, x, op.n_rows)
+            scale = sl.sell_spmv_plain(op.vals.abs(), op.cols, op.slice_ptr, x.abs(), op.n_rows)
+        err, bound, ok = compare("float64", [got], [want], [scale])
+        log(f"condest {label}: {name} {type(op).__name__} fp64 kernel against its plain "
+            f"version: max_abs_err={err:.3e} (tol {bound:.3e})")
+        require(ok, f"condest {label}: the {name} product on the card agrees with its plain "
+                    f"version ({err:.3e} > {bound:.3e})")
+    return type(ops[0]).__name__
+
+
+def cli_path(torch, A):
+    """The cli phase, after the seven paths: the reference-format entry
+    points, each called in-process through its main(argv) or the package's
+    functions, at convdiff@1M (A).  Returns the phase's launch counts: the
+    sum of each entry point's own, read around its main(argv) call alone."""
+    import shutil
+    import tempfile
+
+    from gmres_tpu_torch import GmresConfig, load_matrix, load_vector, rand_vect, solve
+    from gmres_tpu_torch.cli import condest_cli
+    from gmres_tpu_torch.cli import solve as cli
+    from gmres_tpu_torch.experiments import findmin, history, sweep
+    from gmres_tpu_torch.io import mmio
+    from gmres_tpu_torch.ops.cuda import form_launch_counts, launch_counts, reset_launch_counts
+    from gmres_tpu_torch.solver import condest as ce
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        # 1. I/O: the matrix, x_true and b through MatrixMarket files
+        n = A.n_rows
+        rp, ci, v = A.numpy_arrays()
+        a_path = os.path.join(tmp, "convdiff_1m.mtx")
+        t0 = time.perf_counter()
+        mmio.write_coordinate(a_path, n, n, A.row_ids.numpy(), ci, v)
+        t1 = time.perf_counter()
+        B = load_matrix(a_path)
+        t2 = time.perf_counter()
+        log(f"cli I/O: write_coordinate of convdiff@1M ({A.nnz:,} entries, "
+            f"{os.path.getsize(a_path) / 2 ** 20:.1f} MiB) {t1 - t0:.3f} s; load_matrix "
+            f"{t2 - t1:.3f} s")
+        require(np.array_equal(B.row_ptr.numpy(), rp) and np.array_equal(B.col_idx.numpy(), ci)
+                and B.vals.numpy().tobytes() == v.tobytes(),
+                "load_matrix gives back the written CSR arrays")
+        x_true = rand_vect(n, 42)
+        b = cli.host_spmv(A, x_true)
+        x_path, b_path = os.path.join(tmp, "x_true.mtx"), os.path.join(tmp, "b.mtx")
+        t0 = time.perf_counter()
+        mmio.write_array(x_path, x_true)
+        mmio.write_array(b_path, b)
+        t1 = time.perf_counter()
+        b_back, x_back = load_vector(b_path), load_vector(x_path)
+        log(f"cli I/O: write_array of x_true and b {t1 - t0:.3f} s; load_vector of both "
+            f"{time.perf_counter() - t1:.3f} s")
+        require(b_back.tobytes() == b.tobytes() and x_back.tobytes() == x_true.tobytes(),
+                "load_vector gives back the written b and x_true")
+        del B, b_back, x_back
+
+        # 2. the solve command line at that file; each entry point's launches
+        # are counted around its own call, and the phase's counts are their sum
+        counts, dtypes = Counter(), Counter()
+
+        def counted(label, main_fn, argv):
+            reset_launch_counts()
+            out = run_main(main_fn, argv, label)
+            c, forms = launch_counts(), form_launch_counts()
+            k15 = {(k, f): v for k in ("dia_spmv", "sell_spmv") for f, v in forms[k].items()}
+            log(f"  launches {label}: { {k: v for k, v in c.items() if v} }; K1 and K5 by "
+                f"dtype: {k15}")
+            require(all(c[k] == 0 for k in DF64_KERNELS + DIST_KERNELS),
+                    f"{label}: no K8-K12 ({c})")
+            counts.update(c)
+            dtypes.update(k15)
+            return out, c, forms
+
+        runs = {}
+        for label, extra, kernels, k1_form in CLI_SOLVES:
+            extra = [b_path if f is None else f for f in extra]
+            out, c, forms = counted(f"cli solve {label}", cli.main,
+                                    ["--Apath", a_path, "--rlen", "30", "--tol", "1e-8",
+                                     "--json", *extra])
+            m = re.search(SUMMARY_REGEX, out)
+            require(m is not None, f"cli solve {label}: the summary block parses")
+            res = json.loads(out.splitlines()[-1])
+            require(res["converged"] and (int(m.group(3)), int(m.group(4))) ==
+                    (res["i"], res["total_iters"]),
+                    f"cli solve {label}: converged, the block's counts are the JSON's")
+            require(all(c[k] > 0 for k in kernels) and set(forms["dia_spmv"]) == {k1_form}
+                    and c["sell_spmv"] == 0,
+                    f"cli solve {label}: launched {kernels}, K1 in {k1_form} only, no K5 ({c}, "
+                    f"K1 {forms['dia_spmv']})")
+            runs[label] = res
+        for label in ("mixed cgsr", "baseline cgsr --bpath"):
+            r = runs[label]
+            require(abs(r["i"] - CLI_HISTORY[0]) <= 1,
+                    f"cli solve {label}: {r['i']}/{r['total_iters']} within one restart of "
+                    f"{CLI_HISTORY[0]}/{CLI_HISTORY[1]}")
+        direct = solve(load_matrix(a_path), b, GmresConfig.from_flags(mode="mixed", tol=1e-8))
+        r = runs["defaults (mgs, ilu) mixed"]
+        log(f"cli solve defaults: {r['i']}/{r['total_iters']}; the same gmres_tpu_torch.solve "
+            f"called directly: {direct.restarts}/{direct.total_iters}")
+        require((r["i"], r["total_iters"]) == (direct.restarts, direct.total_iters),
+                "cli solve defaults: the counts of the same solve called directly")
+        del direct
+
+        # 3. condest through its command line, each operator checked first
+        stats = {}
+        real = ce.condest
+        ce.condest = lambda *a, **kw: real(*a, stats=stats, **kw)
+        try:
+            for spec, max_iters, smax_tpu, smin_tpu, t_tpu in CONDEST_RUNS:
+                route = check_condest_operators(torch, cli.make_synth(spec), spec)
+                t0 = time.perf_counter()
+                out, c, forms = counted(f"condest {spec}", condest_cli.main,
+                                        ["--synth", spec, "--max-iters", str(max_iters)])
+                wall = time.perf_counter() - t0
+                smax = float(re.search(r"sigma_max = (\S+)", out).group(1))
+                t = int(re.search(r"(\d+) iterations total", out).group(1))
+                cond, _, smin = (float(g) for g in re.search(
+                    r"Computed cond\(A\) = (\S+) = (\S+)/(\S+)", out).groups())
+                log(f"condest {spec} on {route}: t={t} (capped: {t == max_iters + 1}; the "
+                    f"TPU's {t_tpu}) sigma_max={smax} (the TPU's {smax_tpu}) "
+                    f"sigma_min={smin} (the TPU's {smin_tpu}) cond={cond}; {wall:.1f} s, "
+                    f"power iteration {stats['power_steps']} steps "
+                    f"{stats['power_seconds']:.3f} s, LSQR {stats['lsqr_steps']} steps "
+                    f"{stats['lsqr_seconds']:.3f} s = "
+                    f"{stats['lsqr_seconds'] / stats['lsqr_steps'] * 1e3:.4f} ms a step "
+                    f"(flags read every {stats['chunk']} steps)")
+                require(abs(smax - smax_tpu) <= CONDEST_SIGMA_MAX_REL * smax_tpu,
+                        f"condest {spec}: sigma_max {smax} within "
+                        f"{CONDEST_SIGMA_MAX_REL:g} of the TPU's {smax_tpu}")
+                mine, other = (("sell_spmv", "dia_spmv") if spec.startswith("mesh3d")
+                               else ("dia_spmv", "sell_spmv"))
+                require(c[mine] > 0 and c[other] == 0 and forms[mine] == {"f64": c[mine]},
+                        f"condest {spec}: {mine} in fp64 only, no {other} ({c}, "
+                        f"{forms[mine]})")
+                if spec.startswith("mesh3d"):
+                    ref, jax_cond = CONDEST_MESH3D_EXTENDED, CONDEST_MESH3D_JAX_FP64
+                    tpu = smax_tpu / smin_tpu
+                    log(f"condest {spec}: cond {cond} is {abs(cond - ref) / ref:.3e} from the "
+                        f"extended-precision estimate {ref!r}, "
+                        f"{abs(cond - jax_cond) / jax_cond:.3e} from the JAX package's fp64 "
+                        f"{jax_cond!r} and {abs(cond - tpu) / tpu:.3e} from the TPU's {tpu:.6g}")
+                    require(abs(t - t_tpu) <= CONDEST_T_SLACK
+                            and abs(cond - ref) <= CONDEST_COND_REL * ref,
+                            f"condest {spec}: t={t} within {CONDEST_T_SLACK} of {t_tpu} "
+                            f"and cond {cond} within {CONDEST_COND_REL:g} of the "
+                            f"extended-precision estimate {ref!r}")
+        finally:
+            ce.condest = real
+
+        # 4. the sweep over the phase's .mtx file (MTXDIR), then findmin
+        os.environ["MTXDIR"] = tmp
+        try:
+            _, c, forms = counted("sweep", sweep.main,
+                                  ["--device", "cuda", "--prec", "identity", "--orth", "cgsr",
+                                   "--no-singleprec", "--no-single", "--warmup", "1",
+                                   "--out-dir", tmp, "convdiff_1m", "30", "0", "1e-8", "42"])
+        finally:
+            del os.environ["MTXDIR"]
+        require(all(c[k] > 0 for k in CLI_SOLVES[0][2])
+                and set(forms["dia_spmv"]) == {"f32", "f64"},
+                f"sweep: launched {CLI_SOLVES[0][2]}, K1 in fp32 and fp64 ({c}, "
+                f"K1 {forms['dia_spmv']})")
+        rows = history.read_history("convdiff_1m", tmp)
+        log(f"sweep rows: {rows}")
+        require([r["type"] for r in rows] == ["b", "mp"] and all(
+            r["device"] == "cuda" and r["i"] != "-"
+            and abs(int(r["i"]) - CLI_HISTORY[0]) <= 1 for r in rows),
+            f"sweep: a baseline and a mixed row on cuda, each within one restart of "
+            f"{CLI_HISTORY[0]}/{CLI_HISTORY[1]}")
+        out = counted("findmin", findmin.main, ["--plotting-format", "--in-dir", tmp, "1e-8",
+                                                "cgsr", "cuda", "identity", "convdiff_1m"])[0]
+        require(out.startswith("'convdiff_1m': [("), "findmin: the plotting line")
+        counts = {k: counts[k] for k in launch_counts()}
+        log(f"  launches cli (the entry points' runs): {counts}")
+        log(f"  K1 and K5 launches by dtype, cli: {dict(dtypes)}")
+        require({k for k, v in counts.items() if v} >= {k for r in CLI_SOLVES for k in r[2]}
+                | {"sell_spmv"} and set(dtypes) == {("dia_spmv", "f32"), ("dia_spmv", "f64"),
+                                                      ("sell_spmv", "f64")},
+                f"cli: K1 (fp32 and fp64), K1 residual, K2, K3 GRAM and SUMSQ, K4, K5 fp64, "
+                f"K6 fused and K7 launched ({counts}, {dict(dtypes)})")
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2212,12 +2509,15 @@ def main() -> int:
     dist_counts = convdiff_dist_path(torch, record, A, x_single, walls_single)
     t6 = time.perf_counter()
     cb_counts, form_counts = convdiff_cb_path(torch, record, A, A_dev, mesh, mesh_dev)
-    del mesh, mesh_dev
+    del mesh, mesh_dev, A_dev
+    t7 = time.perf_counter()
+    cli_counts = cli_path(torch, A)
     log(f"path seconds: convdiff {t1 - t0:.1f}, mesh3d {t2 - t1:.1f}, "
         f"convdiff-ilu {t3 - t2:.1f}, convdiff-mgs {t4 - t3:.1f}, "
         f"convdiff-df64 {t5 - t4:.1f}, convdiff-dist {t6 - t5:.1f}, "
-        f"convdiff-cb {time.perf_counter() - t6:.1f}")
-    path_counts = (convdiff_counts, mesh3d_counts, ilu_counts, mgs_counts, cb_counts)
+        f"convdiff-cb {t7 - t6:.1f}, cli {time.perf_counter() - t7:.1f}")
+    path_counts = (convdiff_counts, mesh3d_counts, ilu_counts, mgs_counts, cb_counts,
+                   cli_counts)
     require(all(c[k] == 0 for c in path_counts for k in DF64_KERNELS),
             f"K8-K11 launched on the df64 path only ({path_counts})")
     path_counts += (df64_counts,)
@@ -2235,7 +2535,7 @@ def main() -> int:
     # K2x2 and K3 plain the 31-row basis) and for K8-K11 the df64 variant
     # (31 rows), for K12 the interior block, the other variants alongside;
     # launches are summed over the seven paths' solves (the distributed one's
-    # over its ranks); a dtype form's variant (bf16_f32, f32_f64, bf16_bf16
+    # over its ranks) and the cli phase's entry-point runs; a dtype form's variant (bf16_f32, f32_f64, bf16_bf16
     # and K4's) carries its launches on the convdiff-cb path
     sources = {
         "dia_spmv": ("gmres_tpu_torch/csrc/dia_spmv.cu",

@@ -13,7 +13,12 @@ reference; this package imports neither JAX nor ``gmres_tpu``.
 ``solve`` runs on ``device="cuda"`` unless told ``device="cpu"``.
 ``solve_distributed`` splits the rows over the ranks of a
 ``torch.distributed`` group, each rank calling it alike
-(``parallel/launch.py`` starts the ranks).
+(``parallel/launch.py`` starts the ranks).  ``load_matrix`` and
+``load_vector`` read MatrixMarket files with the reference's loader
+semantics; ``python -m gmres_tpu_torch.cli.solve`` and
+``python -m gmres_tpu_torch.cli.condest_cli`` are the reference's command
+lines, and ``gmres_tpu_torch.experiments.sweep`` / ``findmin`` its sweep
+runner and best-configuration selector.
 """
 
 from gmres_tpu_torch.config import (
@@ -24,6 +29,7 @@ from gmres_tpu_torch.config import (
     Precond,
     RestartPolicy,
 )
+from gmres_tpu_torch.io.loader import load_matrix, load_vector
 from gmres_tpu_torch.io.rng import rand_vect
 from gmres_tpu_torch.ops.dia import DIAMatrix
 from gmres_tpu_torch.ops.sell import SELLMatrix, sell_from_csr
@@ -44,6 +50,8 @@ __all__ = [
     "SELLMatrix",
     "csr_from_coo",
     "csr_from_dense",
+    "load_matrix",
+    "load_vector",
     "rand_vect",
     "sell_from_csr",
     "solve",

@@ -185,6 +185,31 @@ class GmresConfig:
     def with_(self, **kw) -> "GmresConfig":
         return dataclasses.replace(self, **kw)
 
+    @staticmethod
+    def from_flags(mode: str = "mixed", orth: str = "mgs", prec: str = "ilu", rlen: int = 30,
+                   rtol: float = 0.0, tol: float = 1e-6, max_restarts: int = 1_000_000,
+                   repeat_iter: bool = False, orthloss: bool = False, jacobi_steps: int = 1,
+                   **kw) -> "GmresConfig":
+        """The reference's command-line flags as a configuration
+        (``alloc_convergence``, ``gmres_perf_test.cpp:185-196``;
+        ``gmres_tpu/config.py:262-304``): rtol == 0 is the fixed restart;
+        otherwise ``repeat_iter`` or ``orthloss`` picks the policy, and the
+        relative preconditioned residual is the default."""
+        if repeat_iter and orthloss:
+            raise ValueError("Repeated Iteration Restart cannot be used with OrthLoss restart")
+        if rtol == 0:
+            policy = RestartPolicy.FIXED
+        elif repeat_iter:
+            policy = RestartPolicy.REPEAT_ITERATION
+        elif orthloss:
+            policy = RestartPolicy.LOST_ORTHOGONALITY
+        else:
+            policy = RestartPolicy.REL_PREC_RES
+        return GmresConfig(precision=PrecisionSpec.from_mode(mode), orth=Orth(orth.lower()),
+                           precond=Precond(prec), jacobi_steps=jacobi_steps, policy=policy,
+                           restart_length=rlen, restart_improvement=rtol, tol=tol,
+                           max_restarts=max_restarts, **kw)
+
 
 def use_lowsync_mgs(cfg: GmresConfig, device_type: str, distributed: bool = False) -> bool:
     """Whether an MGS solve runs the one-reduce ICWY step instead of the

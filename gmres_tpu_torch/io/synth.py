@@ -1,5 +1,5 @@
 """Synthetic test matrices, built on the host in numpy: the stencil
-Laplacian and the nonsymmetric convection-diffusion operator that the
+Laplacians (5- and 7-point) and the nonsymmetric convection-diffusion operator that the
 benchmark solves, the jittered-stencil unstructured mesh that DIA refuses,
 and a random diagonally dominant pattern for tests.  Each returns a
 `CSRMatrix` with a guaranteed diagonal and sorted rows, entry for entry the
@@ -28,6 +28,40 @@ def poisson_2d(nx: int, ny: int | None = None, dtype=np.float64) -> CSRMatrix:
         (ix < nx - 1, +1),
         (iy > 0, -nx),
         (iy < ny - 1, +nx),
+    ):
+        sel = idx[cond]
+        rows.append(sel)
+        cols.append(sel + off)
+        vals.append(np.full(sel.shape[0], -1.0))
+    return csr_from_coo(
+        np.concatenate(rows),
+        np.concatenate(cols),
+        np.concatenate(vals).astype(dtype),
+        n_rows=n,
+    )
+
+
+def poisson_3d(nx: int, ny: int | None = None, nz: int | None = None,
+               dtype=np.float64) -> CSRMatrix:
+    """7-point Laplacian on an nx*ny*nz grid (like thermal2/G3_circuit scale)."""
+    ny = ny or nx
+    nz = nz or nx
+    n = nx * ny * nz
+    idx = np.arange(n, dtype=np.int64)
+    ix = idx % nx
+    iy = (idx // nx) % ny
+    iz = idx // (nx * ny)
+
+    rows = [idx]
+    cols = [idx]
+    vals = [np.full(n, 6.0)]
+    for cond, off in (
+        (ix > 0, -1),
+        (ix < nx - 1, +1),
+        (iy > 0, -nx),
+        (iy < ny - 1, +nx),
+        (iz > 0, -nx * ny),
+        (iz < nz - 1, +nx * ny),
     ):
         sel = idx[cond]
         rows.append(sel)

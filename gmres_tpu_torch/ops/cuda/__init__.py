@@ -4,8 +4,9 @@ Each wrapper keeps a plain-int launch count (``wrapper.launches``), so a
 run can show that the main path went through its kernels.  K4's pair mode
 (``outer_kernel.basis_axpy_pair_cuda``) counts into ``basis_axpy``.  The
 wrappers of kernels with dtype forms (K2, K2x2, K3's three modes, K4, K7)
-also count each form's launches (``wrapper.forms``, by entry-point suffix;
-K4's pair mode as "pair").
+and of K1's and K5's plain modes ("f32", "f64") also count each form's
+launches (``wrapper.forms``, by entry-point suffix; K4's pair mode as
+"pair").
 """
 
 from __future__ import annotations

@@ -19,6 +19,8 @@ what the CPU path and the on-card comparisons use.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from gmres_tpu_torch.ops.cuda._build import check, kernel_dtype, library
@@ -66,10 +68,12 @@ def sell_spmv_cuda(vals, cols, slice_ptr, x: torch.Tensor, n_rows: int) -> torch
     library().call(f"gmres_sell_spmv_{sfx}", vals.data_ptr(), cols.data_ptr(),
                    slice_ptr.data_ptr(), x.data_ptr(), y.data_ptr(), n_rows)
     sell_spmv_cuda.launches += 1
+    sell_spmv_cuda.forms[sfx] += 1
     return y
 
 
 sell_spmv_cuda.launches = 0
+sell_spmv_cuda.forms = Counter()
 
 
 def sell_residual_plain(vals, cols, slice_ptr, b, x, inner_dtype: torch.dtype):

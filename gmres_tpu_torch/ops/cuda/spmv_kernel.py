@@ -15,6 +15,7 @@ what the CPU path and the on-card comparisons use.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
@@ -56,10 +57,12 @@ def dia_spmv_cuda(data: torch.Tensor, offsets, x: torch.Tensor) -> torch.Tensor:
     lib.call(f"gmres_dia_spmv_{sfx}", data.data_ptr(), x.data_ptr(), y.data_ptr(),
              n, x.shape[0], D, offs)
     dia_spmv_cuda.launches += 1
+    dia_spmv_cuda.forms[sfx] += 1
     return y
 
 
 dia_spmv_cuda.launches = 0
+dia_spmv_cuda.forms = Counter()
 
 
 def dia_residual_plain(data, offsets, b, x, inner_dtype: torch.dtype):

@@ -114,6 +114,24 @@ def from_csr(A: CSRMatrix, max_fill: float = 3.0, max_diags: int = 256) -> DIAMa
     )
 
 
+def dia_transpose(A: DIAMatrix) -> DIAMatrix:
+    """A^T in DIA form (``gmres_tpu/ops/dia.py:124``): offsets negate and
+    each band shifts by its own offset, ``B[-o][p] = A[o][p - o]`` (0
+    outside), bands in ascending offset order.  On A's device; condest's
+    Golub-Kahan recurrence takes A^T x as a second DIA product."""
+    n = A.n_rows
+    out = torch.zeros_like(A.data)
+    for d, off in enumerate(A.offsets):
+        if off >= 0:
+            out[d, off:] = A.data[d, :n - off]
+        else:
+            out[d, :n + off] = A.data[d, -off:]
+    new_offsets = [-o for o in A.offsets]
+    order = sorted(range(len(new_offsets)), key=new_offsets.__getitem__)
+    return DIAMatrix(data=out[order], offsets=tuple(new_offsets[i] for i in order),
+                     n_rows=A.n_cols, n_cols=A.n_rows, nnz=A.nnz)
+
+
 def dia_spmv(A: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x in A's dtype (x is cast first).  A bf16 operator (the bf16
     inner tier) takes plain torch ops on either device, the JAX package's

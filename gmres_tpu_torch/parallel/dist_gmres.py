@@ -198,8 +198,32 @@ def _require_supported_dist(A, cfg: GmresConfig, checkpoint) -> None:
             "port; pass auto_format=False for the allgather route")
 
 
+def _local_bytes(*objs) -> int:
+    """Bytes of the distinct tensors held by ``objs`` (dataclasses, tuples
+    and tensors, walked)."""
+    seen = {}
+
+    def walk(o):
+        if isinstance(o, torch.Tensor):
+            seen[id(o)] = o.nelement() * o.element_size()
+        elif dataclasses.is_dataclass(o):
+            for f in dataclasses.fields(o):
+                walk(getattr(o, f.name))
+        elif isinstance(o, (tuple, list)):
+            for e in o:
+                walk(e)
+
+    for o in objs:
+        walk(o)
+    return sum(seen.values())
+
+
 def _stage(A: CSRMatrix, cfg: GmresConfig, M, n_shards: int, rank: int, dev):
-    """This rank's (A_out, A_in, M) blocks on ``dev``, cached per matrix."""
+    """This rank's (A_out, A_in, M) blocks on ``dev``, cached per matrix,
+    with their bytes (``_local_bytes``) when they were staged here and None
+    when they came from the cache, as the JAX package's
+    ``GmresResult.partition_local_bytes`` (``gmres_tpu/parallel/
+    dist_gmres.py:688-694``)."""
     p = cfg.precision
     key = (n_shards, rank, str(dev), cfg.auto_format, p.outer, p.inner, p.precond,
            cfg.precond, cfg.jacobi_steps)
@@ -217,7 +241,8 @@ def _stage(A: CSRMatrix, cfg: GmresConfig, M, n_shards: int, rank: int, dev):
         staged = (A_out_loc, A_in_loc, _localize_prec(M_p, rank, Ao_p.rows_per_shard).to(dev),
                   Ao_p.rows_per_shard)
         _cache_put(A, key, staged)
-    return staged
+        return staged + (_local_bytes(*staged[:3]),)
+    return staged + (None,)
 
 
 def _host_vector(v, dtype: torch.dtype) -> np.ndarray:
@@ -256,7 +281,7 @@ def solve_distributed(A: CSRMatrix, b, cfg: GmresConfig | None = None, group=Non
     b_norm = nrm2(b_host).to(_f64)
     minvb_norm = nrm2(typesafe_apply(M, b_host.to(p.inner_dtype))).to(_f64)
     a_norm = nrm2(A.vals.cpu().to(p.inner_dtype)).to(_f64)
-    A_out, A_in, M_loc, r = _stage(A, cfg, M, comm.size, comm.rank, dev)
+    A_out, A_in, M_loc, r, local_bytes = _stage(A, cfg, M, comm.size, comm.rank, dev)
     lo, hi = comm.rank * r, (comm.rank + 1) * r
     b_loc = torch.from_numpy(pad_vector(b_np, comm.size)[lo:hi].copy()).to(dev)
     if x0 is None:
@@ -278,6 +303,7 @@ def solve_distributed(A: CSRMatrix, b, cfg: GmresConfig | None = None, group=Non
     result.prec_seconds = prec_seconds
     result.setup_seconds = setup_seconds
     result.solve_seconds = time.perf_counter() - t1
+    result.partition_local_bytes = local_bytes
     return result
 
 
@@ -299,7 +325,8 @@ def spmv_distributed(A: CSRMatrix, x, group=None, device=None):
 def run_cases(cases, device="cuda") -> list:
     """Solve each case on this rank and return what a spawner can carry
     back: for each case its label, outcome, counts, global x (host numpy),
-    host wall seconds and the kernel launches of its solve.  A
+    host wall seconds, the bytes of the rank's staged blocks (None when they
+    came from the staging cache) and the kernel launches of its solve.  A
     case is a dict with ``A``, ``b``, ``cfg`` and optionally ``x0`` and
     ``label``.  Run it on every rank (``launch.spawn(run_cases, P, args=
     (cases, device))``)."""
@@ -318,6 +345,7 @@ def run_cases(cases, device="cuda") -> list:
         out.append(dict(label=case.get("label"), converged=res.converged, aborted=res.aborted,
                         restarts=res.restarts, total_iters=res.total_iters,
                         x=res.x.cpu().numpy(), seconds=wall,
+                        partition_local_bytes=res.partition_local_bytes,
                         launches={k: after[k] - before[k] for k in after}))
     return out
 

@@ -147,6 +147,10 @@ class GmresResult:
     restarts: int                 # the reference's `i` at termination
     final_k: int                  # 0 when converged at check_initial
     rel_prec_res: float           # beta/||M^{-1}b|| at the converged check
+    # the JAX package's fields for the true fp64 ||b - A x|| and ||x - x_true||:
+    # neither package's solve sets them (callers such as cli/solve.py compute both)
+    residual_norm: float | None = None
+    error_norm: float | None = None
     prec_seconds: float = 0.0
     solve_seconds: float = 0.0
     setup_seconds: float = 0.0
@@ -155,6 +159,9 @@ class GmresResult:
     fellback_to_fp64: bool = False  # diverged, then solved again in uniform fp64
     stalled: bool = False         # no progress for a window of restarts (bf16 inner)
     escalated: bool = False       # a bf16 inner loop continued in fp32
+    # a distributed solve's bytes of this rank's operator and preconditioner
+    # blocks (``parallel/dist_gmres.py``); None on a single device
+    partition_local_bytes: int | None = None
 
 
 class _NativeBasis:
@@ -382,17 +389,22 @@ def drive_restarts(cycle, x, cfg: GmresConfig, record_history=False,
     ``stall_window``: a cycle whose relative residual is not below 0.9 of
     the best so far, ``stall_window`` or more restarts after the best, ends
     the solve with ``stalled`` set (``gmres_tpu/solver/gmres.py:1300-1322``),
-    that cycle's update included."""
+    that cycle's update included.  With a checkpoint the stall is saved
+    (``checkpoint.save_stalled``), and a solve with a ``stall_window`` that
+    resumes a file so marked runs no cycle and returns it as stalled."""
     pstate = initial_policy_state()
     history = [] if record_history else None
     total_iters = 0
     i = 0
+    resumed_stall = False
     if checkpoint is not None:
-        state = ckpt.load(checkpoint.path)
+        state = ckpt.load_phase(checkpoint.path)
         if state is not None:
-            x_np, i, total_iters, pstate = state
+            x_np, i, total_iters, pstate, resumed_stall = state
             x = torch.tensor(x_np, dtype=x.dtype, device=x.device)
-    converged = aborted = diverged = stalled = False
+            resumed_stall = resumed_stall and stall_window is not None
+    converged = aborted = diverged = False
+    stalled = resumed_stall
     rel_prec_res = float("nan")
     best_rel, best_i = float("inf"), 0
     last = None  # (i, CycleInfo) of the cycle whose tail is still on the device
@@ -408,7 +420,7 @@ def drive_restarts(cycle, x, cfg: GmresConfig, record_history=False,
         if progress is not None:
             progress(i_prev, k, info_prev.rel_initial)
 
-    while True:
+    while not stalled:
         if i + 1 > cfg.max_restarts:
             aborted = True
             break
@@ -443,6 +455,8 @@ def drive_restarts(cycle, x, cfg: GmresConfig, record_history=False,
     if last is not None:
         k, arn = last[1].tail.tolist()
         settle((int(k), arn))
+    if stalled and checkpoint is not None and not resumed_stall:
+        ckpt.save_stalled(checkpoint, x, i, total_iters, pstate)
     return GmresResult(x=x, converged=converged, aborted=aborted,
                        total_iters=total_iters, restarts=i, final_k=0,
                        rel_prec_res=rel_prec_res, history=history,
@@ -548,8 +562,10 @@ def solve(A, b, cfg: GmresConfig | None = None, x0=None, M=None,
     ``drive_restarts``).  A bf16 inner loop that stalls (``bf16_escalation``,
     tol < 1e-5) is continued from its iterate by a solve with an fp32 inner
     dtype and the restarts left (at least 1), with M rebuilt from ``A`` unless
-    one was given; ``escalated`` is set, the restarts, iterations and times
-    are summed and the histories joined by ``{"escalated": True}``.  Then,
+    one was given, its counts from zero and its checkpoint in a file of its
+    own (``CheckpointSpec.continuation``); ``escalated`` is set, the
+    restarts, iterations and times are summed and the histories joined by
+    ``{"escalated": True}``.  Then,
     with ``cfg.nan_fallback``, a diverged solve in any other precision than
     ``baseline`` is solved again in ``baseline`` from ``A`` with M rebuilt
     from it (``fellback_to_fp64`` is set and the first solve's times are
@@ -620,7 +636,7 @@ def solve(A, b, cfg: GmresConfig | None = None, x0=None, M=None,
             precision=PrecisionSpec(outer=p.outer, inner="float32", precond=p.precond),
             max_restarts=max(1, cfg.max_restarts - result.restarts)),
             x0=result.x, M=M_in, record_history=record_history, progress=progress,
-            device=dev, checkpoint=checkpoint)
+            device=dev, checkpoint=None if checkpoint is None else checkpoint.continuation())
         esc.escalated = True
         esc.total_iters += result.total_iters
         esc.restarts += result.restarts

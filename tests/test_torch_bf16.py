@@ -269,3 +269,76 @@ def test_bf16_operator_stays_on_dia_or_csr():
     mixed = cfg.with_(precision=gmres_tpu_torch.PrecisionSpec.from_mode("mixed"))
     assert not isinstance(prepare_operators(unstructured_mesh(512, run=8), mixed, "cpu")[1],
                           CSRMatrix)
+
+
+def _escalation_case():
+    """The escalating bf16 solve of ``test_bf16_escalation_converges_tight_tol``
+    (restart 60, tol 1e-8) and its unchecked result with history."""
+    A, b = _scaled_convdiff()
+    pA = csr_from_numpy(A.row_ptr, A.col_idx, A.vals, n_cols=A.n_cols)
+    cfg = gmres_tpu_torch.GmresConfig(
+        precision=gmres_tpu_torch.PrecisionSpec("float64", "bfloat16", "float32"),
+        orth="cgsr", precond="identity", restart_length=60, tol=1e-8, max_restarts=120)
+    full = gmres_tpu_torch.solve(pA, b, cfg, record_history=True, device="cpu")
+    assert full.converged and full.escalated
+    return pA, b, cfg, full
+
+
+@pytest.fixture(scope="module")
+def escalation_case():
+    return _escalation_case()
+
+
+@pytest.mark.parametrize("every", [1, 5, 10])
+def test_checkpointed_escalation_equals_the_unchecked_solve(tmp_path, escalation_case, every):
+    # the fp32 continuation starts from the stalled iterate with its counts
+    # at zero and a file of its own, so saving changes nothing
+    from gmres_tpu_torch.utils.checkpoint import CheckpointSpec, load_phase
+
+    pA, b, cfg, full = escalation_case
+    ck = CheckpointSpec(path=str(tmp_path / "bf16.ckpt"), every=every)
+    res = gmres_tpu_torch.solve(pA, b, cfg, record_history=True, device="cpu", checkpoint=ck)
+    assert res.converged and res.escalated
+    assert (res.restarts, res.total_iters) == (full.restarts, full.total_iters)
+    assert res.total_iters == sum(h["k"] for h in res.history if "k" in h)
+    assert [(h.get("i"), h.get("k")) for h in res.history] == \
+        [(h.get("i"), h.get("k")) for h in full.history]
+    np.testing.assert_array_equal(res.x.numpy(), full.x.numpy())
+    # the bf16 phase's file holds the stall, the continuation's its own counts
+    bf16_restarts, _ = _bf16_phase(full)
+    _, i, iters, _, stalled = load_phase(ck.path)
+    assert stalled and (i, iters) == (bf16_restarts, bf16_restarts * cfg.m)
+    _, i2, iters2, _, stalled2 = load_phase(ck.continuation().path)
+    assert not stalled2 and i2 <= full.restarts - bf16_restarts and iters2 == i2 * cfg.m
+
+
+def test_escalation_interrupted_in_its_fp32_phase_resumes(tmp_path, escalation_case):
+    # a run killed three cycles into its fp32 phase (after the continuation's
+    # save at its second restart) resumes from the continuation's file: the
+    # bf16 phase is not run again, and the counts and x are the unchecked ones
+    from gmres_tpu_torch.utils.checkpoint import CheckpointSpec, load
+
+    pA, b, cfg, full = escalation_case
+    bf16_restarts, _ = _bf16_phase(full)
+    ck = CheckpointSpec(path=str(tmp_path / "kill.ckpt"), every=2)
+    calls = []
+
+    def kill(i, k, rel):
+        calls.append(i)
+        if len(calls) == bf16_restarts + 3:
+            raise KeyboardInterrupt
+
+    with pytest.raises(KeyboardInterrupt):
+        gmres_tpu_torch.solve(pA, b, cfg, device="cpu", checkpoint=ck, progress=kill)
+    assert load(ck.continuation().path)[1:3] == (2, 2 * cfg.m)
+    seen = []
+    res = gmres_tpu_torch.solve(pA, b, cfg, record_history=True, device="cpu", checkpoint=ck,
+                                progress=lambda i, k, rel: seen.append(i))
+    assert res.converged and res.escalated
+    assert (res.restarts, res.total_iters) == (full.restarts, full.total_iters)
+    assert seen == list(range(2, full.restarts - bf16_restarts))
+    assert res.history[0] == {"escalated": True}
+    # the bf16 phase and the continuation's two saved cycles, then the history
+    assert res.total_iters == (bf16_restarts + 2) * cfg.m + sum(h["k"] for h in res.history
+                                                                if "k" in h)
+    np.testing.assert_array_equal(res.x.numpy(), full.x.numpy())

@@ -1164,6 +1164,9 @@ def test_compressed_basis_solve_on_card_matches_cpu(mode, basis, orth, low):
     inner = "f32" if mode != "baseline" else "f64"
     want = f"{'bf16' if basis == 'bfloat16' else 'f32'}_{inner}"
     for name, fc in forms.items():
+        if name in ("dia_spmv", "sell_spmv"):  # K1 and K5 in the inner dtype
+            assert set(fc) <= {inner}, (name, fc)
+            continue
         assert set(fc) <= {want} | ({"bf16_f32_f32"} if mode == "single" else
                                     {f"{want}_f64"}), (name, fc)
     assert forms["basis_axpy"] == {f"{want}_{'f32' if mode == 'single' else 'f64'}":
@@ -1205,3 +1208,43 @@ def test_bf16_solve_on_card_converges(orth, low, fmt):
     x = res.x.cpu().numpy()
     assert np.linalg.norm(A.to_scipy() @ x - b) <= 2e-6 * (
         np.linalg.norm(b) + np.linalg.norm(A.vals.numpy()) * np.linalg.norm(x))
+
+
+@pytest.mark.parametrize("fmt", ["dia", "sell"])
+def test_condest_on_card(fmt):
+    # a banded matrix runs condest on K1's fp64 plain mode (A and A^T), an
+    # unstructured one on K5's; sigma_max as on the CPU, and the stop test
+    # (quantities compared at 8 eps, where the kernels' FMAs round otherwise)
+    # fires within one step of the CPU's
+    from gmres_tpu_torch.solver.condest import condest
+
+    A = convection_diffusion_2d(32, beta=2.0) if fmt == "dia" else unstructured_mesh(4096, run=8)
+    quiet = lambda *a: None  # noqa: E731
+    reset_launch_counts()
+    cond, smax, smin, t = condest(A, max_iters=3000, verbose=quiet)
+    counts, forms = launch_counts(), form_launch_counts()
+    mine, other = ("dia_spmv", "sell_spmv") if fmt == "dia" else ("sell_spmv", "dia_spmv")
+    assert counts[mine] > 0 and counts[other] == 0, counts
+    assert forms[mine] == {"f64": counts[mine]}, forms
+    ccond, csmax, csmin, ct = condest(A, max_iters=3000, verbose=quiet, device="cpu")
+    assert abs(smax - csmax) <= 1e-9 * csmax and abs(t - ct) <= 1
+    assert abs(cond - ccond) <= 1e-3 * ccond
+
+
+def test_solve_cli_on_card_matches_cpu():
+    import contextlib
+    import io
+
+    from gmres_tpu_torch.cli import solve as cli
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert cli.main(["--device", dev, "--synth", "convdiff:32", "--mode", "baseline",
+                             "--orth", "cgsr", "--prec", "identity", "--tol", "1e-8",
+                             "--json"]) == 0
+        out[dev] = json.loads(buf.getvalue().splitlines()[-1])
+    assert out["cuda"]["converged"]
+    assert (out["cuda"]["i"], out["cuda"]["total_iters"]) == (out["cpu"]["i"],
+                                                              out["cpu"]["total_iters"])

@@ -105,6 +105,8 @@ def test_matches_jax_distributed_and_oracle(label, port_results):
         assert (other["restarts"], other["total_iters"]) == (got["restarts"], got["total_iters"])
         assert np.array_equal(other["x"], got["x"])
     assert got["converged"] and got["x"].shape == (A.n_rows,)
+    # each case's matrix is new, so every rank staged its blocks and counts them
+    assert all(r["partition_local_bytes"] > 0 for r in ranks)
 
     mesh = Mesh(np.array(jax.devices()[:P]), (AXIS,))
     ref = jax_solve_distributed(A, b, cj, mesh=mesh)

@@ -52,7 +52,12 @@ def test_port_never_imports_jax_or_gmres_tpu():
             "gmres_tpu_torch/utils/checkpoint.py", "gmres_tpu_torch/parallel/dist_gmres.py",
             "gmres_tpu_torch/parallel/halo.py", "gmres_tpu_torch/parallel/comm.py",
             "gmres_tpu_torch/parallel/launch.py", "gmres_tpu_torch/parallel/partition.py",
-            "gmres_tpu_torch/ops/cuda/halo_kernel.py"} <= names
+            "gmres_tpu_torch/ops/cuda/halo_kernel.py", "gmres_tpu_torch/io/mmio.py",
+            "gmres_tpu_torch/io/loader.py", "gmres_tpu_torch/cli/solve.py",
+            "gmres_tpu_torch/cli/condest_cli.py", "gmres_tpu_torch/solver/condest.py",
+            "gmres_tpu_torch/experiments/history.py", "gmres_tpu_torch/experiments/findmin.py",
+            "gmres_tpu_torch/experiments/suites.py",
+            "gmres_tpu_torch/experiments/sweep.py"} <= names
     assert len(files) > 15
     for path in files:
         for name in _imported_roots(path):
@@ -208,6 +213,20 @@ def test_unported_options_raise(cfg):
     fn = gmres_tpu_torch.solve_distributed if distributed else gmres_tpu_torch.solve
     with pytest.raises(NotImplementedError, match="slice"):
         fn(A, np.ones(A.n_rows), gmres_tpu_torch.GmresConfig(**cfg), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("command", ["cli.solve", "experiments.sweep"])
+def test_unported_command_line_options_raise(command, tmp_path):
+    # --dist: the port's ranks are started by parallel/launch.py, one process
+    # each, so a distributed command line waits for slice 7b
+    import importlib
+
+    main = importlib.import_module(f"gmres_tpu_torch.{command}").main
+    argv = (["--synth", "poisson2d:8"] if command == "cli.solve"
+            else ["--out-dir", str(tmp_path), "poisson2d:8", "10", "0", "1e-6"])
+    with pytest.raises(NotImplementedError, match="slice 7b"):
+        main(["--device", "cpu", "--dist", *argv])
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_single_device_bilu_jacobi_raises_the_references_value_error():

@@ -2,6 +2,8 @@
 ``tests/test_aux.py:65-129`` and ``tests/test_round2_fixes.py:22-89``, and
 the checkpoint file read across the two packages."""
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -159,3 +161,22 @@ def test_checkpoint_keeps_the_repeat_policy_state(tmp_path):
     assert (res.converged, res.restarts, res.total_iters) == (full.converged, full.restarts,
                                                               full.total_iters)
     np.testing.assert_allclose(res.x.numpy(), full.x.numpy(), rtol=1e-12)
+
+
+def test_stalled_checkpoint_files_cross_packages(tmp_path):
+    # the key that marks a stalled bf16 phase leaves the file readable by
+    # the JAX package, and a file without it reads as not stalled
+    from gmres_tpu_torch.utils.checkpoint import load_phase, save_stalled
+
+    ck = CheckpointSpec(path=str(tmp_path / "s.ckpt"))
+    open(ck.continuation().path, "w").close()  # an earlier continuation's file
+    x = np.linspace(-1.0, 1.0, 9)
+    save_stalled(ck, torch.from_numpy(x), 16, 960, PolicyState(True, 0, 0.0))
+    assert not os.path.exists(ck.continuation().path)
+    jx, ji, jiters, _ = jax_ckpt.load(ck.path)
+    np.testing.assert_array_equal(jx, x)
+    assert (ji, jiters) == (16, 960)
+    assert load_phase(ck.path)[1:3] + load_phase(ck.path)[4:] == (16, 960, True)
+    q = str(tmp_path / "jax.ckpt")
+    jax_ckpt.save(q, jnp.asarray(x), 2, 60, jax_initial_policy_state())
+    assert load_phase(q)[4] is False

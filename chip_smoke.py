@@ -6,8 +6,8 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels (and the host helper of the ILU
-preconditioners) from the sources in the checkout and drives seven paths
-and a phase of the command-line entry points,
+preconditioners) from the sources in the checkout and drives seven paths,
+a phase of the command-line entry points and a batched phase,
 the first five through ``gmres_tpu_torch.stage`` and ``solve`` in the
 ``baseline`` and ``mixed`` modes (x_true = rand_vect(n, 42), b = A x_true
 in fp64 numpy, CGSR unless said otherwise, restart length 30, tol 1e-8):
@@ -82,6 +82,22 @@ plain version first; ``experiments.sweep.main`` over the ``.mtx``
 are read around its own call (counts set to 0 just before it), so the
 direct ``solve`` and the operators' checks count for nothing.
 
+Then the batched phase: K1's lane form at 1, 2, 4 and 8 lanes (every width
+a launch takes), fp32 and fp64, in both modes, each lane bit for bit
+against K1 on that lane, timed beside its bound and torch.sparse.mm of the
+CSR matrix by the (n, s) block; ``solve_batched`` at convdiff@1M (x_true_j
+= rand_vect(n, 40 + j), CGSR, Jacobi) at s = 8 in mixed and baseline, each lane
+converged within one restart of 26/780 with the counts of the port's
+``solve`` of its b and a backward error <= 1e-8, the batched wall beside
+the sequential solves' (medians of 3, interleaved); a few cycles of the s
+= 8 mixed solve traced in a fresh process (``batched_trace``: host wall and
+device busy time a step, device time by kernel); ``cli.bench_kernels``
+in-process, its K1, K2 and K3 times held to its own timer's on this
+script's operands; and
+``experiments.analysis`` on the cli phase's sweep rows.  The batched solves
+must launch K1's lane form in both modes, K2, K3 GRAM, K3 SUMSQ and K4, and
+no other kernel.
+
 Before each path's solves it holds each of the path's kernels against its
 plain PyTorch version at the path's shapes (fp32 and fp64; a 31-row Krylov
 basis) and times both (the card kept busy while the host enqueues the
@@ -115,11 +131,13 @@ exact-ILU solve walls,
 K7's grid-size table and the sequential-vs-ICWY MGS walls, the
 df64 step and solve walls, the distributed solves and walls beside the
 single card's, the compressed-basis and bf16 solves and walls, the cli
-phase's outputs, times and launches; then one
+phase's outputs, times and launches; the batched
+phase's kernel lines, solves, walls, trace and tools; then one
 JSON line with the 19 kernels (launch counts from the solves, the
 distributed ones summed over the ranks; measured errors and times, bounds,
 one-call times; the dtype forms as variants with their launches on the
-convdiff-cb path);
+convdiff-cb path, K1's lane forms as variants of K1's two modes with their
+launches in the batched phase);
 then the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -302,6 +320,26 @@ CONDEST_T_SLACK = 1            # mesh3d's t against the TPU's 25
 CONDEST_MESH3D_EXTENDED = 4.004401852575535
 CONDEST_MESH3D_JAX_FP64 = 4.003861567590559
 CONDEST_COND_REL = 1e-4
+# the batched phase: solve_batched at convdiff@1M, as the TPU campaign's
+# scripts/bench_batched.py set it up (x_true_j = rand_vect(n, 40 + j), b_j =
+# A x_true_j; CGSR, Jacobi, restart 30, tol 1e-8): (mode, lanes) per solve.
+# The TPU's 6,240 iterations over 8 lanes (results/round4/bench_batched.txt)
+# are 780 a lane: each lane is held within one restart of 26/780
+BATCHED_SOLVES = (("mixed", 8), ("baseline", 8))
+BATCHED_SEED = 40
+BATCHED_HISTORY = (26, 780)
+BATCHED_WALL_REPS = 3             # timed batched and sequential runs, after a warm-up
+BATCHED_TRACE_RESTARTS = 2        # cycles of the traced s = 8 mixed solve
+# what a batched solve (CGSR, Jacobi, DIA) launches, and what it must not
+BATCHED_KERNELS = ("dia_spmv", "dia_residual", "basis_gram", "basis_update_gram",
+                   "basis_update_sumsq", "basis_axpy")
+# bench_kernels' time of a kernel is held within this factor of the spread
+# of BENCH_REPEATS readings of its own timer (cli/bench_kernels._timed: a loop
+# of BENCH_TRIALS back-to-back calls cycling through copies of the operands)
+# on this script's operands of the same shapes
+BENCH_AGREE = (0.9, 1.1)
+BENCH_REPEATS = 5
+BENCH_TRIALS = 20
 
 def log(*a):
     print(*a, flush=True)
@@ -355,6 +393,7 @@ class Timer:
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end))
+        self.last = times
         return statistics.median(times)
 
 
@@ -2448,6 +2487,7 @@ def cli_path(torch, A):
                                                 "cgsr", "cuda", "identity", "convdiff_1m"])[0]
         require(out.startswith("'convdiff_1m': [("), "findmin: the plotting line")
         counts = {k: counts[k] for k in launch_counts()}
+        sweep_rows = rows
         log(f"  launches cli (the entry points' runs): {counts}")
         log(f"  K1 and K5 launches by dtype, cli: {dict(dtypes)}")
         require({k for k, v in counts.items() if v} >= {k for r in CLI_SOLVES for k in r[2]}
@@ -2455,9 +2495,344 @@ def cli_path(torch, A):
                                                       ("sell_spmv", "f64")},
                 f"cli: K1 (fp32 and fp64), K1 residual, K2, K3 GRAM and SUMSQ, K4, K5 fp64, "
                 f"K6 fused and K7 launched ({counts}, {dict(dtypes)})")
-        return counts
+        return counts, sweep_rows
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_lane_kernels(torch, A_csr, record):
+    """K1's lane form at every lane count a launch takes (1, 2, 4 and 8,
+    ``spmv_kernel.LANE_CHUNKS``), fp32 and fp64, in both
+    modes: each lane bit for bit against K1 on that lane (plain mode on the
+    strided view V[:, 1, :] of a lane basis; residual mode with each lane's
+    two sums, the norm demoted to fp32 and kept in fp64), the whole against
+    the lane plain versions within TOL_REL (an FMA against a multiply and an
+    add), timed beside the bound ((D + 2s) n values in plain mode, (D + 3s) n
+    fp64 values in residual mode) and the one PyTorch call, torch.sparse.mm
+    of the CSR matrix by the (n, s) block; a lane's time beside K1's."""
+    from gmres_tpu_torch.ops.cuda import spmv_kernel as sk
+    from gmres_tpu_torch.ops.dia import from_csr
+
+    dia = from_csr(A_csr)
+    n, offs = dia.n_rows, dia.offsets
+    D = len(offs)
+    widths = sorted(sk.LANE_CHUNKS)
+    smax = max(widths)
+    rng = np.random.default_rng(BATCHED_SEED)
+    timer = Timer(torch)
+    V_np = rng.standard_normal((smax, 3, n))
+    d64 = dia.data.to("cuda", torch.float64)
+    B64 = torch.tensor(rng.standard_normal((smax, n)), device="cuda")
+    X64 = torch.tensor(rng.random((smax, n)), device="cuda")
+    for dt_name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        sfx = "f32" if dt == torch.float32 else "f64"
+        data = dia.data.to("cuda", dt)
+        V = torch.tensor(V_np, dtype=dt, device="cuda")
+        x0 = V[0, 1].contiguous()
+        k1_ms = timer(lambda: sk.dia_spmv_cuda(data, offs, x0))
+        Acsr = csr_tensor(torch, A_csr, dt)
+        for s in widths:
+            X = V[:s, 1]
+            got = sk.dia_spmv_lanes_cuda(data, offs, X)
+            bits = all(torch.equal(got[j], sk.dia_spmv_cuda(data, offs, X[j].contiguous()))
+                       for j in range(s))
+            want = sk.dia_spmv_lanes_plain(data, offs, X)
+            err, bound, ok = compare(dt_name, [got], [want],
+                                     [sk.dia_spmv_lanes_plain(data.abs(), offs, X.abs())])
+            Xt = X.t().contiguous()
+            ms = timer(lambda: sk.dia_spmv_lanes_cuda(data, offs, X))
+            log(f"  K1 lane form {dt_name} s={s}: every lane bit-equal to K1: {bits}; {ms:.4f} "
+                f"ms, {ms / s:.4f} ms a lane against K1's {k1_ms:.4f} ms")
+            record("dia_spmv", dt_name, err, bound, ok and bits, ms,
+                   timer(lambda: sk.dia_spmv_lanes_plain(data, offs, X)),
+                   (D + 2 * s) * n * dt.itemsize, 2 * D * n * s,
+                   timer(lambda: torch.sparse.mm(Acsr, Xt)), key=f"{sfx}_lanes{s}")
+        del Acsr, V, data
+        for s in widths:
+            args = (d64, offs, B64[:s], X64[:s], dt)
+            got = sk.dia_residual_lanes_cuda(*args)
+            ones = [sk.dia_residual_cuda(d64, offs, B64[j], X64[j], dt) for j in range(s)]
+            bits = all(torch.equal(g[j], one[i]) for j, one in enumerate(ones)
+                       for i, g in enumerate(got))
+            want = sk.dia_residual_lanes_plain(*args)
+            scale = B64[:s].abs() + sk.dia_spmv_lanes_plain(d64.abs(), offs, X64[:s])
+            err, bound, ok = compare("float64", got[:1], want[:1], [scale])
+            ss_err = max(float((g - w).abs().max() / w.abs().min())
+                         for g, w in zip(got[1:], want[1:]))
+            ss_tol = 1e-5 if dt == torch.float32 else 1e-12
+            ms = timer(lambda: sk.dia_residual_lanes_cuda(*args))
+            log(f"  K1 residual lane form, {dt_name} norm, s={s}: every lane bit-equal to K1's "
+                f"residual mode: {bits}; sums of squares rel err {ss_err:.3e} (tol {ss_tol:.0e})"
+                f"; {ms:.4f} ms, {ms / s:.4f} ms a lane")
+            record("dia_residual", dt_name, err, bound, ok and bits and ss_err <= ss_tol, ms,
+                   timer(lambda: sk.dia_residual_lanes_plain(*args)), (D + 3 * s) * n * 8,
+                   (2 * D + 5) * n * s, key=f"{dt_name}_lanes{s}")
+    record.require_ok()
+
+
+def batched_trace():
+    """Run in a fresh process (``python3 -c "import chip_smoke;
+    chip_smoke.batched_trace()"``; late in a long one torch.profiler records
+    no device kernel): BATCHED_TRACE_RESTARTS cycles of the s = 8 mixed
+    batched solve at convdiff@1M under utils.profiling.trace, after a
+    warm-up and an untraced run of the same.  Prints one JSON line: the
+    untraced and traced walls a step, the device's busy time a step (the
+    union of the traced run's device intervals) and its share of the
+    untraced wall (the profiler slows the host many times over, so the
+    traced wall is no step's wall), and the device time a step by kernel."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from gmres_tpu_torch import rand_vect, solve_batched, stage
+    from gmres_tpu_torch.io.synth import convection_diffusion_2d
+    from gmres_tpu_torch.utils.profiling import trace
+
+    A = convection_diffusion_2d(NX, beta=2.0)
+    A_dev = stage(A)
+    n, s = A.n_rows, 8
+    B = torch.tensor(np.stack([-csr_residual(A, rand_vect(n, BATCHED_SEED + j), np.zeros(n))
+                               for j in range(s)]), device="cuda")
+    cfg = config("mixed", "jacobi", max_restarts=BATCHED_TRACE_RESTARTS)
+    solve_batched(A_dev, B, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve_batched(A_dev, B, cfg)
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t0
+    steps = res[0].total_iters
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        t0 = time.perf_counter()
+        with trace(tmp) as prof:
+            solve_batched(A_dev, B, cfg)
+        traced = time.perf_counter() - t0
+        trace_mb = os.path.getsize(os.path.join(tmp, "trace.json")) / 2 ** 20
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    spans, by_kernel = [], Counter()
+    groups = (("K1 lane form", "dia_spmv_lanes_kernel"), ("K1", "dia_spmv_kernel"),
+              ("K2", "basis_gram_kernel"), ("K3 GRAM", "basis_update_gram"),
+              ("K3 SUMSQ", "basis_update_kernel"), ("K4", "basis_axpy_kernel"))
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t_start, t_end = e.time_range.start, e.time_range.end
+        spans.append((t_start, t_end))
+        group = next((g for g, key in groups if key in e.name), "torch")
+        by_kernel[group] += (t_end - t_start) / steps / 1e3
+    spans.sort()
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    print(json.dumps({"lanes": s, "steps": steps, "cycles": res[0].restarts,
+                      "device_events": len(spans), "trace_mb": trace_mb,
+                      "untraced_ms_per_step": untraced / steps * 1e3,
+                      "traced_ms_per_step": traced / steps * 1e3,
+                      "device_busy_ms_per_step": busy / 1e3 / steps,
+                      "device_busy_share": busy / 1e6 / untraced,
+                      "device_busy_share_traced": busy / 1e6 / traced,
+                      "device_ms_per_step": dict(by_kernel)}), flush=True)
+
+
+def bench_kernel_times(torch, A):
+    """K1 on convdiff@1M, and K2, K3 GRAM and K3 SUMSQ over 31 rows of
+    N(0, 1/n) values, fp32 and fp64, under bench_kernels' own timer
+    (``_timed``, BENCH_TRIALS calls a reading) on this script's operands,
+    BENCH_REPEATS readings each: {(the bench's key, dtype): (median, min,
+    max) ms}."""
+    from gmres_tpu_torch.cli.bench_kernels import _timed
+    from gmres_tpu_torch.ops.cuda import orth_kernel as ok_
+    from gmres_tpu_torch.ops.cuda import spmv_kernel as sk
+    from gmres_tpu_torch.ops.dia import from_csr
+
+    dia = from_csr(A)
+    n, m, nnz = A.n_rows, RLEN + 1, A.nnz
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for dt_name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        size = dt.itemsize
+        data = dia.data.to("cuda", dt)
+        V = torch.randn((m, n), generator=gen, dtype=dt, device="cuda") / np.sqrt(n)
+        w = torch.randn(n, generator=gen, dtype=dt, device="cuda")
+        u = torch.randn(m, generator=gen, dtype=dt, device="cuda")
+        ops = (("spmv_dia", lambda d, V, w, u: sk.dia_spmv_cuda(d, dia.offsets, w),
+                nnz * (size + 4) + 2 * n * size),
+               ("gram", lambda d, V, w, u: ok_.gram_cuda(V, w, m), (m + 1) * n * size),
+               ("update_gram", lambda d, V, w, u: ok_.update_gram_cuda(V, w, u, m),
+                (m + 2) * n * size),
+               ("update_sumsq", lambda d, V, w, u: ok_.update_sumsq_cuda(V, w, u, m),
+                (m + 2) * n * size))
+        for key, fn, nbytes in ops:
+            def make(fn=fn):
+                args = [t.clone() for t in (data, V, w, u)]
+                return lambda: fn(*args)
+            ms = [_timed(make, nbytes, BENCH_TRIALS, torch.device("cuda")) * 1e3
+                  for _ in range(BENCH_REPEATS)]
+            out[(key, dt_name)] = (statistics.median(ms), min(ms), max(ms))
+        del data, V
+    return out
+
+
+def batched_path(torch, record, A, A_dev, sweep_rows):
+    """The batched phase, after the cli phase: K1's lane form against K1 and
+    its plain version (check_lane_kernels); solve_batched at convdiff@1M per
+    BATCHED_SOLVES, each lane converged within one restart of
+    BATCHED_HISTORY, with the counts of the port's solve of its b in the same
+    run, at a backward error <= 1e-8 recomputed here in fp64; the batched
+    wall beside the s sequential solves' (medians of BATCHED_WALL_REPS,
+    interleaved, after a batched warm-up); where a batched step's time goes
+    (batched_trace, a fresh process); bench_kernels in-process, its K1, K2
+    and K3 times beside its own timer's on this script's operands; the
+    analysis tables on the cli phase's sweep rows.  The launches are read
+    around each batched solve alone; each part logs its seconds.  Returns
+    the phase's launch counts and {(kernel, lane variant): launches}."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from gmres_tpu_torch import rand_vect, solve, solve_batched
+    from gmres_tpu_torch.cli import bench_kernels
+    from gmres_tpu_torch.experiments import analysis, history
+    from gmres_tpu_torch.ops.cuda import form_launch_counts, launch_counts, reset_launch_counts
+
+    t_part = time.perf_counter()
+
+    def part_seconds(name):
+        nonlocal t_part
+        log(f"batched phase, {name}: {time.perf_counter() - t_part:.1f} s")
+        t_part = time.perf_counter()
+
+    check_lane_kernels(torch, A, record)
+    part_seconds("K1's lane form checks")
+    n = A.n_rows
+    smax = max(s for _, s in BATCHED_SOLVES)
+    x_true = [rand_vect(n, BATCHED_SEED + j) for j in range(smax)]
+    B = np.stack([-csr_residual(A, x, np.zeros(n)) for x in x_true])
+    B_dev = torch.tensor(B, device="cuda")
+    a_fro = float(np.linalg.norm(A.vals.numpy()))
+    counts, lane_launches = Counter(), Counter()
+
+    def batched(mode, cfg, Bs):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = solve_batched(A_dev, Bs, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c, forms = launch_counts(), form_launch_counts()
+        label = f"batched {mode} s={Bs.shape[0]}"
+        require(all(c[k] > 0 for k in BATCHED_KERNELS)
+                and all(v == 0 for k, v in c.items() if k not in BATCHED_KERNELS),
+                f"{label}: launched {BATCHED_KERNELS} and no other kernel ({c})")
+        require(all("_lanes" in f for k in ("dia_spmv", "dia_residual") for f in forms[k]),
+                f"{label}: K1 in its lane form only, both modes ({forms['dia_spmv']}, "
+                f"{forms['dia_residual']})")
+        counts.update(c)
+        norm = "float32" if mode == "mixed" else "float64"
+        for f, v in forms["dia_spmv"].items():
+            lane_launches[("dia_spmv", f)] += v
+        for f, v in forms["dia_residual"].items():
+            lane_launches[("dia_residual", f"{norm}_{f.split('_', 1)[1]}")] += v
+        return res, wall
+
+    def lanes_checked(label, res, seq):
+        lines = []
+        for j, (r, one) in enumerate(zip(res, seq)):
+            x = r.x.cpu().numpy()
+            backward = float(np.linalg.norm(csr_residual(A, x, B[j]))
+                             / (np.linalg.norm(B[j]) + a_fro * np.linalg.norm(x)))
+            lines.append(f"{r.restarts}/{r.total_iters} (solve {one.restarts}/"
+                         f"{one.total_iters}, backward {backward:.2e})")
+            require(r.converged and abs(r.restarts - BATCHED_HISTORY[0]) <= 1
+                    and (r.restarts, r.total_iters) == (one.restarts, one.total_iters)
+                    and backward <= 1e-8,
+                    f"{label} lane {j}: {r.restarts}/{r.total_iters} converged={r.converged} "
+                    f"within one restart of {BATCHED_HISTORY[0]}/{BATCHED_HISTORY[1]} and equal "
+                    f"to solve's {one.restarts}/{one.total_iters}, backward error "
+                    f"{backward:.3e} <= 1e-8")
+        log(f"{label}: lanes {'; '.join(lines)}")
+
+    # per solve, its batched runs with the sequential solves of its lanes
+    # interleaved
+    for mode, s in BATCHED_SOLVES:
+        label = f"batched {mode} s={s}"
+        cfg = config(mode, "jacobi")
+        batched(mode, cfg, B_dev[:s])   # warm-up
+        bwalls, swalls = [], []
+        for _ in range(BATCHED_WALL_REPS):
+            res, wall = batched(mode, cfg, B_dev[:s])
+            bwalls.append(wall)
+            seq, wall = [], 0.0
+            for j in range(s):
+                t0 = time.perf_counter()
+                seq.append(solve(A_dev, B_dev[j], cfg))
+                torch.cuda.synchronize()
+                wall += time.perf_counter() - t0
+            swalls.append(wall)
+        lanes_checked(label, res, seq)
+        bw, sw = statistics.median(bwalls), statistics.median(swalls)
+        log(f"{label}: wall median {bw:.4f} s (walls {[round(w, 4) for w in bwalls]}) "
+            f"against {s} sequential solves' {sw:.4f} s (walls "
+            f"{[round(w, 4) for w in swalls]}): batched/sequential {bw / sw:.4f}")
+        del res, seq
+        part_seconds(label)
+
+    # where a batched step's time goes, in a fresh process
+    out = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.batched_trace()"],
+                         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                         text=True, timeout=600)
+    require(out.returncode == 0, f"batched_trace failed ({out.returncode}): {out.stderr[-2000:]}")
+    tr = json.loads(out.stdout.strip().splitlines()[-1])
+    log(f"batched trace (s=8 mixed, {tr['cycles']} cycles, {tr['steps']} steps, "
+        f"{tr['device_events']} device events): host wall a step {tr['untraced_ms_per_step']:.4f}"
+        f" ms untraced, {tr['traced_ms_per_step']:.4f} ms traced; device busy "
+        f"{tr['device_busy_ms_per_step']:.4f} ms a step, {tr['device_busy_share']:.4f} of the "
+        f"untraced wall ({tr['device_busy_share_traced']:.4f} of the traced); device ms a step: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(tr["device_ms_per_step"].items(),
+                                                      key=lambda kv: -kv[1])))
+    require(tr["device_events"] > 0, "batched trace: torch.profiler recorded device kernels")
+    part_seconds("the trace")
+
+    # bench_kernels, in-process: its K1, K2, K3 GRAM and K3 SUMSQ beside the
+    # same kernels under its own timer on this script's operands
+    buf, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        rc = bench_kernels.main(["--synth", "convdiff:1024", "--trials", str(BENCH_TRIALS),
+                                 "--json"])
+    log(f"bench_kernels ({time.perf_counter() - t0:.1f} s):")
+    for line in err.getvalue().splitlines():
+        log(f"  | {line}")
+    require(rc == 0, f"bench_kernels: exit code {rc}")
+    bench = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"bench_kernels JSON: {json.dumps(bench)}")
+    for (key, dt_name), (med, lo, hi) in sorted(bench_kernel_times(torch, A).items()):
+        got = bench[f"{key}_{'f32' if dt_name == 'float32' else 'f64'}"]["seconds"] * 1e3
+        ok = BENCH_AGREE[0] * lo <= got <= BENCH_AGREE[1] * hi
+        log(f"  bench_kernels {key} {dt_name}: {got:.4f} ms against its timer's {med:.4f} ms on "
+            f"this script's operands (spread {lo:.4f}..{hi:.4f}, {BENCH_REPEATS} readings): "
+            f"{got / med:.3f} of the median, {got / lo:.3f} of the least, {got / hi:.3f} of the "
+            f"most {'ok' if ok else 'FAIL'}")
+        require(ok, f"bench_kernels {key} {dt_name}: {got:.4f} ms within "
+                f"{BENCH_AGREE[0]}..{BENCH_AGREE[1]} of its timer's spread {lo:.4f}..{hi:.4f}")
+    part_seconds("bench_kernels")
+
+    # the analysis tables on the cli phase's sweep rows
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_analysis_")
+    try:
+        history.append_rows("convdiff_1m", sweep_rows, tmp)
+        out = run_main(analysis.main, ["--in-dir", tmp, "--latex", "1e-8", "cgsr", "cuda",
+                                       "identity", "convdiff_1m"], "analysis")
+        require("geometric mean" in out and "convdiff_1m" in out,
+                "analysis: the speedup line and the LaTeX table of the sweep's rows")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    part_seconds("analysis")
+    return {k: counts[k] for k in launch_counts()}, lane_launches
 
 
 def main() -> int:
@@ -2509,15 +2884,18 @@ def main() -> int:
     dist_counts = convdiff_dist_path(torch, record, A, x_single, walls_single)
     t6 = time.perf_counter()
     cb_counts, form_counts = convdiff_cb_path(torch, record, A, A_dev, mesh, mesh_dev)
-    del mesh, mesh_dev, A_dev
+    del mesh, mesh_dev
     t7 = time.perf_counter()
-    cli_counts = cli_path(torch, A)
+    cli_counts, sweep_rows = cli_path(torch, A)
+    t8 = time.perf_counter()
+    batched_counts, lane_launches = batched_path(torch, record, A, A_dev, sweep_rows)
+    del A_dev
     log(f"path seconds: convdiff {t1 - t0:.1f}, mesh3d {t2 - t1:.1f}, "
         f"convdiff-ilu {t3 - t2:.1f}, convdiff-mgs {t4 - t3:.1f}, "
         f"convdiff-df64 {t5 - t4:.1f}, convdiff-dist {t6 - t5:.1f}, "
-        f"convdiff-cb {t7 - t6:.1f}, cli {time.perf_counter() - t7:.1f}")
+        f"convdiff-cb {t7 - t6:.1f}, cli {t8 - t7:.1f}, batched {time.perf_counter() - t8:.1f}")
     path_counts = (convdiff_counts, mesh3d_counts, ilu_counts, mgs_counts, cb_counts,
-                   cli_counts)
+                   cli_counts, batched_counts)
     require(all(c[k] == 0 for c in path_counts for k in DF64_KERNELS),
             f"K8-K11 launched on the df64 path only ({path_counts})")
     path_counts += (df64_counts,)
@@ -2535,8 +2913,11 @@ def main() -> int:
     # K2x2 and K3 plain the 31-row basis) and for K8-K11 the df64 variant
     # (31 rows), for K12 the interior block, the other variants alongside;
     # launches are summed over the seven paths' solves (the distributed one's
-    # over its ranks) and the cli phase's entry-point runs; a dtype form's variant (bf16_f32, f32_f64, bf16_bf16
-    # and K4's) carries its launches on the convdiff-cb path
+    # over its ranks), the cli phase's entry-point runs and the batched
+    # solves; a dtype form's variant (bf16_f32, f32_f64, bf16_bf16 and K4's)
+    # carries its launches on the convdiff-cb path, a lane form's (K1's
+    # <dtype>_lanes<s>, its residual mode's <norm dtype>_lanes<s>) in the
+    # batched solves
     sources = {
         "dia_spmv": ("gmres_tpu_torch/csrc/dia_spmv.cu",
                      "gmres_tpu/ops/pallas/spmv_kernel.py:88"),
@@ -2591,7 +2972,8 @@ def main() -> int:
             "bound_by": main_rec["bound_by"], "library_ms": main_rec["library_ms"],
             "gb_per_s": main_rec["gb_per_s"], "copy_gb_per_s": copy_gbs,
             "variants": {k: (dict(v, launches=form_counts[name].get(k, 0))
-                             if k in path_forms.get(name, ()) else v)
+                             if k in path_forms.get(name, ()) else
+                             dict(v, launches=lane_launches[(name, k)]) if "_lanes" in k else v)
                          for k, v in rec.items() if k != main},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

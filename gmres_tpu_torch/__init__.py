@@ -10,7 +10,8 @@ reference; this package imports neither JAX nor ``gmres_tpu``.
     res = solve(A_dev, b, GmresConfig(precision=PrecisionSpec.from_mode("mixed"),
                                       orth="cgsr", precond="identity"))
 
-``solve`` runs on ``device="cuda"`` unless told ``device="cpu"``.
+``solve`` runs on ``device="cuda"`` unless told ``device="cpu"``, and so
+does ``solve_batched``, which solves for s right-hand sides at once.
 ``solve_distributed`` splits the rows over the ranks of a
 ``torch.distributed`` group, each rank calling it alike
 (``parallel/launch.py`` starts the ranks).  ``load_matrix`` and
@@ -34,6 +35,7 @@ from gmres_tpu_torch.io.rng import rand_vect
 from gmres_tpu_torch.ops.dia import DIAMatrix
 from gmres_tpu_torch.ops.sell import SELLMatrix, sell_from_csr
 from gmres_tpu_torch.parallel.dist_gmres import solve_distributed
+from gmres_tpu_torch.solver.batched import solve_batched
 from gmres_tpu_torch.solver.gmres import GmresResult, solve, stage
 from gmres_tpu_torch.sparse import CSRMatrix, csr_from_coo, csr_from_dense
 
@@ -55,6 +57,7 @@ __all__ = [
     "rand_vect",
     "sell_from_csr",
     "solve",
+    "solve_batched",
     "solve_distributed",
     "stage",
 ]

@@ -6,8 +6,8 @@ run can show that the main path went through its kernels.  K4's pair mode
 wrappers of kernels with dtype forms (K2, K2x2, K3's three modes, K4, K7)
 and of K1's and K5's plain modes ("f32", "f64") also count each form's
 launches (``wrapper.forms``, by entry-point suffix; K4's pair mode as
-"pair").
-"""
+"pair").  K1's lane form counts into K1's wrappers, in both modes, as the
+form "<dtype>_lanes<L>" of a launch over L lanes."""
 
 from __future__ import annotations
 

@@ -41,6 +41,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
+_L = ctypes.c_longlong
 # C entry point -> argument types.  Every pointer and the stream are
 # c_void_p: an undeclared Python int would be passed as a 32-bit int.
 _SIGNATURES = {
@@ -48,6 +49,10 @@ _SIGNATURES = {
     "gmres_dia_spmv_f64": (_P, _P, _P, _I, _I, _I, _P, _P),
     "gmres_dia_residual_f32": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P),
     "gmres_dia_residual_f64": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P),
+    "gmres_dia_spmv_lanes_f32": (_P, _P, _L, _P, _L, _I, _I, _I, _P, _I, _P),
+    "gmres_dia_spmv_lanes_f64": (_P, _P, _L, _P, _L, _I, _I, _I, _P, _I, _P),
+    "gmres_dia_residual_lanes_f32": (_P, _P, _L, _P, _L, _P, _L, _P, _L, _I, _I, _P, _I, _I, _P),
+    "gmres_dia_residual_lanes_f64": (_P, _P, _L, _P, _L, _P, _L, _P, _L, _I, _I, _P, _I, _I, _P),
     "gmres_dia_spmv_halo_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P),
     "gmres_dia_spmv_halo_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P),
     "gmres_dia_residual_halo_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I,

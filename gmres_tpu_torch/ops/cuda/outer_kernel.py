@@ -1,7 +1,7 @@
 """The fp64 outer phase of a restart cycle: the true residual with its two
-norms (K1 or K5 in residual mode) and the solution update (K4, with a pair
-mode for the df64 tier's basis of fp32 pairs), each beside its plain
-PyTorch version.
+norms (K1 or K5 in residual mode; over the lanes of a batched solve, K1's
+residual lane form) and the solution update (K4, with a pair mode for the
+df64 tier's basis of fp32 pairs), each beside its plain PyTorch version.
 
 Replaces ``gmres_tpu/ops/pallas/df64_kernel.py``'s ``residual_df64`` and
 ``axpy_df64``, and ``gmres_tpu/ops/pallas/sell_kernel.py``'s
@@ -23,7 +23,12 @@ import torch
 from gmres_tpu_torch.ops.blas import all_reduce
 from gmres_tpu_torch.ops.cuda._build import AXPY_FORMS, acc_dtype, check, form, library
 from gmres_tpu_torch.ops.cuda.sell_kernel import sell_residual_cuda, sell_residual_plain
-from gmres_tpu_torch.ops.cuda.spmv_kernel import dia_residual_cuda, dia_residual_plain
+from gmres_tpu_torch.ops.cuda.spmv_kernel import (
+    dia_residual_cuda,
+    dia_residual_lanes_cuda,
+    dia_residual_lanes_plain,
+    dia_residual_plain,
+)
 from gmres_tpu_torch.ops.dia import DIAMatrix
 from gmres_tpu_torch.ops.sell import SELLMatrix
 from gmres_tpu_torch.ops.spmv import spmv
@@ -60,6 +65,20 @@ def outer_residual(A, b: torch.Tensor, x: torch.Tensor, inner_dtype: torch.dtype
     if comm is not None:
         r_ss, x_ss = comm.all_reduce_sum(torch.stack([r_ss, x_ss])).unbind()
     return r, r_ss, x_ss
+
+
+def outer_residual_lanes(A, B: torch.Tensor, X: torch.Tensor, inner_dtype: torch.dtype):
+    """``outer_residual`` for the s lanes of a batched solve: (R (s, n),
+    ||r'_j||^2 (s,), ||x_j||^2 (s,)), each lane with the bits of
+    ``outer_residual(A, B[j], X[j])``.  A DIA operator takes K1's residual
+    lane form (its plain version on the CPU) in one launch per chunk of
+    lanes; any other operator, or a bf16 inner dtype, goes lane by lane (a
+    SELL operator through K5's residual mode)."""
+    if isinstance(A, DIAMatrix) and inner_dtype != torch.bfloat16:
+        fn = dia_residual_lanes_cuda if A.data.is_cuda else dia_residual_lanes_plain
+        return fn(A.data, A.offsets, B, X, inner_dtype)
+    R, r_ss, x_ss = zip(*(outer_residual(A, b, x, inner_dtype) for b, x in zip(B, X)))
+    return torch.stack(R), torch.stack(r_ss), torch.stack(x_ss)
 
 
 def basis_axpy_plain(x: torch.Tensor, V: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

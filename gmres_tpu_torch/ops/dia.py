@@ -11,7 +11,8 @@ D*n values against CSR's nnz.
 
 ``dia_spmv`` sends a CUDA tensor to kernel K1 (``csrc/dia_spmv.cu``) in
 fp32 and fp64 at every size, and a CPU tensor to the plain version; a bf16
-operator runs plain torch ops on either device.
+operator runs plain torch ops on either device.  ``dia_spmv_lanes`` does the
+same for the lanes of a batched solve, on K1's lane form.
 ``DF64Dia`` is the df64 tier's view of an fp64 DIA matrix as (hi, lo) fp32
 band pairs; ``dia_spmv_df64`` sends it to kernel K8 (``csrc/df64_spmv.cu``)
 on the card and to K8's plain version on the CPU.
@@ -25,7 +26,12 @@ import numpy as np
 import torch
 
 from gmres_tpu_torch.ops.cuda.df64_spmv_kernel import dia_spmv_df64_cuda, dia_spmv_df64_plain
-from gmres_tpu_torch.ops.cuda.spmv_kernel import dia_spmv_cuda, dia_spmv_plain
+from gmres_tpu_torch.ops.cuda.spmv_kernel import (
+    dia_spmv_cuda,
+    dia_spmv_lanes_cuda,
+    dia_spmv_lanes_plain,
+    dia_spmv_plain,
+)
 from gmres_tpu_torch.ops.eft import merge_f64, split_f64
 from gmres_tpu_torch.sparse import CSRMatrix
 
@@ -144,6 +150,17 @@ def dia_spmv(A: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
     if A.data.is_cuda:
         return dia_spmv_cuda(A.data, A.offsets, x)
     return dia_spmv_plain(A.data, A.offsets, x)
+
+
+def dia_spmv_lanes(A: DIAMatrix, X: torch.Tensor) -> torch.Tensor:
+    """Y[j] = A @ X[j] for the lanes of X (s, n_cols), in A's dtype (X is
+    cast first; a view of the lanes at any stride is read in place when it
+    is in A's dtype).  A bf16 operator takes ``dia_spmv``'s torch formula
+    over all lanes at once."""
+    X = X.to(A.data.dtype)
+    if A.data.is_cuda and A.data.dtype != torch.bfloat16:
+        return dia_spmv_lanes_cuda(A.data, A.offsets, X)
+    return dia_spmv_lanes_plain(A.data, A.offsets, X)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,7 +2,8 @@
 
 The reference calls cblas_?rotg / cublas?rotg and zeroes the eliminated
 entry (``kernels_mkl.cpp:217-218``).  Everything here works on 0-d tensors
-or (m+1, m+1) matrices that stay on the device: no value is read back to
+or (m+1, m+1) matrices, or on a leading lane dimension for a batched
+solve, that stay on the device: no value is read back to
 the host, so the Arnoldi loop never waits on the card.
 """
 
@@ -33,8 +34,12 @@ def rotg(a: torch.Tensor, b: torch.Tensor):
 def accumulate_rotation(Q: torch.Tensor, k: int, c, s) -> torch.Tensor:
     """Q <- G(k, k+1; c, s) @ Q, in place: fold a new plane rotation into
     the accumulated orthogonal transform Q = G_{k-1} ... G_0, so that the
-    Givens right-hand side is s = beta * Q[:, 0] (``gmres_tpu/ops/givens.py``)."""
-    qk, qk1 = Q[k].clone(), Q[k + 1].clone()
-    Q[k] = c * qk + s * qk1
-    Q[k + 1] = c * qk1 - s * qk
+    Givens right-hand side is s = beta * Q[:, 0] (``gmres_tpu/ops/givens.py``).
+    Q is (m+1, m+1) with 0-d c and s, or (lanes, m+1, m+1) with (lanes,)
+    c and s (a batched solve; each lane's rows get the same elementwise
+    arithmetic)."""
+    c, s = c.unsqueeze(-1), s.unsqueeze(-1)
+    qk, qk1 = Q[..., k, :].clone(), Q[..., k + 1, :].clone()
+    Q[..., k, :] = c * qk + s * qk1
+    Q[..., k + 1, :] = c * qk1 - s * qk
     return Q

@@ -12,13 +12,17 @@ In a distributed solve (``comm`` given) a rank's block of a halo operator
 goes to ``parallel/halo.py:halo_spmv`` (K12 on the card for a DIA block);
 any other operator is the rank's row block with global columns, and the
 operand is all-gathered first (``gmres_tpu/ops/spmv.py:gather_operand``).
+
+``spmv_lanes`` is the batched solve's product over s lanes: one launch of
+K1's lane form on a DIA operator (the bands read once for all lanes), and
+lane by lane on any other.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gmres_tpu_torch.ops.dia import DF64Dia, DIAMatrix, dia_spmv, dia_spmv_df64
+from gmres_tpu_torch.ops.dia import DF64Dia, DIAMatrix, dia_spmv, dia_spmv_df64, dia_spmv_lanes
 from gmres_tpu_torch.ops.eft import merge_f64, split_f64
 from gmres_tpu_torch.ops.sell import SELLMatrix, sell_spmv
 from gmres_tpu_torch.parallel.halo import LocalHaloCSR, LocalHaloDIA, halo_spmv
@@ -50,3 +54,13 @@ def spmv(A, x: torch.Tensor, comm=None) -> torch.Tensor:
         return merge_f64(*dia_spmv_df64(A, *split_f64(x.to(torch.float64))))
     raise TypeError(f"spmv on {type(A).__name__}: the port takes DIA, SELL, CSR and "
                     "DF64Dia operators")
+
+
+def spmv_lanes(A, X: torch.Tensor) -> torch.Tensor:
+    """Y[j] = A @ X[j] for each lane of X (s, n), Y (s, n) in A's dtype,
+    each lane with the bits of ``spmv(A, X[j])``: a DIA operator takes K1's
+    lane form, a SELL operator K5 and a CSR one the plain route, lane by
+    lane."""
+    if isinstance(A, DIAMatrix):
+        return dia_spmv_lanes(A, X)
+    return torch.stack([spmv(A, x) for x in X])

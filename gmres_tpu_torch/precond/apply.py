@@ -18,6 +18,11 @@ a CUDA tensor and to K6's plain versions on a CPU one.
 In a distributed solve ``w`` is the rank's block and ``comm`` reaches each
 sweep's SpMV (a halo exchange or an allgather, ``ops/spmv.py``); Jacobi
 needs none.
+
+``typesafe_apply_lanes`` applies M to the s lanes of a batched solve, each
+lane with the bits of ``typesafe_apply``: identity and Jacobi broadcast, the
+ILU-Jacobi sweeps run on ``spmv_lanes`` (K1's lane form on DIA factors), and
+an exact-ILU DIA or level-scheduled M is applied lane by lane.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from gmres_tpu_torch.ops.cuda import trisolve_kernel as tk
-from gmres_tpu_torch.ops.spmv import spmv
+from gmres_tpu_torch.ops.spmv import spmv, spmv_lanes
 from gmres_tpu_torch.precond.build import (
     ExactILUDIAPrec,
     IdentityPrec,
@@ -35,13 +40,16 @@ from gmres_tpu_torch.precond.build import (
 from gmres_tpu_torch.precond.level_ilu import LevelILUPrec, level_ilu_apply
 
 
-def _ilu_jacobi_apply(M: ILUJacobiPrec, w: torch.Tensor, comm=None) -> torch.Tensor:
+def _ilu_jacobi_apply(M: ILUJacobiPrec, w: torch.Tensor, comm=None, product=None) -> torch.Tensor:
+    """The sweeps; ``product(A, x)`` is the SpMV (``spmv`` with ``comm``,
+    or ``spmv_lanes`` for w of shape (s, n))."""
+    product = product or (lambda A, x: spmv(A, x, comm))
     x = w
     for _ in range(M.steps):
-        x = w - spmv(M.lower, x, comm)
+        x = w - product(M.lower, x)
     b2 = x
     for _ in range(M.steps):
-        x = x + M.inv_diag * (b2 - spmv(M.upper, x, comm))
+        x = x + M.inv_diag * (b2 - product(M.upper, x))
     return x
 
 
@@ -80,3 +88,18 @@ def typesafe_apply(M, w: torch.Tensor, comm=None) -> torch.Tensor:
     if w.dtype == m_dtype:
         return apply_preconditioner(M, w, comm)
     return apply_preconditioner(M, w.to(m_dtype), comm).to(w.dtype)
+
+
+def typesafe_apply_lanes(M, W: torch.Tensor) -> torch.Tensor:
+    """``typesafe_apply`` on each lane of W (s, n), with its bits."""
+    if isinstance(M, IdentityPrec):
+        return W
+    m_dtype = M.inv_diag.dtype
+    Wm = W.to(m_dtype)
+    if isinstance(M, JacobiPrec):
+        out = M.inv_diag * Wm
+    elif isinstance(M, ILUJacobiPrec):
+        out = _ilu_jacobi_apply(M, Wm, product=spmv_lanes)
+    else:
+        out = torch.stack([apply_preconditioner(M, w) for w in Wm])
+    return out.to(W.dtype)

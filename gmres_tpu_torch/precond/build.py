@@ -211,6 +211,10 @@ def _factors(A: CSRMatrix, dtype: torch.dtype):
     col_idx, diag, lower, upper, inv_diag) with host numpy arrays."""
     if not isinstance(A, CSRMatrix):
         raise TypeError(f"ILU factors need the CSR matrix, got {type(A).__name__}")
+    if dtype not in _NUMPY_DTYPE:
+        raise NotImplementedError(
+            f"a {dtype} ILU preconditioner (ILU-Jacobi or exact ILU) is slice 5c of the "
+            "port; build M in float32 (PrecisionSpec precond='float32')")
     ndt = _NUMPY_DTYPE[dtype]
     rp, ci, v = A.numpy_arrays()
     rp = rp.astype(np.int64)
@@ -278,21 +282,34 @@ def _exact_dia(rp, ci, diag, lower, upper, inv_diag, steps_l, steps_u, ndt):
     return dataclasses.replace(prec, seg=seg, steps_l_segs=sl, steps_u_segs=su)
 
 
-def build_ilu_exact(A: CSRMatrix, dtype: torch.dtype):
+def build_ilu_exact(A: CSRMatrix, dtype: torch.dtype, allow_fused: bool = True):
     """Exact ILU(0) triangular solves as level-count Jacobi sweeps (the
     strict triangles are nilpotent of that index), routed as the module
-    docstring says."""
+    docstring says.  ``allow_fused=False`` skips the K6 form and the
+    level-scheduled one and returns the sweep form (the same exact solve,
+    its factors and level counts; ``solve_batched`` applies it to every lane
+    with K1's lane form), or raises where its work is over the budget
+    (``gmres_tpu/precond/build.py:278-330, 385-409``)."""
     rp, ci, diag, lower, upper, inv_diag = _factors(A, dtype)
     nlev_l, nlev_u = triangular_level_counts(rp, ci, diag)
     steps = max(nlev_l, nlev_u)
     if steps <= _SHALLOW_LEVELS:
         return ILUJacobiPrec(lower=lower, upper=upper, inv_diag=torch.from_numpy(inv_diag),
                              steps=steps)
-    prec = _exact_dia(rp, ci, diag, lower, upper, inv_diag, nlev_l, nlev_u,
-                      _NUMPY_DTYPE[dtype])
+    prec = (_exact_dia(rp, ci, diag, lower, upper, inv_diag, nlev_l, nlev_u,
+                       _NUMPY_DTYPE[dtype]) if allow_fused else None)
     if prec is not None:
         return prec
     nnz = int(rp[-1])
+    if steps * max(nnz, 1) > _SWEEP_WORK_BUDGET and not allow_fused:
+        # the JAX package's refusal, word for word (gmres_tpu/precond/build.py:395-403)
+        raise ValueError(
+            f"exact-ILU triangular solves need {steps} dependency-level "
+            f"sweeps over {nnz} nonzeros per application; the factors fit "
+            "neither the fused VMEM kernel nor the level-scheduled work "
+            "budget — this would be prohibitively slow on TPU. Use "
+            "precond='ilu_jacobi' (the reference's TPU-friendly variant) "
+            "or a smaller problem.")
     if steps * max(nnz, 1) > _SWEEP_WORK_BUDGET:
         # level-scheduled chunks pay sum_c sweeps_c * nnz_c instead
         lev_l, lev_u = triangular_levels(rp, ci, diag)
@@ -355,10 +372,6 @@ def build_preconditioner(A, cfg: GmresConfig):
             f"{cfg.precond.value} preconditioner needs the CSR matrix; pass the CSR "
             "form to solve() or prebuild M with build_preconditioner(csr, cfg) and "
             "pass it as M=")
-    if dtype not in _NUMPY_DTYPE:
-        raise NotImplementedError(
-            f"a {dtype} ILU preconditioner (ILU-Jacobi or exact ILU) is slice 5c of the "
-            "port; build M in float32 (PrecisionSpec precond='float32')")
     if cfg.precond == Precond.ILU_JACOBI:
         return build_ilu_jacobi(A, dtype, cfg.jacobi_steps)
     if cfg.precond == Precond.ILU:

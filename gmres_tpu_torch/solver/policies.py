@@ -29,6 +29,10 @@ at which the policy fired): the loop enqueues all its steps and the cycle
 is cut to ``trig_k`` afterwards, which gives the early exit's results
 because a Givens rotation G_j touches only rows j, j+1
 (``gmres_tpu/solver/gmres.py:156-165``).
+
+A batched solve (``solver/batched.py``) keeps a ``PolicyState`` for each
+of its lanes: each lane's threshold comes from its own ``prec_rel0`` and,
+under REPEAT, each lane runs its own first cycle's length.
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ def initial_policy_state() -> PolicyState:
     return PolicyState(is_first=True, second_restart_length=0, restart_tol=0.0)
 
 
-def _residual_policy(cfg: GmresConfig, pstate: PolicyState) -> bool:
+def residual_policy(cfg: GmresConfig, pstate: PolicyState) -> bool:
     """Whether this cycle restarts on the residual proxy: REL_PREC_RES
     always, REPEAT_ITERATION in its first cycle."""
     return cfg.policy == RestartPolicy.REL_PREC_RES or (
@@ -64,7 +68,7 @@ def _residual_policy(cfg: GmresConfig, pstate: PolicyState) -> bool:
 def cycle_threshold(cfg: GmresConfig, pstate: PolicyState, prec_rel0: float) -> float:
     """The threshold of the residual proxy for this cycle
     (``gmres_tpu/solver/gmres.py:510-518``)."""
-    if _residual_policy(cfg, pstate):
+    if residual_policy(cfg, pstate):
         return prec_rel0 * cfg.restart_improvement
     return pstate.restart_tol
 
@@ -76,15 +80,6 @@ def cycle_steps(cfg: GmresConfig, pstate: PolicyState) -> int:
     if cfg.policy == RestartPolicy.REPEAT_ITERATION and not pstate.is_first:
         return min(pstate.second_restart_length, cfg.m)
     return cfg.m
-
-
-def residual_trigger(cfg: GmresConfig, pstate: PolicyState, arnoldi: torch.Tensor,
-                     minvb_norm: torch.Tensor, restart_tol: float):
-    """The residual-proxy predicate on the device, or None when this
-    cycle has no such trigger."""
-    if _residual_policy(cfg, pstate):
-        return arnoldi / minvb_norm <= restart_tol
-    return None
 
 
 def orthloss_step(S: torch.Tensor, k: int, u: torch.Tensor, loss_sq: torch.Tensor):

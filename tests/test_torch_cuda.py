@@ -10,7 +10,9 @@ card) solves on the card against the same solves on the CPU; the dtype
 forms of the compressed-basis and bf16 tiers (K2, K2x2, K3's three modes,
 K7, K4) against their plain versions at an aligned and a ragged n, K2's and
 K3 GRAM's forms bit for bit across grids and one device kernel a call, and
-compressed-basis and bf16 solves on the card against the CPU.
+compressed-basis and bf16 solves on the card against the CPU; K1's lane form
+bit for bit against K1 lane by lane in both modes, and a batched solve whose
+lanes have the counts of ``solve``.
 
 These need an NVIDIA GPU with the CUDA toolkit: they carry the ``cuda``
 marker and skip elsewhere.  On the card:
@@ -1248,3 +1250,87 @@ def test_solve_cli_on_card_matches_cpu():
     assert out["cuda"]["converged"]
     assert (out["cuda"]["i"], out["cuda"]["total_iters"]) == (out["cpu"]["i"],
                                                               out["cpu"]["total_iters"])
+
+
+@DTYPES
+@pytest.mark.parametrize("s", [1, 3, 7, 8])
+@pytest.mark.parametrize("nx", [7, 45, 1024])
+def test_dia_lanes_bit_equal_to_k1(dt, s, nx):
+    # K1's lane form (s = 7 runs the 4-, 2- and 1-lane launches, s = 8 the
+    # 8-lane one): lane j is K1 on lane j bit for bit, in plain mode on a
+    # strided view of the lanes (a basis row of every lane, V[:, k, :]) and
+    # in residual mode with each lane's two sums; the lane plain versions are
+    # K1's plain versions lane by lane, bit for bit; kernel against plain
+    # within TOL (FMA against a multiply then an add)
+    dia = from_csr(convection_diffusion_2d(nx, beta=2.0))
+    n = dia.n_rows
+    rng = np.random.default_rng(nx + s)
+    data = dia.data.to("cuda", dt)
+    V = torch.tensor(rng.standard_normal((s, 3, n)), dtype=dt, device="cuda")
+    X = V[:, 1]
+    reset_launch_counts()
+    Y = sk.dia_spmv_lanes_cuda(data, dia.offsets, X)
+    forms = form_launch_counts()["dia_spmv"]
+    assert sum(forms.values()) == len(sk.lane_chunks(s)) and all("lanes" in f for f in forms)
+    plain = sk.dia_spmv_lanes_plain(data, dia.offsets, X)
+    for j in range(s):
+        assert torch.equal(Y[j], sk.dia_spmv_cuda(data, dia.offsets, X[j].contiguous()))
+        assert torch.equal(plain[j], sk.dia_spmv_plain(data, dia.offsets, X[j]))
+        _close(Y[j], plain[j], dt)
+    d64 = dia.data.to("cuda")
+    B = torch.tensor(rng.standard_normal((s, n)), device="cuda")
+    X64 = torch.tensor(rng.random((s, n)), device="cuda")
+    R, r_ss, x_ss = sk.dia_residual_lanes_cuda(d64, dia.offsets, B, X64, dt)
+    Rp, rp_ss, xp_ss = sk.dia_residual_lanes_plain(d64, dia.offsets, B, X64, dt)
+    for j in range(s):
+        r1, rs1, xs1 = sk.dia_residual_cuda(d64, dia.offsets, B[j], X64[j], dt)
+        assert torch.equal(R[j], r1) and torch.equal(r_ss[j], rs1) and torch.equal(x_ss[j], xs1)
+        _close(R[j], Rp[j], torch.float64)
+        assert abs(float(r_ss[j] - rp_ss[j])) <= 1e-5 * float(rp_ss[j])
+        assert abs(float(x_ss[j] - xp_ss[j])) <= 1e-12 * float(xp_ss[j])
+
+
+def test_dia_lanes_wrappers_refuse_what_the_kernel_does_not_take():
+    dia = from_csr(convection_diffusion_2d(7))
+    data = dia.data.to("cuda")
+    X = torch.zeros((2, dia.n_rows), dtype=torch.float64, device="cuda")
+    with pytest.raises(TypeError):
+        sk.dia_spmv_lanes_cuda(data, dia.offsets, X.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.dia_spmv_lanes_cuda(data, dia.offsets, torch.zeros((dia.n_rows, 2), device="cuda",
+                                                               dtype=torch.float64).t())
+    with pytest.raises(ValueError):
+        sk.dia_spmv_lanes_cuda(data, dia.offsets, X.cpu())
+    with pytest.raises(ValueError):
+        sk.dia_residual_lanes_cuda(data, dia.offsets, X[:1], X, torch.float32)
+
+
+@pytest.mark.parametrize("mode", ["baseline", "mixed"])
+def test_solve_batched_on_card_matches_solve(mode):
+    # each lane's counts are those of solve() on the card of its b, and the
+    # batched solve launches K1's lane form in both modes and the sweeps,
+    # never K1's single-lane forms, K5-K12, K7, K2x2 or K3's plain mode
+    A = convection_diffusion_2d(32, beta=2.0)
+    B = np.stack([A.to_scipy() @ gmres_tpu_torch.rand_vect(A.n_rows, 40 + j) for j in range(5)])
+    cfg = gmres_tpu_torch.GmresConfig(
+        precision=gmres_tpu_torch.PrecisionSpec.from_mode(mode), orth="cgsr",
+        precond="jacobi", restart_length=30, tol=1e-8, max_restarts=80)
+    reset_launch_counts()
+    res = gmres_tpu_torch.solve_batched(A, B, cfg)
+    counts, forms = launch_counts(), form_launch_counts()
+    k1 = "f64" if mode == "baseline" else "f32"
+    assert f"{k1}_lanes4" in forms["dia_spmv"] and set(forms["dia_spmv"]) <= {
+        f"{k1}_lanes{w}" for w in (4, 2, 1)}, forms
+    assert "f64_lanes4" in forms["dia_residual"] and set(forms["dia_residual"]) <= {
+        f"f64_lanes{w}" for w in (4, 2, 1)}, forms
+    used = {"dia_spmv", "dia_residual", "basis_gram", "basis_update_gram",
+            "basis_update_sumsq", "basis_axpy"}
+    assert all(counts[k] > 0 for k in used) and all(counts[k] == 0 for k in counts
+                                                    if k not in used), counts
+    for b, r in zip(B, res):
+        one = gmres_tpu_torch.solve(A, b, cfg)
+        assert r.x.is_cuda and r.converged
+        assert (r.restarts, r.total_iters) == (one.restarts, one.total_iters)
+        tol = 1e-9 if mode == "baseline" else 1e-5
+        xo = one.x.cpu().numpy()
+        assert np.linalg.norm(r.x.cpu().numpy() - xo) / np.linalg.norm(xo) <= tol

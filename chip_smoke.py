@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels (and the host helper of the ILU
-preconditioners) from the sources in the checkout and drives seven paths,
+preconditioners) from the sources in the checkout and drives eight paths,
 a phase of the command-line entry points and a batched phase,
 the first five through ``gmres_tpu_torch.stage`` and ``solve`` in the
 ``baseline`` and ``mixed`` modes (x_true = rand_vect(n, 42), b = A x_true
@@ -27,6 +27,18 @@ in fp64 numpy, CGSR unless said otherwise, restart length 30, tol 1e-8):
    1e-8), and exact ILU
    on ``convection_diffusion_2d(512, beta=2.0)`` (the reference's 8/240 in
    mixed).  The fused K6 form serves 262K and the segmented one 1M fp64;
+3b. the bf16 ILU path (convdiff-bf16ilu): ILU-Jacobi(3) built in bf16 (its
+   bands swept in plain torch), its apply held to the CPU's and timed
+   beside K1; at convdiff@1M the bf16 tier (CGSR, sequential MGS: the bf16
+   phase, the stall, the fp32 continuation) and fp32 inner with the bf16 M,
+   each converging with its counts in a window of the card's own, CGSR
+   also on its sweeps' plain versions, held to the kernels' counts; the
+   same at convdiff(256) held to the JAX package's counts on the CPU
+   (``scripts/port_bf16ilu_cpu.py``); bf16 exact ILU at 262K on its sweep
+   form (never K6), its apply's wall and device time beside K6 fp32's and a
+   solve cut at 3 restarts held to the JAX package's history; and the
+   route bf16 exact ILU takes at 1M.  K1, K2-K4 and K7 launch, in their
+   (bf16, bf16) and fp32 forms, and no K5, K6, K2x2 or K8-K12;
 4. the MGS and policy path (convdiff-mgs): the same convdiff@1M operator,
    identity preconditioner, with ``orth="mgs"`` sequential (K7) and ICWY
    (K2x2 and K3 SUMSQ) in both modes (the reference's 26/780), and in mixed
@@ -49,7 +61,14 @@ in fp64 numpy, CGSR unless said otherwise, restart length 30, tol 1e-8):
    path's single-card x), mixed MGS under the ``low_sync_mgs=None`` rule,
    MGS sequential and ICWY interleaved (cut at 4 restarts) and ILU-Jacobi(3)
    mixed at ``convection_diffusion_2d(512)``, through K12 (a rank's halo DIA
-   SpMV and, in residual mode, its outer residual);
+   SpMV and, in residual mode, its outer residual); then the precision
+   tiers: mixed-cb and baseline-cb CGSR (30..40 and 26..28 restarts;
+   mixed-cb's cycles and x against a single-card solve) and
+   MGS (ICWY, cut at 4 restarts), df64 CGSR (26/780; x against a
+   single-card solve) and MGS ICWY and sequential (cut at 4), through
+   K9-K11 and K12 in fp64, no K8, and the bf16 tier with Jacobi and a bf16
+   ILU-Jacobi(3) at 262K, cut at 6 restarts, never escalating, beside the
+   single card's bf16 cycles;
 7. the compressed-basis and bf16 path (convdiff-cb): the dtype forms of
    K2, K2x2, K3 (three modes), K7 and K4 held to their plain versions at
    convdiff@1M's shapes, K2's and K3 GRAM's forms counted one device kernel
@@ -117,10 +136,11 @@ barrier of each sync candidate (clusters too) and the old design's floor.
 Each path's launch counts are reset just
 before its solves and read just after: the path's own kernels must launch,
 the other paths' SpMV kernels, (without ILU) K6, (without MGS, a policy
-or orth_steps != 2) the MGS kernels, (outside the df64 path) K8-K11 and
-(outside the distributed path) K12 must not; on the df64 path K1's plain
-mode, K2, K3, K2x2 and K7 must not; each distributed rank must launch K12
-in both modes and no K1, K5, K6, K7 or K8-K11.
+or orth_steps != 2) the MGS kernels, (outside the df64 and distributed
+paths) K8-K11 and (outside the distributed path) K12 must not; on the df64
+path K1's plain mode, K2, K3, K2x2 and K7 must not; each distributed rank
+must launch K12 in both modes, K9-K11 and every tier's dtype forms, and no
+K1, K5, K6, K7 or K8.
 Any failed check raises and the script exits non-zero; without a CUDA
 device it exits non-zero at once.  Each phase prints its seconds.
 
@@ -194,6 +214,38 @@ TRISOLVE_PLAIN_REPS = 2  # the plain version is thousands of torch launches
 # results/round4/bench_mgs_lowsync.txt), relres(1e-2) and orthloss(1e-2)
 # (BASELINE.md:132-133); repeat(1e-2) aborts at 80 restarts of 7 iterations
 # each (BASELINE.md:136-146)
+# the bf16 ILU path (convdiff-bf16ilu): ILU-Jacobi(3) built in bf16.  At
+# convdiff(BF16ILU_NX) the card's counts are held to the JAX package's on
+# the CPU (scripts/port_bf16ilu_cpu.py --nx 256, the JAX route; (restarts
+# before the escalation, all restarts), by (tier, orth)): the bf16 phase
+# within STALL_WINDOW, the total within BF16ILU_SLACK.  On the CPU at that
+# size the port's totals were 63, 69, 56 against these: the slow tail moves
+# with the sums' order by up to 5, ~10% of it; the card sums in yet another
+# order, so twice that
+BF16ILU_NX = 256
+BF16ILU_CPU = {("bf16", "cgsr"): (9, 63), ("bf16", "mgs"): (9, 66), ("fp32", "cgsr"): (51, 51)}
+STALL_WINDOW = 6
+BF16ILU_SLACK = 10
+# at convdiff@1M, where the JAX package is not run on a CPU, the card's own
+# counts (the same on every run): every solve must converge within
+# BF16ILU_MAX_RESTARTS and hold these within STALL_WINDOW and
+# BF16ILU_SLACK.  CGSR on the plain versions of its sweeps (torch.mv) is
+# held to the kernels' counts: at convdiff(BF16ILU_NX) within BF16ILU_SLACK,
+# at 1M, after the bf16 stall, with its fp32 tail crawling near the
+# tolerance for ~90 restarts at a rate the rounding sets, within
+# BF16ILU_PLAIN_1M (the H100 read 139 against the kernels' 111)
+BF16ILU_1M = {("bf16", "cgsr"): (18, 111), ("bf16", "mgs"): (26, 127),
+              ("fp32", "cgsr"): (115, 115)}
+BF16ILU_PLAIN_1M = 35
+BF16ILU_MAX_RESTARTS = 200
+# bf16 exact ILU at convdiff(512): a solve cut at this many restarts, its
+# backward error per cycle held within BF16_EXACT_FACTOR of the JAX
+# package's on the CPU (scripts/port_bf16ilu_cpu.py --nx 512
+# --exact-restarts 3; the port's route on the CPU read 1.0036, 1.229e-05,
+# 2.289e-06: 2,046 bf16 sweeps an apply round apart, 1.42x at the third)
+BF16_EXACT_CUT = 3
+BF16_EXACT_CPU = (1.0035820661989343, 1.2273713204590937e-05, 1.614626464391044e-06)
+BF16_EXACT_FACTOR = 4.0
 MGS_HISTORY = (26, 780)
 POLICY_ITERS = {"relres": 787, "orthloss": 780}
 REPEAT_HISTORY = (80, 560, 7)
@@ -269,14 +321,41 @@ DIST_RANKS = 4
 DIST_KERNELS = ("dia_spmv_halo", "dia_residual_halo")
 # what a distributed solve on halo DIA blocks must not launch: K1 (both
 # modes), K5, K6, K7 (distributed sequential MGS is a plain row loop with one
-# collective a row) and K8-K11
+# collective a row) and K8 (a rank's df64 SpMV is merge, K12 in fp64, split;
+# its df64 sweeps are K9-K11)
 DIST_IDLE = ("dia_spmv", "dia_residual", "sell_spmv", "sell_residual", *ILU_KERNELS,
-             "basis_mgs", *DF64_KERNELS)
+             "basis_mgs", "dia_spmv_df64")
 # MGS sequential against ICWY, mixed: this many interleaved solves of each,
 # cut at DIST_MGS_RESTARTS restarts (a step's wall is what the rule needs;
 # a whole sequential solve takes ~50 s there, PERF.md)
 DIST_MGS_REPS = 3
 DIST_MGS_RESTARTS = 4
+# the distributed bf16 tier at convdiff(512), cut at this many restarts (it
+# has no escalation; the single card's bf16 solve stalls later, PERF.md)
+DIST_BF16_RESTARTS = 6
+# the dtype forms each rank must launch over the tiers: (bf16, fp32) under
+# mixed-cb, (fp32, fp64) under baseline-cb, (bf16, bf16) under the bf16 tier
+# (K2x2 takes no bf16 vector: ICWY passes it fp32), K4's pair mode under df64
+DIST_FORMS = {
+    "basis_gram": ("bf16_f32", "f32_f64", "bf16_bf16"),
+    "basis_update_gram": ("bf16_f32", "f32_f64", "bf16_bf16"),
+    "basis_update_sumsq": ("bf16_f32", "f32_f64", "bf16_bf16"),
+    "basis_gram2": ("bf16_f32", "f32_f64"),
+    "basis_axpy": ("bf16_f32_f64", "f32_f64_f64", "bf16_bf16_f64", "pair")}
+# the distributed bf16 cycles above the bf16 floor (backward error above
+# 10 * CB_BF16_BEST) are held this close to the single card's, cycle by
+# cycle (the H100 read them within 8%); at the floor (~1e-6) the cycles
+# scatter (2.1e-7..2.0e-6 over the single card's last four of the Jacobi
+# solve at 262K, whose best the distributed one read 3.8x above): the two
+# bests are held within DIST_BF16_FLOOR
+DIST_BF16_CYCLE = 1.25
+DIST_BF16_FLOOR = 5.0
+# the distributed mixed-cb CGSR solve against the single card's: each
+# cycle's backward error within DIST_CB_CYCLE, and x within DIST_CB_X_DIFF
+# relative (the H100 read 4.8e-3: a bf16 basis summed per rank rounds
+# apart, and convdiff@1M's x moves far for a small residual change)
+DIST_CB_CYCLE = 1.5
+DIST_CB_X_DIFF = 1e-2
 DIST_TIMEOUT = 600     # seconds for the spawned ranks, and for each collective
 # the cli phase: the reference-format entry points at convdiff@1M.  The
 # solve command line's summary block as the reference's sweep runner scrapes
@@ -829,20 +908,29 @@ def solve_timed(torch, label, mode, A_csr, A_dev, cfg, timed, M=None, history=Fa
     return res, wall
 
 
-def solve_with_plain(torch, A_csr, A_dev, cfg, M, kernel):
-    """One solve as solve_timed's with the wrapper of `kernel` ("gram": K2,
-    "update_gram": K3 GRAM) swapped for its plain version (torch.mv on the
-    card): the history that the kernel's own rounding is held to."""
+def solve_with_plain(torch, A_csr, A_dev, cfg, M, *kernels):
+    """One solve as solve_timed's (history recorded) with the wrappers of
+    `kernels` ("gram": K2, "update_gram": K3 GRAM, "update_sumsq": K3
+    SUMSQ) swapped for their plain versions (torch.mv on the card): the
+    history that the kernels' own rounding is held to, with its backward
+    error as `backward_error`."""
     from gmres_tpu_torch import rand_vect, solve
     from gmres_tpu_torch.ops.cuda import orth_kernel as ok_
 
     b = -csr_residual(A_csr, rand_vect(A_csr.n_rows, 42), np.zeros(A_csr.n_rows))
-    wrapper = getattr(ok_, f"{kernel}_cuda")
-    setattr(ok_, f"{kernel}_cuda", getattr(ok_, f"{kernel}_plain"))
+    saved = {k: getattr(ok_, f"{k}_cuda") for k in kernels}
+    for k in kernels:
+        setattr(ok_, f"{k}_cuda", getattr(ok_, f"{k}_plain"))
     try:
-        return solve(A_dev, torch.tensor(b, device="cuda"), cfg, M=M)
+        res = solve(A_dev, torch.tensor(b, device="cuda"), cfg, M=M, record_history=True)
     finally:
-        setattr(ok_, f"{kernel}_cuda", wrapper)
+        for k, wrapper in saved.items():
+            setattr(ok_, f"{k}_cuda", wrapper)
+    x = res.x.cpu().numpy()
+    res.backward_error = float(np.linalg.norm(csr_residual(A_csr, x, b))
+                               / (np.linalg.norm(b)
+                                  + np.linalg.norm(A_csr.vals.numpy()) * np.linalg.norm(x)))
+    return res
 
 
 def config(mode, precond, orth="cgsr", **kw):
@@ -1219,6 +1307,221 @@ def convdiff_ilu_path(torch, record, A, A_dev):
     require(all(counts[k] == 0 for k in PATH_KERNELS["mesh3d"] + MGS_KERNELS),
             f"convdiff-ilu: K5 and the MGS kernels did not launch ({counts})")
     return counts
+
+def apply_device_ms(torch, fn, reps=3):
+    """Device time of one call of `fn` (a preconditioner apply of thousands
+    of small torch launches, whose host enqueue outlasts its device work):
+    the call captured once as a CUDA graph and each replay timed by CUDA
+    events, the median of `reps`."""
+    g = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()  # warm-up on the capture stream
+        torch.cuda.synchronize()
+        with torch.cuda.graph(g, stream=stream):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del g
+    return statistics.median(times)
+
+
+def bf16ilu_solve(torch, label, A_csr, A_dev, cfg, M, held, plain=0):
+    """One solve of the convdiff-bf16ilu path (solve_timed, one timed run,
+    no warm-up) with its bf16 and fp32 phases logged.  It must converge
+    within BF16ILU_MAX_RESTARTS, and its (restarts before the escalation,
+    all restarts) lie within STALL_WINDOW and BF16ILU_SLACK of `held`
+    (BF16ILU_CPU or BF16ILU_1M); a non-zero `plain` runs the same solve
+    with CGSR's sweeps on their plain versions, held to this solve's bf16
+    phase within STALL_WINDOW and its total within `plain`.  Returns
+    (result, bf16 restarts)."""
+    def phases(r):
+        marks = [i for i, h in enumerate(r.history) if h.get("escalated")]
+        return marks[0] if marks else r.restarts
+
+    def hold(r, want, slack, what):
+        # a solve that stops in its bf16 phase tests the norm of the residual
+        # rounded to bf16: its fp64 backward error is held to twice the tolerance
+        limit = TOL if r.escalated or cfg.precision.inner != "bfloat16" else 2 * TOL
+        before = phases(r)
+        log(f"  {label}{what}: converged={r.converged} escalated={r.escalated} restarts "
+            f"{before} before the escalation, {r.restarts - before} after; backward error "
+            f"{r.backward_error:.3e}; bf16 phase {before} vs {want[0]}, total {r.restarts} "
+            f"vs {want[1]}")
+        require(r.converged and r.backward_error <= limit
+                and abs(before - want[0]) <= STALL_WINDOW and abs(r.restarts - want[1]) <= slack,
+                f"{label}{what}: converged={r.converged} at a backward error "
+                f"{r.backward_error:.3e} (<= {limit:.0e}), bf16 phase {before} and total "
+                f"{r.restarts} not within {STALL_WINDOW} and {slack} of {want}")
+        return before
+
+    res, _ = solve_timed(torch, label, "bf16ilu", A_csr, A_dev, cfg, 1, M=M, history=True,
+                         converges=False, warm_up=False)
+    before = hold(res, held, BF16ILU_SLACK, "")
+    if plain:
+        twin = solve_with_plain(torch, A_csr, A_dev, cfg, M, "gram", "update_gram",
+                                "update_sumsq")
+        hold(twin, (before, res.restarts), plain,
+             " on the plain versions of its sweeps, against the kernels'")
+    return res, before
+
+
+def convdiff_bf16ilu_path(torch, A, A_dev):
+    """The bf16 ILU preconditioners on one card: the bf16 ILU-Jacobi(3) apply
+    against the CPU's at convdiff@1M, timed beside K1; ILU-Jacobi(3) at
+    convdiff@1M in the bf16 tier (CGSR and sequential MGS: the bf16 phase,
+    the stall and the fp32 continuation; CGSR also on the plain versions of
+    K2 and K3) and with fp32 inner and the bf16 M (CGSR), held to
+    BF16ILU_1M; the same three
+    at convdiff(BF16ILU_NX) held to the JAX package's counts on the CPU
+    (BF16ILU_CPU), bf16 CGSR there also on the plain versions; bf16 exact ILU at convdiff(512) on its sweep form, the
+    apply's wall and device time beside K6 fp32's at the same size, a solve
+    cut at BF16_EXACT_CUT restarts held to the JAX package's history on the
+    CPU (BF16_EXACT_CPU); and the route bf16 exact ILU takes at 1M.  Returns
+    the launch counts of the path's solves."""
+    from gmres_tpu_torch import PrecisionSpec
+    from gmres_tpu_torch.io.synth import convection_diffusion_2d
+    from gmres_tpu_torch.ops.cuda import (
+        form_launch_counts,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from gmres_tpu_torch.ops.cuda import trisolve_kernel as tk
+    from gmres_tpu_torch.ops.dia import DIAMatrix, dia_spmv
+    from gmres_tpu_torch.precond import build as pb
+    from gmres_tpu_torch.precond.apply import typesafe_apply
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    t_path = time.perf_counter()
+
+    def build_m(label, A_csr, cfg):
+        t0 = time.perf_counter()
+        M = pb.optimize_precond_format(pb.build_preconditioner(A_csr, cfg)).to("cuda")
+        torch.cuda.synchronize()
+        log(f"M {label}: {type(M).__name__} in {M.inv_diag.dtype} "
+            f"({getattr(M, 'steps', '-')} sweeps) built and uploaded in "
+            f"{time.perf_counter() - t0:.3f} s")
+        return M
+
+    def tier(name, precond="ilu_jacobi", **kw):
+        spec = {"bf16": ("float64", "bfloat16", "bfloat16"),
+                "fp32": ("float64", "float32", "bfloat16")}[name]
+        return config("mixed", precond, jacobi_steps=3, **kw).with_(
+            precision=PrecisionSpec(*spec), max_restarts=BF16ILU_MAX_RESTARTS)
+
+    # the apply on the card against the CPU's (plain torch on both), timed
+    M1 = build_m("convdiff@1M ilu_jacobi(3)", A, tier("bf16"))
+    require(isinstance(M1.lower, DIAMatrix) and M1.lower.data.dtype == bf16,
+            "bf16 ILU-Jacobi factors repack to bf16 DIA")
+    timer = Timer(torch)
+    w = torch.tensor(np.random.default_rng(8).standard_normal(A.n_rows), device="cuda")
+    for dt in (bf16, f32):
+        wd = w.to(dt)
+        got = typesafe_apply(M1, wd)
+        want = typesafe_apply(M1.to("cpu"), wd.cpu())
+        err = float((got.cpu().double() - want.double()).abs().max())
+        bound = 6 * BF16_ULP * float(want.abs().max())
+        log(f"  bf16 ILU-Jacobi(3) apply to {str(dt)[6:]} w on the card against the CPU: "
+            f"max abs err {err:.3e} (bound {bound:.3e}); device time "
+            f"{apply_device_ms(torch, lambda: typesafe_apply(M1, wd)):.4f} ms")
+        require(err <= bound, f"bf16 ILU-Jacobi apply ({dt}) on the card within {bound:.3e} "
+                              f"of the CPU's")
+    x32 = w.to(f32)
+    A32 = A_dev.astype(f32)
+    log(f"  K1 fp32 on the same operator: {timer(lambda: dia_spmv(A32, x32), 5):.4f} ms "
+        f"(an ILU-Jacobi(3) apply is 6 bf16 SpMVs and 3 vector updates)")
+    del A32, x32
+
+    # bf16 exact ILU at 262K: the sweep form, its apply beside K6 fp32's
+    A262 = convection_diffusion_2d(NX_262K, beta=2.0)
+    A262_dev = stage_timed(torch, A262)[0]
+    Me = build_m("convdiff@262K ilu (bf16)", A262, tier("bf16", precond="ilu"))
+    require(isinstance(Me, pb.ILUJacobiPrec) and isinstance(Me.lower, DIAMatrix)
+            and Me.inv_diag.dtype == bf16,
+            "bf16 exact ILU at 262K is the sweep form (bf16 DIA factors), never K6")
+    we = torch.randn(A262.n_rows, device="cuda", dtype=bf16)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        typesafe_apply(Me, we)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    dev_ms = apply_device_ms(torch, lambda: typesafe_apply(Me, we))
+    K6 = pb.build_ilu_exact(A262, f32).to("cuda")
+    w32 = we.to(f32)
+    k6_ms = timer(lambda: tk.ilu_trisolve_fused_cuda(
+        K6.lower_bands, K6.upper_bands, K6.inv_diag, w32, K6.offs_l, K6.offs_u, K6.steps_l,
+        K6.steps_u, schedule=K6.schedule), 3)
+    log(f"bf16 exact ILU apply at 262K (sweep form, {Me.steps} sweeps a triangle): wall "
+        f"median {1e3 * statistics.median(walls):.2f} ms {[round(1e3 * t, 2) for t in walls]}, "
+        f"device time {dev_ms:.3f} ms (CUDA graph replay); K6 fp32 fused at 262K "
+        f"{k6_ms:.4f} ms")
+    del K6, w32, we
+
+    # the route bf16 exact ILU takes at 1M
+    t0 = time.perf_counter()
+    try:
+        route = type(pb.build_ilu_exact(A, bf16)).__name__
+    except ValueError as e:
+        route = f"refused ({e})"
+    log(f"bf16 exact ILU at convdiff@1M: {route} (built in {time.perf_counter() - t0:.2f} s)")
+
+    A256 = convection_diffusion_2d(BF16ILU_NX, beta=2.0)
+    A256_dev = stage_timed(torch, A256)[0]
+    M256 = build_m(f"convdiff({BF16ILU_NX}) ilu_jacobi(3)", A256, tier("bf16"))
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for orth in ("cgsr", "mgs"):
+        bf16ilu_solve(torch, f"convdiff@1M bf16 ilu_jacobi(3) {orth}", A, A_dev,
+                      tier("bf16", orth=orth), M1, BF16ILU_1M[("bf16", orth)],
+                      plain=BF16ILU_PLAIN_1M if orth == "cgsr" else 0)
+    bf16ilu_solve(torch, "convdiff@1M fp32 inner, bf16 ilu_jacobi(3) cgsr", A, A_dev,
+                  tier("fp32"), M1, BF16ILU_1M[("fp32", "cgsr")])
+    log(f"  ILU-Jacobi(3) at 1M: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, orth in (("bf16", "cgsr"), ("bf16", "mgs"), ("fp32", "cgsr")):
+        bf16ilu_solve(torch, f"convdiff({BF16ILU_NX}) {name} ilu_jacobi(3) {orth}", A256,
+                      A256_dev, tier(name, orth=orth), M256, BF16ILU_CPU[(name, orth)],
+                      plain=BF16ILU_SLACK if (name, orth) == ("bf16", "cgsr") else 0)
+    log(f"  ILU-Jacobi(3) at convdiff({BF16ILU_NX}): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    res, _ = solve_timed(torch, "convdiff@262K bf16 exact ilu cut", "bf16ilu", A262, A262_dev,
+                         tier("bf16", precond="ilu").with_(max_restarts=BF16_EXACT_CUT), 1,
+                         M=Me, history=True, converges=False, warm_up=False)
+    hist = [h["rel_initial"] for h in res.history]
+    log(f"  against the JAX package's on the CPU: {BF16_EXACT_CPU}; {time.perf_counter() - t0:.1f} s")
+    require(res.restarts == BF16_EXACT_CUT and len(hist) == len(BF16_EXACT_CPU)
+            and all(1 / BF16_EXACT_FACTOR <= g / w_ <= BF16_EXACT_FACTOR
+                    for g, w_ in zip(hist, BF16_EXACT_CPU)),
+            f"bf16 exact ILU at 262K: history {hist} not within {BF16_EXACT_FACTOR}x of the "
+            f"JAX package's {BF16_EXACT_CPU}")
+    counts, forms = launch_counts(), form_launch_counts()
+    log(f"  launches convdiff-bf16ilu: {counts}")
+    log(f"  form launches convdiff-bf16ilu: {forms}")
+    own = ("dia_spmv", "dia_residual", "basis_gram", "basis_update_gram", "basis_update_sumsq",
+           "basis_mgs", "basis_axpy")
+    idle = (*PATH_KERNELS["mesh3d"], *ILU_KERNELS, "basis_gram2", "basis_update",
+            *DF64_KERNELS, *DIST_KERNELS)
+    require(all(counts[k] > 0 for k in own) and all(counts[k] == 0 for k in idle),
+            f"convdiff-bf16ilu: K1, K2, K3 GRAM/SUMSQ, K7 and K4 launched; no K5, K6, K2x2, "
+            f"K3 plain, K8-K12 ({counts})")
+    require(forms["basis_gram"].get("bf16_bf16", 0) > 0 and forms["basis_gram"].get("f32", 0) > 0
+            and forms["basis_mgs"].get("bf16_bf16", 0) > 0
+            and forms["dia_spmv"].get("f32", 0) > 0,
+            f"convdiff-bf16ilu: K2 in (bf16, bf16) and fp32, K7 in (bf16, bf16), K1 in fp32 "
+            f"({forms})")
+    log(f"  convdiff-bf16ilu phase seconds {time.perf_counter() - t_path:.1f}")
+    return counts
+
 
 MID_ROWS = 16          # the middle basis height of K7/K2x2/K3-plain checks
 ORTH_WALL_REPS = 6     # interleaved timed solves per form and mode
@@ -1812,28 +2115,52 @@ def dist_rank(cases):
     """One rank of the convdiff-dist path, in a spawned process sharing the
     card: the distributed dryrun, then every case (``run_cases``); returns
     their results and the launch counts of this rank's solves."""
-    from gmres_tpu_torch.ops.cuda import launch_counts
+    from gmres_tpu_torch.ops.cuda import form_launch_counts, launch_counts
     from gmres_tpu_torch.parallel.dist_gmres import dryrun_on_rank, run_cases
 
-    before = launch_counts()
+    before, forms_before = launch_counts(), form_launch_counts()
     t0 = time.perf_counter()
     dry = dryrun_on_rank("cuda")
     dry_seconds = time.perf_counter() - t0
     results = run_cases(cases, "cuda")
-    after = launch_counts()
+    after, forms_after = launch_counts(), form_launch_counts()
+    forms = {k: {f: n - forms_before[k].get(f, 0) for f, n in v.items()}
+             for k, v in forms_after.items()}
     return dict(dryrun=dry, dryrun_seconds=dry_seconds, results=results,
-                launches={k: after[k] - before[k] for k in after})
+                launches={k: after[k] - before[k] for k in after}, forms=forms)
 
 
-def convdiff_dist_path(torch, record, A, x_single, walls_single):
+def dist_tier_config(tier, precond="identity", **kw):
+    """The distributed path's precision tiers: "mixed-cb" (a bf16 basis),
+    "baseline-cb" (an fp32 one), "df64", "bf16" (the bf16 inner tier with a
+    bf16 M)."""
+    from gmres_tpu_torch import PrecisionSpec
+
+    if tier.endswith("-cb"):
+        mode = tier[:-3]
+        return cb_config(mode, "bfloat16" if mode == "mixed" else "float32", **kw).with_(
+            precond=precond)
+    if tier == "bf16":
+        return config("mixed", precond, **kw).with_(
+            precision=PrecisionSpec("float64", "bfloat16", "bfloat16"))
+    return config(tier, precond, **kw)
+
+
+def convdiff_dist_path(torch, record, A, A_dev, x_single, walls_single):
     """The distributed path: K12 checked at the row blocks of convdiff@1M,
     then DIST_RANKS gloo ranks on this card run the dryrun, CGSR in both
     modes (the reference's 26/780, x against the single-card solve of the
     first path), mixed MGS under the low_sync_mgs=None rule (26/780), MGS
     sequential and ICWY interleaved, cut at DIST_MGS_RESTARTS restarts (the
     evidence for that rule on CUDA), and ILU-Jacobi(3) mixed at
-    convdiff(512); returns the ranks' summed launch counts."""
-    from gmres_tpu_torch import rand_vect
+    convdiff(512); then the precision tiers: mixed-cb and baseline-cb CGSR
+    (CB_RESTARTS; mixed-cb's cycles and x against a single-card solve), df64 CGSR (the reference's
+    26/780, x against a single-card solve), df64 MGS ICWY and sequential cut
+    at DIST_MGS_RESTARTS, and the bf16 tier with Jacobi and with a bf16
+    ILU-Jacobi(3) at convdiff(512), cut at DIST_BF16_RESTARTS (no
+    escalation), its backward error per cycle beside the single card's bf16
+    phase.  Returns the ranks' summed launch counts."""
+    from gmres_tpu_torch import rand_vect, solve
     from gmres_tpu_torch.io.synth import convection_diffusion_2d
     from gmres_tpu_torch.parallel import launch
 
@@ -1841,6 +2168,25 @@ def convdiff_dist_path(torch, record, A, x_single, walls_single):
     A512 = convection_diffusion_2d(NX_262K, beta=2.0)
     b, b512 = (-csr_residual(M, rand_vect(M.n_rows, 42), np.zeros(M.n_rows))
                for M in (A, A512))
+    # the single card's solves the tiers are held to, run here before the ranks
+    t0 = time.perf_counter()
+    A512_dev = stage_timed(torch, A512)[0]
+    single = {}
+    for tier, A_csr, A_op, bb, cfg in (
+            ("mixed-cb", A, A_dev, b, dist_tier_config("mixed-cb")),
+            ("df64", A, A_dev, b, dist_tier_config("df64")),
+            ("bf16 jacobi", A512, A512_dev, b512,
+             dist_tier_config("bf16", "jacobi", max_restarts=DIST_BF16_RESTARTS,
+                              jacobi_steps=3)),
+            # M is built from the CSR matrix, which solve stages itself
+            ("bf16 ilu_jacobi(3)", A512, A512, b512,
+             dist_tier_config("bf16", "ilu_jacobi", jacobi_steps=3,
+                              max_restarts=DIST_BF16_RESTARTS))):
+        res = solve(A_op, torch.tensor(bb, device="cuda"), cfg, record_history=True)
+        single[tier] = res
+        log(f"  single card {tier}: converged={res.converged} escalated={res.escalated} "
+            f"{res.restarts}/{res.total_iters}")
+    log(f"  the single card's tier solves: {time.perf_counter() - t0:.1f} s")
     cases = [dict(label=f"cgsr {mode}", A=A, b=b, cfg=config(mode, "identity"))
              for mode in ("baseline", "mixed")]
     cases.append(dict(label="mgs default mixed", A=A, b=b,
@@ -1852,6 +2198,24 @@ def convdiff_dist_path(torch, record, A, x_single, walls_single):
                        .with_(max_restarts=DIST_MGS_RESTARTS)) for form in forms]
     cases.append(dict(label="ilu_jacobi(3) mixed 262K", A=A512, b=b512,
                       cfg=config("mixed", "ilu_jacobi", jacobi_steps=3)))
+    tier_cases = [dict(label="tier mixed-cb cgsr", A=A, b=b, history=True,
+                       cfg=dist_tier_config("mixed-cb")),
+                  dict(label="tier baseline-cb cgsr", A=A, b=b,
+                       cfg=dist_tier_config("baseline-cb")),
+                  dict(label="tier df64 cgsr", A=A, b=b, cfg=dist_tier_config("df64"))]
+    tier_cases += [dict(label=f"tier df64 mgs {form} cut", A=A, b=b,
+                        cfg=dist_tier_config("df64", orth="mgs", low_sync_mgs=form == "icwy",
+                                             max_restarts=DIST_MGS_RESTARTS))
+                   for form in ("icwy", "sequential")]
+    # MGS under low_sync_mgs=None: ICWY in every tier on CUDA (K2x2's forms)
+    tier_cases += [dict(label=f"tier {tier} mgs icwy cut", A=A, b=b,
+                        cfg=dist_tier_config(tier, orth="mgs", max_restarts=DIST_MGS_RESTARTS))
+                   for tier in ("mixed-cb", "baseline-cb")]
+    tier_cases += [dict(label=f"tier bf16 {name} cut", A=A512, b=b512, history=True,
+                        cfg=dist_tier_config("bf16", precond, max_restarts=DIST_BF16_RESTARTS,
+                                             jacobi_steps=3))
+                   for name, precond in (("jacobi", "jacobi"), ("ilu_jacobi(3)", "ilu_jacobi"))]
+    cases += tier_cases
     t0 = time.perf_counter()
     ranks = launch.spawn(dist_rank, DIST_RANKS, args=(cases,), timeout=DIST_TIMEOUT,
                          threads=2)
@@ -1878,6 +2242,9 @@ def convdiff_dist_path(torch, record, A, x_single, walls_single):
             f"(ranks {[round(q['seconds'], 4) for q in res]}) backward_err={backward:.3e}")
         require(x.shape == (M.n_rows,) and np.all(np.isfinite(x)),
                 f"dist {case['label']}: x finite, shape ({M.n_rows},)")
+        if case["label"].startswith("tier "):
+            dist_tier_checks(case, first, backward, single)
+            continue
         if case["label"].endswith("cut"):
             require(first["aborted"] and first["restarts"] == DIST_MGS_RESTARTS,
                     f"dist {case['label']}: cut at {DIST_MGS_RESTARTS} restarts")
@@ -1898,8 +2265,14 @@ def convdiff_dist_path(torch, record, A, x_single, walls_single):
     for r, rank in enumerate(ranks):
         c = rank["launches"]
         log(f"  launches convdiff-dist rank {r}: {c}")
-        require(all(c[k] > 0 for k in DIST_KERNELS) and all(c[k] == 0 for k in DIST_IDLE),
-                f"dist rank {r}: K12 both modes launched; no K1, K5, K6, K7, K8-K11 ({c})")
+        require(all(c[k] > 0 for k in DIST_KERNELS + DF64_KERNELS[1:])
+                and all(c[k] == 0 for k in DIST_IDLE),
+                f"dist rank {r}: K12 both modes and K9-K11 launched; no K1, K5, K6, K7, K8 "
+                f"({c})")
+        forms = rank["forms"]
+        log(f"  form launches convdiff-dist rank {r}: {forms}")
+        require(all(forms[k].get(f, 0) > 0 for k, want in DIST_FORMS.items() for f in want),
+                f"dist rank {r}: every tier's dtype forms launched {DIST_FORMS} ({forms})")
     for mode in ("baseline", "mixed"):
         log(f"dist wall {mode} cgsr {walls[f'cgsr {mode}'][0]:.4f} s against the single "
             f"card's {walls_single[mode]:.4f} s (ratio "
@@ -1911,6 +2284,76 @@ def convdiff_dist_path(torch, record, A, x_single, walls_single):
                     f" ({1e3 * med[f] / steps:.2f} ms a step)" for f in med)
         + f"; icwy/sequential {med['icwy'] / med['sequential']:.4f}")
     return {k: sum(rank["launches"][k] for rank in ranks) for k in ranks[0]["launches"]}
+
+
+def dist_tier_checks(case, got, backward, single):
+    """A precision tier's distributed solve against its bounds: mixed-cb and
+    baseline-cb in CB_RESTARTS and df64 within one restart of 26/780, each
+    converged (backward error <= 1e-8); mixed-cb's backward error per cycle
+    within DIST_CB_CYCLE of the single card's and its x within
+    DIST_CB_X_DIFF of the single card's x, df64's x within 1e-6 of its; the
+    cut solves cut at their count, the bf16 ones neither stalled nor
+    escalated (no stall window on the distributed path), their backward
+    error per cycle within DIST_BF16_CYCLE of the single card's above the
+    bf16 floor, the best within DIST_BF16_FLOOR of its best."""
+    label = case["label"]
+
+    def cycles(ref):
+        mine = [h["rel_initial"] for h in got["history"]]
+        theirs = [h["rel_initial"] for h in ref.history if "rel_initial" in h]
+        log(f"  {label} backward error per cycle: {', '.join(f'{v:.3e}' for v in mine)}; the "
+            f"single card's ({ref.restarts}/{ref.total_iters}, escalated={ref.escalated}): "
+            f"{', '.join(f'{v:.3e}' for v in theirs)}")
+        return mine, theirs
+
+    if label.endswith("cut"):
+        want = DIST_BF16_RESTARTS if "bf16" in label else DIST_MGS_RESTARTS
+        require(got["aborted"] and got["restarts"] == want,
+                f"dist {label}: cut at {want} restarts")
+        if "bf16" not in label:
+            return
+        require(not got["stalled"] and not got["escalated"],
+                f"dist {label}: no stall, no escalation on the distributed path")
+        mine, theirs = cycles(single[label[len("tier "):-len(" cut")]])
+        # above the bf16 floor the cycles follow the single card's; at it
+        # (~1e-6) they scatter, and both reach it
+        above = [m / t for m, t in zip(mine, theirs) if t > 10 * CB_BF16_BEST]
+        floor = min(mine) / min(theirs)
+        log(f"  {label}: above the floor, distributed over single card "
+            f"{', '.join(f'{r:.4f}' for r in above)}; bests {floor:.4f}")
+        require(len(mine) == len(theirs)
+                and all(1 / DIST_BF16_CYCLE <= r <= DIST_BF16_CYCLE for r in above)
+                and 1 / DIST_BF16_FLOOR <= floor <= DIST_BF16_FLOOR,
+                f"dist {label}: cycles above the bf16 floor within {DIST_BF16_CYCLE}x of the "
+                f"single card's, the best within {DIST_BF16_FLOOR}x ({floor:.3f})")
+        return
+    tier = label.split()[1]
+    require(got["converged"] and backward <= 1e-8,
+            f"dist {label}: converged, backward error {backward:.3e} <= 1e-8")
+    lo, hi = CB_RESTARTS.get(tier, (DF64_HISTORY[0] - 1, DF64_HISTORY[0] + 1))
+    require(lo <= got["restarts"] <= hi,
+            f"dist {label}: {got['restarts']}/{got['total_iters']} restarts not in {lo}..{hi}")
+    if tier not in single:
+        return
+    if tier == "mixed-cb":
+        mine, theirs = cycles(single[tier])
+        ratios = [m / t for m, t in zip(mine, theirs)]
+        log(f"  {label}: distributed over single card per cycle "
+            f"{min(ratios):.4f}..{max(ratios):.4f}")
+        require(all(1 / DIST_CB_CYCLE <= r <= DIST_CB_CYCLE for r in ratios),
+                f"dist {label}: each cycle's backward error within {DIST_CB_CYCLE}x of the "
+                f"single card's ({min(ratios):.4f}..{max(ratios):.4f})")
+    # convdiff@1M is ill-conditioned (x_true's relative error is ~0.67 at a
+    # backward error of 1e-8): a bf16 basis summed per rank moves x by
+    # up to DIST_CB_X_DIFF; df64's fp64-quality sums keep it within 1e-6,
+    # as fp64's do
+    xs = single[tier].x.cpu().numpy()
+    diff = float(np.linalg.norm(got["x"] - xs) / np.linalg.norm(xs))
+    bound = 1e-6 if tier == "df64" else DIST_CB_X_DIFF
+    log(f"  x against the single-card solve ({tier}, {single[tier].restarts}/"
+        f"{single[tier].total_iters}): rel diff {diff:.3e}")
+    require(diff <= bound, f"dist {label}: x within {bound:.0e} of the single card's "
+                           f"({diff:.3e})")
 
 
 def cb_config(mode, basis, **kw):
@@ -2324,7 +2767,7 @@ def check_condest_operators(torch, A_csr, label):
 
 
 def cli_path(torch, A):
-    """The cli phase, after the seven paths: the reference-format entry
+    """The cli phase, after the eight paths: the reference-format entry
     points, each called in-process through its main(argv) or the package's
     functions, at convdiff@1M (A).  Returns the phase's launch counts: the
     sum of each entry point's own, read around its main(argv) call alone."""
@@ -2876,12 +3319,14 @@ def main() -> int:
     mesh3d_counts, mesh, mesh_dev = mesh3d_path(torch, record)
     t2 = time.perf_counter()
     ilu_counts = convdiff_ilu_path(torch, record, A, A_dev)
+    t2b = time.perf_counter()
+    bf16ilu_counts = convdiff_bf16ilu_path(torch, A, A_dev)
     t3 = time.perf_counter()
     mgs_counts = convdiff_mgs_path(torch, record, A, A_dev, copy_gbs)
     t4 = time.perf_counter()
     df64_counts = convdiff_df64_path(torch, record, A, A_dev)
     t5 = time.perf_counter()
-    dist_counts = convdiff_dist_path(torch, record, A, x_single, walls_single)
+    dist_counts = convdiff_dist_path(torch, record, A, A_dev, x_single, walls_single)
     t6 = time.perf_counter()
     cb_counts, form_counts = convdiff_cb_path(torch, record, A, A_dev, mesh, mesh_dev)
     del mesh, mesh_dev
@@ -2891,16 +3336,19 @@ def main() -> int:
     batched_counts, lane_launches = batched_path(torch, record, A, A_dev, sweep_rows)
     del A_dev
     log(f"path seconds: convdiff {t1 - t0:.1f}, mesh3d {t2 - t1:.1f}, "
-        f"convdiff-ilu {t3 - t2:.1f}, convdiff-mgs {t4 - t3:.1f}, "
+        f"convdiff-ilu {t2b - t2:.1f}, convdiff-bf16ilu {t3 - t2b:.1f}, "
+        f"convdiff-mgs {t4 - t3:.1f}, "
         f"convdiff-df64 {t5 - t4:.1f}, convdiff-dist {t6 - t5:.1f}, "
         f"convdiff-cb {t7 - t6:.1f}, cli {t8 - t7:.1f}, batched {time.perf_counter() - t8:.1f}")
-    path_counts = (convdiff_counts, mesh3d_counts, ilu_counts, mgs_counts, cb_counts,
-                   cli_counts, batched_counts)
+    path_counts = (convdiff_counts, mesh3d_counts, ilu_counts, bf16ilu_counts, mgs_counts,
+                   cb_counts, cli_counts, batched_counts)
     require(all(c[k] == 0 for c in path_counts for k in DF64_KERNELS),
-            f"K8-K11 launched on the df64 path only ({path_counts})")
+            f"K8-K11 launched on the df64 and distributed paths only ({path_counts})")
     path_counts += (df64_counts,)
     require(all(c[k] == 0 for c in path_counts for k in DIST_KERNELS),
             f"K12 launched on the distributed path only ({path_counts})")
+    require(dist_counts["dia_spmv_df64"] == 0,
+            f"the distributed path launched no K8 ({dist_counts})")
     path_counts += (dist_counts,)
     counts = {k: sum(c[k] for c in path_counts) for k in kernel_wrappers()}
     require(all(v > 0 for v in counts.values()), f"every kernel launched on some path ({counts})")
@@ -2912,7 +3360,7 @@ def main() -> int:
     # residual modes the fp64 residual with its fp32-demoted norm; for K7,
     # K2x2 and K3 plain the 31-row basis) and for K8-K11 the df64 variant
     # (31 rows), for K12 the interior block, the other variants alongside;
-    # launches are summed over the seven paths' solves (the distributed one's
+    # launches are summed over the eight paths' solves (the distributed one's
     # over its ranks), the cli phase's entry-point runs and the batched
     # solves; a dtype form's variant (bf16_f32, f32_f64, bf16_bf16 and K4's)
     # carries its launches on the convdiff-cb path, a lane form's (K1's

@@ -222,7 +222,8 @@ def use_lowsync_mgs(cfg: GmresConfig, device_type: str, distributed: bool = Fals
     if cfg.low_sync_mgs is not None:
         return bool(cfg.low_sync_mgs)
     if distributed:
-        return LOWSYNC_MGS_DIST_DEFAULT[device_type][cfg.precision.inner]
+        tier = "df64" if cfg.precision.df64_inner else cfg.precision.inner
+        return LOWSYNC_MGS_DIST_DEFAULT[device_type][tier]
     table = LOWSYNC_MGS_DF64_DEFAULT if cfg.precision.df64_inner else LOWSYNC_MGS_DEFAULT
     return table[device_type]
 
@@ -245,14 +246,17 @@ LOWSYNC_MGS_DEFAULT = {"cpu": False, "cuda": False}
 # (medians of 3 interleaved; chip_smoke.py, PERF.md).
 LOWSYNC_MGS_DF64_DEFAULT = {"cpu": False, "cuda": True}
 
-# The same for distributed cycles, by inner dtype.  CPU: the JAX package's
-# rule, ICWY for non-fp64 cycles and sequential for fp64 ones
-# (gmres_tpu/solver/gmres.py:204-208).  CUDA: ICWY in both.  Distributed
+# The same for distributed cycles, by inner dtype (and "df64" for the df64
+# tier; a compressed basis takes its inner dtype's entry).  CPU: the JAX
+# package's rules, ICWY for non-fp64 native cycles and sequential for fp64
+# ones (gmres_tpu/solver/gmres.py:204-208), ICWY for every distributed df64
+# cycle (:325-328).  CUDA: ICWY in every tier.  Distributed
 # sequential MGS sums each of its k+1 dots over the ranks before the next
 # row can start (one collective a row, in plain torch), where ICWY sums
 # twice a step: with 4 gloo ranks sharing one H100 at convdiff@1M, whole
 # solves took 52.83 s sequential against 10.09 s ICWY in mixed and 59.56 s
 # against 11.79 s in baseline (medians of 3 and 2 interleaved, 26/780 each;
 # chip_smoke.py, PERF.md).
-LOWSYNC_MGS_DIST_DEFAULT = {"cpu": {"float32": True, "float64": False},
-                            "cuda": {"float32": True, "float64": True}}
+LOWSYNC_MGS_DIST_DEFAULT = {
+    "cpu": {"float64": False, "float32": True, "bfloat16": True, "df64": True},
+    "cuda": {"float64": True, "float32": True, "bfloat16": True, "df64": True}}

@@ -18,7 +18,15 @@ from gmres_tpu_torch.sparse import CSRMatrix, csr_from_arrays
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a)).to(device)  # a writable copy
+    """A writable copy of ``a`` as a tensor.  A JAX bf16 array read out with
+    ``np.asarray`` has ``ml_dtypes``' 2-byte ``bfloat16`` dtype, which
+    ``torch.from_numpy`` refuses: its bits move through a uint16 view, then
+    int16 and a view as ``torch.bfloat16`` (no ``ml_dtypes`` import, no
+    rounding)."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.uint16).view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def dia_from_numpy(data, offsets, n_rows: int, n_cols: int, nnz: int,
@@ -47,10 +55,11 @@ def df64_dia_from_numpy(data_hi, data_lo, offsets, n_rows: int, n_cols: int, nnz
 
 def csr_from_numpy(row_ptr, col_idx, vals, n_cols: int | None = None,
                    device="cpu") -> CSRMatrix:
-    """From CSR arrays; entries past ``row_ptr[-1]`` (the JAX package's
-    padding) are dropped."""
-    return csr_from_arrays(np.asarray(row_ptr), np.asarray(col_idx),
-                           np.asarray(vals), n_cols=n_cols).to(device)
+    """From CSR arrays (bf16 values as ``_tensor`` takes them); entries past
+    ``row_ptr[-1]`` (the JAX package's padding) are dropped."""
+    row_ptr = np.asarray(row_ptr)
+    v = _tensor(np.asarray(vals)[: int(row_ptr[-1])], "cpu")
+    return csr_from_arrays(row_ptr, np.asarray(col_idx), v, n_cols=n_cols).to(device)
 
 
 def jacobi_from_numpy(inv_diag, device="cpu") -> JacobiPrec:

@@ -84,12 +84,14 @@ def from_csr(A: CSRMatrix, max_fill: float = 3.0, max_diags: int = 256) -> DIAMa
     distinct diagonals D must satisfy ``D * n <= max_fill * nnz`` and
     ``D <= max_diags``.  The result's data lies on the CPU."""
     n = A.n_rows
-    rp, ci, v = A.numpy_arrays()
+    rp, ci = (a.cpu().numpy() for a in (A.row_ptr, A.col_idx))
     nnz = int(rp[-1])
     if nnz == 0:
         return None
     ci = ci[:nnz].astype(np.int64)
-    v = v[:nnz]
+    # the values in fp64 (exact for every dtype, bf16 included, which numpy
+    # lacks), the bands rounded back to A's dtype
+    v = A.vals[:nnz].cpu().double().numpy()
     rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(rp.astype(np.int64)))
 
     offs = ci - rows
@@ -108,11 +110,9 @@ def from_csr(A: CSRMatrix, max_fill: float = 3.0, max_diags: int = 256) -> DIAMa
     lookup[uniq - off_min] = np.arange(D)
     d_idx = lookup[offs - off_min]
     # duplicates on the same (row, col) sum, like SpMV over duplicate entries
-    data = np.bincount(d_idx * n + rows, weights=v, minlength=D * n).reshape(
-        D, n
-    ).astype(v.dtype)
+    data = np.bincount(d_idx * n + rows, weights=v, minlength=D * n).reshape(D, n)
     return DIAMatrix(
-        data=torch.from_numpy(data),
+        data=torch.from_numpy(data).to(A.vals.dtype),
         offsets=tuple(int(o) for o in uniq),
         n_rows=n,
         n_cols=A.n_cols,

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from gmres_tpu_torch.ops.blas import all_reduce, dot, nrm2
+from gmres_tpu_torch.ops.blas import all_reduce, nrm2
 from gmres_tpu_torch.ops.cuda._build import acc_dtype
 from gmres_tpu_torch.ops.cuda.mgs_kernel import mgs as mgs_sweep
 from gmres_tpu_torch.ops.cuda.orth_kernel import cgsr2, gram, gram2, update, update_sumsq
@@ -42,15 +42,21 @@ def cgs(V: torch.Tensor, k: int, w: torch.Tensor, comm=None):
 def mgs(V: torch.Tensor, k: int, w: torch.Tensor, comm=None):
     """Modified Gram-Schmidt (``Orthogonalization.hpp:91-107``): the k+1
     sequential dot/axpy pairs, one K7 launch on the card; distributed, the
-    row loop with one collective a row.  Returns (h, w', ||w'||)."""
+    row loop with one collective a row, each dot and update computed in
+    the accumulation dtype and rounded to w's (``gmres_tpu/ops/orth.py:
+    100-116``: a bf16 or narrower-basis row is widened first).  Returns (h,
+    w', ||w'||)."""
     if comm is None:
         return mgs_sweep(V, w, k + 1)
-    h = torch.zeros(V.shape[0], dtype=V.dtype, device=V.device)
+    acc = acc_dtype(w.dtype)
+    h = torch.zeros(V.shape[0], dtype=w.dtype, device=V.device)
     for j in range(k + 1):
-        hj = dot(w, V[j], comm)
-        w = w - hj * V[j]
+        vj = V[j].to(acc)
+        hj = all_reduce(torch.dot(w.to(acc), vj), comm).to(w.dtype)
+        w = (w.to(acc) - hj.to(acc) * vj).to(w.dtype)
         h[j] = hj
-    return h, w, nrm2(w, comm)
+    wa = w.to(acc)
+    return h, w, torch.sqrt(all_reduce(torch.dot(wa, wa), comm)).to(w.dtype)
 
 
 def mgs_lowsync_step(V: torch.Tensor, k: int, w: torch.Tensor, L: torch.Tensor, comm=None):

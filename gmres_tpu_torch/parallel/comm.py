@@ -17,7 +17,15 @@ branches on them, and ranks that disagree would issue different
 collectives and deadlock.  So the sum is not left to the backend's
 reduction order: each rank gathers every rank's partial and adds them in
 rank order itself.  The payloads are small (at most a basis height of
-partials a reduction), so the gather costs what an all_reduce would.
+partials a reduction), so the gather costs what an all_reduce would.  The
+partials are added in the accumulation dtype (fp32 for bf16 partials, the
+partials' own dtype otherwise) and the sum rounded back once: a bf16 sum
+over the ranks never rounds at each add.  fp64 partials (the df64 tier's
+pair sums among them) are added in fp64.
+
+A bf16 payload moves as its bytes, viewed as uint8 (exact, and half the
+bytes of a detour through fp32), so no backend's bf16 support is needed
+(gloo refuses int16).
 
 Under the gloo backend a CUDA payload is staged through a host tensor (gloo
 has no point-to-point for device tensors), and the result is copied back
@@ -52,19 +60,21 @@ class Comm:
         return rank if self.group is None else dist.get_global_rank(self.group, rank)
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` over the ranks, added in rank order, on ``t``'s
-        device (a new tensor)."""
+        """The sum of ``t`` over the ranks, added in rank order in the
+        accumulation dtype and rounded to ``t``'s dtype, on ``t``'s device
+        (a new tensor)."""
         parts = self._gather(t.reshape(-1))
-        total = parts[0].clone()
+        acc = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
+        total = parts[0].to(acc, copy=True)
         for p in parts[1:]:
-            total += p
-        return total.reshape(t.shape).to(t.device)
+            total += p.to(acc)
+        return total.to(t.dtype).reshape(t.shape).to(t.device)
 
     def _gather(self, t: torch.Tensor) -> list:
-        src = self._out(t.contiguous())
+        src = _wire(self._out(t.contiguous()))
         parts = [torch.empty_like(src) for _ in range(self.size)]
         dist.all_gather(parts, src, group=self.group)
-        return parts
+        return [p.view(t.dtype) for p in parts]
 
     def all_gather(self, x_local: torch.Tensor) -> torch.Tensor:
         """The ranks' blocks in rank order, on ``x_local``'s device."""
@@ -82,17 +92,24 @@ class Comm:
         s, P = self.rank, self.size
         ops = []
         if hl and s + 1 < P:  # my tail is rank s+1's left halo
-            ops.append(dist.P2POp(dist.isend, src[-hl:].contiguous(),
+            ops.append(dist.P2POp(dist.isend, _wire(src[-hl:].contiguous()),
                                   self._global_rank(s + 1), self.group, tag=0))
         if hl and s > 0:
-            ops.append(dist.P2POp(dist.irecv, left, self._global_rank(s - 1), self.group, tag=0))
+            ops.append(dist.P2POp(dist.irecv, _wire(left), self._global_rank(s - 1), self.group,
+                                  tag=0))
         if hr and s > 0:  # my head is rank s-1's right halo
-            ops.append(dist.P2POp(dist.isend, src[:hr].contiguous(),
+            ops.append(dist.P2POp(dist.isend, _wire(src[:hr].contiguous()),
                                   self._global_rank(s - 1), self.group, tag=1))
         if hr and s + 1 < P:
-            ops.append(dist.P2POp(dist.irecv, right, self._global_rank(s + 1), self.group,
+            ops.append(dist.P2POp(dist.irecv, _wire(right), self._global_rank(s + 1), self.group,
                                   tag=1))
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
         return left.to(x_local.device), right.to(x_local.device)
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """The tensor a collective moves (a view of ``t``'s memory): a bf16
+    one as its bytes."""
+    return t.view(torch.uint8) if t.dtype == torch.bfloat16 else t

@@ -17,16 +17,28 @@ neighbours, the allgather partition (``parallel/partition.py``).  The
 identity, Jacobi and ILU-Jacobi preconditioners are partitioned like A
 (``DistILUJacobiPrec``).
 
+Every precision tier of the single-device solve runs here: the native
+fp64/fp32 cycles, the compressed basis, the bf16 inner tier and the df64
+tier.  Every sum over the ranks is taken in the accumulation dtype
+(``Comm.all_reduce_sum``); the df64 tier adds the ranks' fp64 pair sums
+(``ops/df64.py``) and runs each rank's SpMV as merge, the fp64 halo SpMV
+and split, the JAX package's route for a plain fp64 operator
+(``gmres_tpu/ops/df64.py:144-148``).  A bf16 block (operator or
+preconditioner factors) is partitioned on the host as its exact fp64
+values and rounded back to bf16 on the rank, and runs the plain-torch bf16
+route (K12 has no bf16 form).  As in the JAX package
+(``gmres_tpu/parallel/dist_gmres.py:795-799``), no stall window is passed
+to the restart loop, so a distributed bf16 solve never escalates to fp32.
+
 Ranks start through ``parallel/launch.py`` (``spawn`` on one host, or
 ``init`` under another launcher).  On one card the ranks share it over
 gloo, whose collectives stage through host memory; the shards, the SpMV,
 the sweeps and the Givens tail stay on the card.
 
 Not ported yet (slice 7b of the port, each refused with
-``NotImplementedError``): the df64 tier, ``checkpoint=``,
-``precond="bilu_jacobi"``, exact ILU, per-host row-block input
-(``RowBlockCSR``) and the per-rank SELL route for unstructured fp32
-operators.
+``NotImplementedError``): ``checkpoint=``, ``precond="bilu_jacobi"``,
+exact ILU, per-host row-block input (``RowBlockCSR``) and the per-rank
+SELL route for unstructured fp32 operators.
 """
 
 from __future__ import annotations
@@ -44,7 +56,12 @@ from gmres_tpu_torch.ops.dia import from_csr
 from gmres_tpu_torch.ops.spmv import spmv
 from gmres_tpu_torch.parallel.comm import Comm
 from gmres_tpu_torch.parallel.halo import HaloCSR, HaloDIA, partition_halo
-from gmres_tpu_torch.parallel.partition import PartitionedCSR, pad_vector, partition_rows
+from gmres_tpu_torch.parallel.partition import (
+    PartitionedCSR,
+    pad_vector,
+    padded_size,
+    partition_rows,
+)
 from gmres_tpu_torch.precond.apply import typesafe_apply
 from gmres_tpu_torch.precond.build import (
     IdentityPrec,
@@ -88,18 +105,23 @@ def _cache_put(A, key, value) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class DistILUJacobiPrec:
-    """Row-partitioned ILU-Jacobi factors with the padded global inverse
-    diagonal (host)."""
+    """Row-partitioned ILU-Jacobi factors (host, in ``dtype``'s values) with
+    the padded global inverse diagonal."""
 
     lower: object
     upper: object
-    inv_diag: np.ndarray
+    inv_diag: torch.Tensor
     steps: int
+    dtype: torch.dtype
 
 
 def _partition_matrix(A: CSRMatrix, n_shards: int, use_halo: bool):
     """The halo partition when the pattern allows it, else the allgather
-    row partition."""
+    row partition.  The host partitioners work in numpy, which has no bf16:
+    a bf16 matrix is partitioned as its exact fp64 values (``_localize``
+    rounds each block back)."""
+    if A.dtype == torch.bfloat16:
+        A = A.astype(torch.float64)
     if use_halo:
         H = partition_halo(A, n_shards)
         if H is not None:
@@ -107,13 +129,11 @@ def _partition_matrix(A: CSRMatrix, n_shards: int, use_halo: bool):
     return partition_rows(A, n_shards)
 
 
-def _padded_inv_diag(inv_diag: torch.Tensor, n_shards: int) -> np.ndarray:
+def _padded_inv_diag(inv_diag: torch.Tensor, n_shards: int) -> torch.Tensor:
     # padded rows get inv_diag 1: they only ever see zero inputs
-    d = inv_diag.numpy()
-    pad = pad_vector(d, n_shards)
-    if pad is d:
-        pad = d.copy()
-    pad[d.shape[0]:] = 1.0
+    n = inv_diag.shape[0]
+    pad = torch.ones(padded_size(n, n_shards), dtype=inv_diag.dtype)
+    pad[:n] = inv_diag
     return pad
 
 
@@ -121,23 +141,23 @@ def _partition_prec(M, n_shards: int, use_halo: bool):
     if isinstance(M, IdentityPrec):
         return M
     if isinstance(M, JacobiPrec):
-        return JacobiPrec(inv_diag=torch.from_numpy(_padded_inv_diag(M.inv_diag, n_shards)))
+        return JacobiPrec(inv_diag=_padded_inv_diag(M.inv_diag, n_shards))
     if isinstance(M, ILUJacobiPrec):
         return DistILUJacobiPrec(lower=_partition_matrix(M.lower, n_shards, use_halo),
                                  upper=_partition_matrix(M.upper, n_shards, use_halo),
                                  inv_diag=_padded_inv_diag(M.inv_diag, n_shards),
-                                 steps=M.steps)
+                                 steps=M.steps, dtype=M.inv_diag.dtype)
     raise TypeError(f"cannot partition {type(M).__name__}")
 
 
-def _localize_matrix(A_p, rank: int):
-    """Rank ``rank``'s block: a ``CSRMatrix`` with global columns for the
-    allgather partition, a ``LocalHaloDIA``/``LocalHaloCSR`` for a halo
-    one (CPU tensors)."""
+def _localize_matrix(A_p, rank: int, dtype: torch.dtype):
+    """Rank ``rank``'s block in ``dtype``: a ``CSRMatrix`` with global
+    columns for the allgather partition, a ``LocalHaloDIA``/``LocalHaloCSR``
+    for a halo one (CPU tensors)."""
     if isinstance(A_p, PartitionedCSR):
-        return A_p.local_block(rank)
+        return A_p.local_block(rank).astype(dtype)
     if isinstance(A_p, (HaloDIA, HaloCSR)):
-        return A_p.local(rank)
+        return A_p.local(rank).astype(dtype)
     raise TypeError(f"not a partitioned operator: {type(A_p).__name__}")
 
 
@@ -148,10 +168,9 @@ def _localize_prec(M_p, rank: int, rows_per: int):
     lo, hi = rank * rows_per, (rank + 1) * rows_per
     if isinstance(M_p, JacobiPrec):
         return JacobiPrec(inv_diag=M_p.inv_diag[lo:hi].clone())
-    return ILUJacobiPrec(lower=_localize_matrix(M_p.lower, rank),
-                         upper=_localize_matrix(M_p.upper, rank),
-                         inv_diag=torch.from_numpy(M_p.inv_diag[lo:hi].copy()),
-                         steps=M_p.steps)
+    return ILUJacobiPrec(lower=_localize_matrix(M_p.lower, rank, M_p.dtype),
+                         upper=_localize_matrix(M_p.upper, rank, M_p.dtype),
+                         inv_diag=M_p.inv_diag[lo:hi].clone(), steps=M_p.steps)
 
 
 def _takes_dia(A: CSRMatrix) -> bool:
@@ -174,14 +193,6 @@ def _require_supported_dist(A, cfg: GmresConfig, checkpoint) -> None:
     if not isinstance(A, CSRMatrix):
         raise TypeError(f"solve_distributed partitions a CSRMatrix, got {type(A).__name__}")
     _require_supported(cfg.with_(axis_name=None))
-    p = cfg.precision
-    if p.basis is not None or "bfloat16" in (p.outer, p.inner, p.precond):
-        raise NotImplementedError(
-            "the distributed compressed basis and bf16 tier are slice 7b of the port")
-    if cfg.precision.df64_inner:
-        raise NotImplementedError(
-            "the distributed df64 tier (pair halo exchange and pair reductions) is slice 7b "
-            "of the port")
     if checkpoint is not None:
         raise NotImplementedError("distributed checkpoints are slice 7b of the port")
     if cfg.precond == Precond.BILU_JACOBI:
@@ -229,15 +240,15 @@ def _stage(A: CSRMatrix, cfg: GmresConfig, M, n_shards: int, rank: int, dev):
            cfg.precond, cfg.jacobi_steps)
     staged = _cache_get(A, key)
     if staged is None:
-        A_out = A.astype(p.outer_dtype)
-        Ao_p = _partition_matrix(A_out, n_shards, cfg.auto_format)
+        Ao_p = _partition_matrix(A.astype(p.outer_dtype), n_shards, cfg.auto_format)
         if p.outer_dtype == p.inner_dtype:
             Ai_p = Ao_p
         else:
             Ai_p = _partition_matrix(A.astype(p.inner_dtype), n_shards, cfg.auto_format)
         M_p = _partition_prec(M, n_shards, cfg.auto_format)
-        A_out_loc = _localize_matrix(Ao_p, rank).to(dev)
-        A_in_loc = A_out_loc if Ai_p is Ao_p else _localize_matrix(Ai_p, rank).to(dev)
+        A_out_loc = _localize_matrix(Ao_p, rank, p.outer_dtype).to(dev)
+        A_in_loc = (A_out_loc if Ai_p is Ao_p
+                    else _localize_matrix(Ai_p, rank, p.inner_dtype).to(dev))
         staged = (A_out_loc, A_in_loc, _localize_prec(M_p, rank, Ao_p.rows_per_shard).to(dev),
                   Ao_p.rows_per_shard)
         _cache_put(A, key, staged)
@@ -318,18 +329,19 @@ def spmv_distributed(A: CSRMatrix, x, group=None, device=None):
     r = A_p.rows_per_shard
     lo, hi = comm.rank * r, (comm.rank + 1) * r
     x_loc = torch.from_numpy(pad_vector(_host_vector(x, A.dtype), comm.size)[lo:hi].copy())
-    y = spmv(_localize_matrix(A_p, comm.rank).to(dev), x_loc.to(dev), comm)
+    y = spmv(_localize_matrix(A_p, comm.rank, A.dtype).to(dev), x_loc.to(dev), comm)
     return comm.all_gather(y)[:A.n_rows]
 
 
 def run_cases(cases, device="cuda") -> list:
     """Solve each case on this rank and return what a spawner can carry
-    back: for each case its label, outcome, counts, global x (host numpy),
+    back: for each case its label, outcome (the stall and escalation flags
+    too), counts, history (with ``history`` set), global x (host numpy),
     host wall seconds, the bytes of the rank's staged blocks (None when they
     came from the staging cache) and the kernel launches of its solve.  A
-    case is a dict with ``A``, ``b``, ``cfg`` and optionally ``x0`` and
-    ``label``.  Run it on every rank (``launch.spawn(run_cases, P, args=
-    (cases, device))``)."""
+    case is a dict with ``A``, ``b``, ``cfg`` and optionally ``x0``,
+    ``history`` and ``label``.  Run it on every rank (``launch.spawn(
+    run_cases, P, args=(cases, device))``)."""
     from gmres_tpu_torch.ops.cuda import launch_counts
 
     out = []
@@ -337,12 +349,13 @@ def run_cases(cases, device="cuda") -> list:
         before = launch_counts()
         t0 = time.perf_counter()
         res = solve_distributed(case["A"], case["b"], case["cfg"], device=device,
-                                x0=case.get("x0"))
+                                x0=case.get("x0"), record_history=case.get("history", False))
         if res.x.is_cuda:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         after = launch_counts()
         out.append(dict(label=case.get("label"), converged=res.converged, aborted=res.aborted,
+                        stalled=res.stalled, escalated=res.escalated, history=res.history,
                         restarts=res.restarts, total_iters=res.total_iters,
                         x=res.x.cpu().numpy(), seconds=wall,
                         partition_local_bytes=res.partition_local_bytes,

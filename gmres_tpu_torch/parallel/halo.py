@@ -191,13 +191,16 @@ def partition_halo(A: CSRMatrix, n_shards: int):
 def halo_spmv(A, x_local: torch.Tensor, comm) -> torch.Tensor:
     """This rank's rows of y = A x: the edges of x from the neighbours
     (``comm.exchange_halos``), then the local product (K12 on the card for
-    a ``LocalHaloDIA``; a gather and ``index_add_`` for a ``LocalHaloCSR``,
-    as the JAX package leaves it to XLA)."""
+    an fp32 or fp64 ``LocalHaloDIA``; plain torch for a bf16 one, the JAX
+    package's XLA formula, as the single-device bf16 DIA route runs; a
+    gather and ``index_add_`` for a ``LocalHaloCSR``, as the JAX package
+    leaves it to XLA)."""
     hl, hr = A.halo_left, A.halo_right
     x_local = x_local.to(A.dtype)
     left, right = comm.exchange_halos(x_local, hl, hr)
     if isinstance(A, LocalHaloDIA):
-        fn = dia_spmv_halo_cuda if A.data.is_cuda else dia_spmv_halo_plain
+        fn = (dia_spmv_halo_cuda if A.data.is_cuda and A.dtype != torch.bfloat16
+              else dia_spmv_halo_plain)
         return fn(A.data, A.offsets, x_local, left, right)
     if isinstance(A, LocalHaloCSR):
         xx = torch.cat([left, x_local, right])

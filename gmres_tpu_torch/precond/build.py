@@ -1,8 +1,10 @@
 """Preconditioner construction (host, setup time).
 
 Mirrors the reference's dispatch (``gmres_perf_test.cpp:68-92``): ILU and
-ILU-Jacobi factor the fp64 matrix with ILU(0) and downcast, Jacobi extracts
-a safeguarded inverse diagonal, identity is a no-op.  Every build function works
+ILU-Jacobi factor the fp64 matrix with ILU(0) and downcast (in fp32, fp64
+or bf16: bf16 factors are rounded by torch, bit for bit as the JAX package
+rounds them with ``ml_dtypes``), Jacobi extracts a safeguarded inverse
+diagonal, identity is a no-op.  Every build function works
 in numpy on the host and returns CPU tensors; ``.to(device)`` moves them.
 
 Exact ILU (``build_ilu_exact``) keeps ``gmres_tpu``'s routing
@@ -11,7 +13,8 @@ Exact ILU (``build_ilu_exact``) keeps ``gmres_tpu``'s routing
 - a factor with at most ``_SHALLOW_LEVELS`` dependency levels is that many
   plain Jacobi sweeps (``ILUJacobiPrec``);
 - banded factors become ``ExactILUDIAPrec``, applied by kernel K6 in fp32
-  and in fp64 (the TPU kernel was fp32-only and sent fp64 to sweeps), the
+  and in fp64 (the TPU kernel was fp32-only and sent fp64 to sweeps; bf16
+  factors never take it, as in the JAX package), the
   level schedule K6 runs built once when ``.to`` moves the preconditioner
   to the card (a CPU solve runs the plain sweeps and needs none).  Fused
   when the working set ``(D_l + D_u + 5) * itemsize * n`` fits
@@ -23,9 +26,11 @@ Exact ILU (``build_ilu_exact``) keeps ``gmres_tpu``'s routing
   level-scheduled ``LevelILUPrec``, then refusal.
 
 ``optimize_precond_format`` repacks ILU-Jacobi factors to DIA (one K1
-launch per sweep) and ``sell_pack_factors`` packs factors DIA refuses into
-the port's sliced ELL (one K5 launch per sweep) at every size, as the
-operator is packed.  The block-Jacobi ILU is slice 7.
+launch per sweep; bf16 bands take the plain-torch bf16 DIA route, the JAX
+package's XLA formula) and ``sell_pack_factors`` packs fp32 and fp64
+factors DIA refuses into the port's sliced ELL (one K5 launch per sweep)
+at every size, as the operator is packed; bf16 ones stay CSR, as a bf16
+operator does (K5 has no bf16 form).  The block-Jacobi ILU is slice 7.
 """
 
 from __future__ import annotations
@@ -47,8 +52,6 @@ from gmres_tpu_torch.precond.ilu0 import (
     triangular_levels,
 )
 from gmres_tpu_torch.sparse import CSRMatrix, csr_from_arrays
-
-_NUMPY_DTYPE = {torch.float64: np.float64, torch.float32: np.float32}
 
 # Bytes of factor bands and vectors of the fused form; a larger working set
 # takes the segmented form (set when each K6 sweep re-read the working set
@@ -187,9 +190,11 @@ def build_jacobi_from_dia(A, dtype: torch.dtype) -> JacobiPrec:
         data[d0], np.abs(data).sum(axis=0), dtype))
 
 
-def _split_triangles(row_ptr, col_idx, fvals, diag, dtype):
+def _split_triangles(row_ptr, col_idx, fvals, diag, dtype: torch.dtype):
     """(strictly-lower CSR, upper-with-diagonal CSR, inverse diagonal) of
-    the combined factor, in numpy dtype ``dtype``."""
+    the combined factor ``fvals`` (fp64 values already rounded to ``dtype``),
+    in ``dtype``: the inverse diagonal is taken in fp64 and rounded, as the
+    JAX package does (``gmres_tpu/precond/build.py:75-106``)."""
     n = row_ptr.shape[0] - 1
     rp = row_ptr.astype(np.int64)
     nnz = rp[-1]
@@ -200,34 +205,31 @@ def _split_triangles(row_ptr, col_idx, fvals, diag, dtype):
     def build(mask):
         rptr = np.zeros(n + 1, dtype=np.int64)
         np.cumsum(np.bincount(row_ids[mask], minlength=n), out=rptr[1:])
-        return csr_from_arrays(rptr, ci[mask], fvals[mask].astype(dtype), n_cols=n)
+        return csr_from_arrays(rptr, ci[mask], fvals[mask], n_cols=n).astype(dtype)
 
-    inv_diag = (1.0 / fvals[diag]).astype(dtype)
+    inv_diag = torch.from_numpy(1.0 / fvals[diag]).to(dtype)
     return build(lower_mask), build(~lower_mask), inv_diag
 
 
 def _factors(A: CSRMatrix, dtype: torch.dtype):
     """ILU(0) of A in the preconditioner dtype and its triangles: (row_ptr,
-    col_idx, diag, lower, upper, inv_diag) with host numpy arrays."""
+    col_idx, diag, lower, upper, inv_diag), the first three host numpy
+    arrays.  The factor is computed in fp64 with the dtype's pivot floor and
+    rounded to the dtype (``gmres_tpu/precond/build.py:183-191``; bf16
+    through torch)."""
     if not isinstance(A, CSRMatrix):
         raise TypeError(f"ILU factors need the CSR matrix, got {type(A).__name__}")
-    if dtype not in _NUMPY_DTYPE:
-        raise NotImplementedError(
-            f"a {dtype} ILU preconditioner (ILU-Jacobi or exact ILU) is slice 5c of the "
-            "port; build M in float32 (PrecisionSpec precond='float32')")
-    ndt = _NUMPY_DTYPE[dtype]
     rp, ci, v = A.numpy_arrays()
     rp = rp.astype(np.int64)
     ci = ci[: rp[-1]]
-    fvals, diag = ilu0_factorize(rp, ci, v, factor_dtype=ndt)
-    lower, upper, inv_diag = _split_triangles(rp, ci, fvals.astype(np.float64), diag, ndt)
+    fvals, diag = ilu0_factorize(rp, ci, v, factor_dtype=dtype)
+    lower, upper, inv_diag = _split_triangles(rp, ci, fvals.double().numpy(), diag, dtype)
     return rp, ci, diag, lower, upper, inv_diag
 
 
 def build_ilu_jacobi(A: CSRMatrix, dtype: torch.dtype, steps: int) -> ILUJacobiPrec:
     _, _, _, lower, upper, inv_diag = _factors(A, dtype)
-    return ILUJacobiPrec(lower=lower, upper=upper, inv_diag=torch.from_numpy(inv_diag),
-                         steps=steps)
+    return ILUJacobiPrec(lower=lower, upper=upper, inv_diag=inv_diag, steps=steps)
 
 
 def _segment_level_counts(rp, ci, diag, seg: int):
@@ -254,7 +256,7 @@ def _segment_level_counts(rp, ci, diag, seg: int):
     return tuple(steps_l), tuple(steps_u)
 
 
-def _exact_dia(rp, ci, diag, lower, upper, inv_diag, steps_l, steps_u, ndt):
+def _exact_dia(rp, ci, diag, lower, upper, inv_diag, steps_l, steps_u):
     """ExactILUDIAPrec when both triangles repack to DIA, fused or
     segmented by the working set; else None."""
     lo_dia, up_dia = from_csr(lower), from_csr(upper)
@@ -265,9 +267,9 @@ def _exact_dia(rp, ci, diag, lower, upper, inv_diag, steps_l, steps_u, ndt):
     n = lower.n_rows
     up_rows = [up_dia.offsets.index(o) for o in offs_u]
     prec = ExactILUDIAPrec(lower_bands=lo_dia.data, upper_bands=up_dia.data[up_rows],
-                           inv_diag=torch.from_numpy(inv_diag), offs_l=offs_l,
+                           inv_diag=inv_diag, offs_l=offs_l,
                            offs_u=offs_u, steps_l=steps_l, steps_u=steps_u)
-    working_set = (len(offs_l) + len(offs_u) + 5) * np.dtype(ndt).itemsize * n
+    working_set = (len(offs_l) + len(offs_u) + 5) * inv_diag.element_size() * n
     if working_set <= _TRISOLVE_L2_BYTES:
         return prec
     # as few equal segments as keep each one's share of the working set
@@ -285,7 +287,10 @@ def _exact_dia(rp, ci, diag, lower, upper, inv_diag, steps_l, steps_u, ndt):
 def build_ilu_exact(A: CSRMatrix, dtype: torch.dtype, allow_fused: bool = True):
     """Exact ILU(0) triangular solves as level-count Jacobi sweeps (the
     strict triangles are nilpotent of that index), routed as the module
-    docstring says.  ``allow_fused=False`` skips the K6 form and the
+    docstring says.  A bf16 M never takes the K6 form: the JAX package sends
+    only fp32 to its fused kernel (``gmres_tpu/precond/build.py:319-320``),
+    and K6 has no bf16 form, so bf16 takes the sweeps, the level-scheduled
+    form or the refusal.  ``allow_fused=False`` skips the K6 form and the
     level-scheduled one and returns the sweep form (the same exact solve,
     its factors and level counts; ``solve_batched`` applies it to every lane
     with K1's lane form), or raises where its work is over the budget
@@ -294,35 +299,28 @@ def build_ilu_exact(A: CSRMatrix, dtype: torch.dtype, allow_fused: bool = True):
     nlev_l, nlev_u = triangular_level_counts(rp, ci, diag)
     steps = max(nlev_l, nlev_u)
     if steps <= _SHALLOW_LEVELS:
-        return ILUJacobiPrec(lower=lower, upper=upper, inv_diag=torch.from_numpy(inv_diag),
-                             steps=steps)
-    prec = (_exact_dia(rp, ci, diag, lower, upper, inv_diag, nlev_l, nlev_u,
-                       _NUMPY_DTYPE[dtype]) if allow_fused else None)
-    if prec is not None:
-        return prec
+        return ILUJacobiPrec(lower=lower, upper=upper, inv_diag=inv_diag, steps=steps)
+    if allow_fused and dtype != torch.bfloat16:
+        prec = _exact_dia(rp, ci, diag, lower, upper, inv_diag, nlev_l, nlev_u)
+        if prec is not None:
+            return prec
     nnz = int(rp[-1])
-    if steps * max(nnz, 1) > _SWEEP_WORK_BUDGET and not allow_fused:
-        # the JAX package's refusal, word for word (gmres_tpu/precond/build.py:395-403)
-        raise ValueError(
-            f"exact-ILU triangular solves need {steps} dependency-level "
-            f"sweeps over {nnz} nonzeros per application; the factors fit "
-            "neither the fused VMEM kernel nor the level-scheduled work "
-            "budget — this would be prohibitively slow on TPU. Use "
-            "precond='ilu_jacobi' (the reference's TPU-friendly variant) "
-            "or a smaller problem.")
-    if steps * max(nnz, 1) > _SWEEP_WORK_BUDGET:
+    if steps * max(nnz, 1) <= _SWEEP_WORK_BUDGET:
+        return ILUJacobiPrec(lower=lower, upper=upper, inv_diag=inv_diag, steps=steps)
+    if allow_fused:
         # level-scheduled chunks pay sum_c sweeps_c * nnz_c instead
         lev_l, lev_u = triangular_levels(rp, ci, diag)
         prec, work = level_ilu.build_level_ilu(lower, upper, inv_diag, lev_l, lev_u)
         if work <= _SWEEP_WORK_BUDGET:
             return prec
-        raise ValueError(
-            f"exact-ILU triangular solves need {steps} dependency-level sweeps over "
-            f"{nnz} nonzeros per application; the factors are not banded and the "
-            "level-scheduled work is over budget. Use precond='ilu_jacobi' or a "
-            "smaller problem.")
-    return ILUJacobiPrec(lower=lower, upper=upper, inv_diag=torch.from_numpy(inv_diag),
-                         steps=steps)
+    # the JAX package's refusal, word for word (gmres_tpu/precond/build.py:403-410)
+    raise ValueError(
+        f"exact-ILU triangular solves need {steps} dependency-level "
+        f"sweeps over {nnz} nonzeros per application; the factors fit "
+        "neither the fused VMEM kernel nor the level-scheduled work "
+        "budget — this would be prohibitively slow on TPU. Use "
+        "precond='ilu_jacobi' (the reference's TPU-friendly variant) "
+        "or a smaller problem.")
 
 
 def optimize_precond_format(M):
@@ -335,11 +333,11 @@ def optimize_precond_format(M):
 
 
 def sell_pack_factors(M):
-    """Pack CSR ILU-Jacobi factors (DIA refused them) into sliced ELL, so
-    each sweep is a K5 launch instead of the plain CSR route; a triangle
-    the packer refuses keeps both factors on CSR."""
+    """Pack fp32 or fp64 CSR ILU-Jacobi factors (DIA refused them) into
+    sliced ELL, so each sweep is a K5 launch instead of the plain CSR route;
+    a triangle the packer refuses, or bf16 factors, keep both on CSR."""
     if not (isinstance(M, ILUJacobiPrec) and isinstance(M.lower, CSRMatrix)
-            and isinstance(M.upper, CSRMatrix)):
+            and isinstance(M.upper, CSRMatrix) and M.inv_diag.dtype != torch.bfloat16):
         return M
     lo, up = sell_from_csr(M.lower), sell_from_csr(M.upper)
     if lo is None or up is None:

@@ -11,6 +11,11 @@ Carried from ``gmres_tpu.precond.ilu0`` and ``gmres_tpu.precond.level_ilu``
   ``±alpha`` (row 0 is not boosted, as in the reference);
 - factors computed in fp64 and downcast to the preconditioner dtype.
 
+``factor_dtype`` is a torch dtype.  The pivot floor takes its eps from
+``torch.finfo`` (2^-7 for bf16, as the JAX package's ``ml_dtypes`` gives,
+which the card's machine may lack), and the fp64 factor comes back as a
+tensor rounded to that dtype by torch.
+
 The fast path is the host C++ helper ``csrc/ilu_host.cpp``, built at first
 use (``ops/cuda/_build.py:host_library``); at 1M rows the Python loop of
 ``ilu0_factorize_numpy`` takes minutes.  If the helper cannot be built,
@@ -21,6 +26,7 @@ the numpy twin, which is kept for the tests.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from gmres_tpu_torch.ops.cuda._build import host_library
 
@@ -36,19 +42,19 @@ def diag_positions(row_ptr: np.ndarray, col_idx: np.ndarray) -> np.ndarray:
     return rp[:-1] + (cum[rp[1:]] - cum[rp[:-1]])
 
 
-def _boost_alpha(rp: np.ndarray, v: np.ndarray, factor_dtype) -> float:
+def _boost_alpha(rp: np.ndarray, v: np.ndarray, factor_dtype: torch.dtype) -> float:
     """eps(factor dtype) * the largest row 1-norm of A."""
     n = rp.shape[0] - 1
     row_ids = np.repeat(np.arange(n, dtype=np.int64), np.diff(rp))
     row_abs = np.zeros(n)
     np.add.at(row_abs, row_ids, np.abs(v[: rp[-1]]))
-    return float(np.finfo(factor_dtype).eps) * float(row_abs.max(initial=0.0))
+    return float(torch.finfo(factor_dtype).eps) * float(row_abs.max(initial=0.0))
 
 
-def ilu0_factorize_numpy(row_ptr, col_idx, vals, factor_dtype=np.float64):
+def ilu0_factorize_numpy(row_ptr, col_idx, vals, factor_dtype=torch.float64):
     """Pure-numpy sequential ILU(0), the twin of the host helper.  Returns
     (factor_vals, diag_positions): the combined L\\U factor on A's pattern
-    (unit-diagonal L stored without its ones)."""
+    (unit-diagonal L stored without its ones), a tensor of factor_dtype."""
     n = row_ptr.shape[0] - 1
     rp = row_ptr.astype(np.int64)
     ci = col_idx.astype(np.int64)
@@ -81,7 +87,7 @@ def ilu0_factorize_numpy(row_ptr, col_idx, vals, factor_dtype=np.float64):
                 v[diag[i]] = alpha
         elif dv > -alpha:
             v[diag[i]] = -alpha
-    return v.astype(factor_dtype), diag
+    return torch.from_numpy(v).to(factor_dtype), diag
 
 
 def _csr64(row_ptr, col_idx):
@@ -89,7 +95,7 @@ def _csr64(row_ptr, col_idx):
     return rp, np.ascontiguousarray(col_idx[: rp[-1]], dtype=np.int64)
 
 
-def ilu0_factorize(row_ptr, col_idx, vals, factor_dtype=np.float64):
+def ilu0_factorize(row_ptr, col_idx, vals, factor_dtype=torch.float64):
     """ILU(0) through the host helper, bit-identical to
     ``ilu0_factorize_numpy``."""
     lib = host_library()
@@ -102,7 +108,7 @@ def ilu0_factorize(row_ptr, col_idx, vals, factor_dtype=np.float64):
     if rc != 0:
         raise ValueError(f"ILU(0): row {-rc - 1} stores no entry on or right of "
                          "its diagonal")
-    return v.astype(factor_dtype), diag
+    return torch.from_numpy(v).to(factor_dtype), diag
 
 
 def triangular_levels(row_ptr, col_idx, diag) -> tuple[np.ndarray, np.ndarray]:

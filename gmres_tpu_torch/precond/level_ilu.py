@@ -75,12 +75,15 @@ def _ranges(rp: np.ndarray, rsel: np.ndarray) -> np.ndarray:
 
 
 def _pack_phase(tri: CSRMatrix, lev: np.ndarray, rows_target: int, n: int):
-    """A triangle's rows stacked into uniform [C, ...] chunk arrays.
+    """A triangle's rows stacked into uniform [C, ...] chunk arrays (the
+    values gathered in fp64, exactly, and returned as a tensor of the
+    triangle's dtype, bf16 included).
 
     Returns (cols, vals, segs, rows, sweeps, rows_max, work): ``rows[c, k]
     == n`` marks a padding row (it writes x's pad slot), padding entries
     read the pad slot with value 0, and ``sweeps`` is a tuple of ints."""
-    rp, ci, v = tri.numpy_arrays()
+    rp, ci = (a.numpy() for a in (tri.row_ptr, tri.col_idx))
+    v = tri.vals.double().numpy()
     rp = rp.astype(np.int64)
     chunks = _level_chunks(lev, rows_target)
     rows_max = max(c.shape[0] for c in chunks)
@@ -88,7 +91,7 @@ def _pack_phase(tri: CSRMatrix, lev: np.ndarray, rows_target: int, n: int):
     nnz_max = max(max(int(counts[c].sum()) for c in chunks), 1)
     C = len(chunks)
     cols = np.full((C, nnz_max), n, dtype=np.int64)
-    vals = np.zeros((C, nnz_max), dtype=v.dtype)
+    vals = np.zeros((C, nnz_max))
     segs = np.full((C, nnz_max), rows_max - 1, dtype=np.int64)
     rows = np.full((C, rows_max), n, dtype=np.int64)
     sweeps = []
@@ -103,7 +106,8 @@ def _pack_phase(tri: CSRMatrix, lev: np.ndarray, rows_target: int, n: int):
             segs[c, :tot] = np.repeat(np.arange(rsel.shape[0]), cnt)
         lv = lev[rsel]
         sweeps.append(int(lv.max() - lv.min()) + 1)
-    return cols, vals, segs, rows, tuple(sweeps), rows_max, sum(sweeps) * nnz_max
+    return (cols, torch.from_numpy(vals).to(tri.vals.dtype), segs, rows, tuple(sweeps), rows_max,
+            sum(sweeps) * nnz_max)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,22 +138,23 @@ class LevelILUPrec:
         return dataclasses.replace(self, **moved)
 
 
-def build_level_ilu(lower: CSRMatrix, upper: CSRMatrix, inv_diag: np.ndarray,
+def build_level_ilu(lower: CSRMatrix, upper: CSRMatrix, inv_diag,
                     lev_l: np.ndarray, lev_u: np.ndarray, rows_target: int = 65536):
     """Pack the split triangles (strict lower, upper with the diagonal)
-    into a LevelILUPrec.  Returns (prec, work), work bounding the gathers
-    of one apply."""
+    into a LevelILUPrec (``inv_diag`` a tensor, or a numpy array of an
+    fp32 or fp64 M).  Returns (prec, work), work bounding the gathers of
+    one apply."""
     n = lower.n_rows
     lc, lv, ls, lr, lsw, lrm, wl = _pack_phase(lower, lev_l, rows_target, n)
     uc, uv, us, ur, usw, urm, wu = _pack_phase(upper, lev_u, rows_target, n)
-    invd = np.asarray(inv_diag)
-    u_invd = np.ones(ur.shape, dtype=invd.dtype)
+    inv_diag = torch.as_tensor(inv_diag)
+    u_invd = torch.ones(ur.shape, dtype=inv_diag.dtype)
     valid = ur != n
-    u_invd[valid] = invd[ur[valid]]
+    u_invd[torch.from_numpy(valid)] = inv_diag[torch.from_numpy(ur[valid])]
     t = torch.from_numpy
-    prec = LevelILUPrec(l_cols=t(lc), l_vals=t(lv), l_segs=t(ls), l_rows=t(lr),
-                        l_sweeps=lsw, u_cols=t(uc), u_vals=t(uv), u_segs=t(us),
-                        u_rows=t(ur), u_sweeps=usw, u_invd=t(u_invd), inv_diag=t(invd),
+    prec = LevelILUPrec(l_cols=t(lc), l_vals=lv, l_segs=t(ls), l_rows=t(lr),
+                        l_sweeps=lsw, u_cols=t(uc), u_vals=uv, u_segs=t(us),
+                        u_rows=t(ur), u_sweeps=usw, u_invd=u_invd, inv_diag=inv_diag,
                         l_rows_max=lrm, u_rows_max=urm, n=n)
     return prec, wl + wu
 

@@ -228,17 +228,18 @@ class _PairBasis:
     """The df64 tier's basis: (Vh, Vl) fp32 pairs of shape (m+1, n), swept
     by K9-K11, with fp64 scalars (``gmres_tpu/solver/gmres.py:301-402``).
     A new row is w times the split fp64 reciprocal of its norm, as in the
-    JAX package."""
+    JAX package.  With ``comm`` the rows are the rank's and each sweep's
+    fp64 sum is summed over the ranks (``ops/df64.py``)."""
 
     dtype = _f64
 
-    def __init__(self, cfg: GmresConfig, A_in, M, w0h, w0l, beta: torch.Tensor):
-        self.cfg, self.A_in, self.M = cfg, A_in, M
+    def __init__(self, cfg: GmresConfig, A_in, M, w0h, w0l, beta: torch.Tensor, comm=None):
+        self.cfg, self.A_in, self.M, self.comm = cfg, A_in, M, comm
         m, dev = cfg.m, w0h.device
         self.Vh = torch.zeros((m + 1, w0h.shape[0]), dtype=torch.float32, device=dev)
         self.Vl = torch.zeros_like(self.Vh)
         self._store(0, w0h, w0l, beta)
-        self.lowsync = use_lowsync_mgs(cfg, dev.type)
+        self.lowsync = use_lowsync_mgs(cfg, dev.type, distributed=comm is not None)
         self.L = torch.zeros((m + 1, m + 1), dtype=_f64, device=dev) if self.lowsync else None
 
     def _store(self, j: int, wh, wl, norm: torch.Tensor) -> None:
@@ -246,19 +247,20 @@ class _PairBasis:
         self.Vh[j], self.Vl[j] = df64.df_scale(wh, wl, *df64.split_f64(inv))
 
     def step(self, k: int, Q: torch.Tensor):
-        cfg, Vh, Vl = self.cfg, self.Vh, self.Vl
-        wh, wl = df64.typesafe_apply_df64(self.M, *df64.spmv_df64_pair(self.A_in, Vh[k], Vl[k]))
+        cfg, Vh, Vl, comm = self.cfg, self.Vh, self.Vl, self.comm
+        wh, wl = df64.typesafe_apply_df64(
+            self.M, *df64.spmv_df64_pair(self.A_in, Vh[k], Vl[k], comm), comm)
         if self.lowsync:
-            h_col, wh, wl, ss, self.L = df64.df_mgs_lowsync_step(Vh, Vl, k, wh, wl, self.L)
+            h_col, wh, wl, ss, self.L = df64.df_mgs_lowsync_step(Vh, Vl, k, wh, wl, self.L, comm)
             h_next = torch.sqrt(ss)
         else:
             h_col, wh, wl, h_next = df64.df_orthonormalize_step(cfg.orth.value, Vh, Vl, k, wh,
-                                                                 wl, cfg.orth_steps)
+                                                                 wl, cfg.orth_steps, comm)
         self._store(k + 1, wh, wl, h_next)
         return _rotate(Q, h_col, h_next, k), h_next
 
     def orthloss(self, S: torch.Tensor, k: int, loss_sq: torch.Tensor) -> torch.Tensor:
-        u = df64.df_gram(self.Vh, self.Vl, self.Vh[k + 1], self.Vl[k + 1], k + 1)
+        u = df64.df_gram(self.Vh, self.Vl, self.Vh[k + 1], self.Vl[k + 1], k + 1, self.comm)
         return orthloss_step(S, k, u, loss_sq)
 
     def update(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -373,13 +375,13 @@ def restart_cycle(cfg: GmresConfig, A_out, A_in, M, b, x, b_norm, minvb_norm,
     With ``comm`` (a distributed solve, ``parallel/dist_gmres.py``) the
     operators, M, b and x are the rank's blocks and every reduction is
     summed over the ranks, so the scalars read here are the same on every
-    rank; the df64 tier does not run distributed."""
+    rank, in every precision tier."""
     in_dt = cfg.precision.inner_dtype
     r, r_ss, x_ss = outer_residual(A_out, b, x, in_dt, comm)
     if cfg.precision.df64_inner:
         # the fp64 residual split into a pair is the df64 start vector
-        w0h, w0l = df64.typesafe_apply_df64(M, *df64.split_f64(r))
-        beta = df64.df_norm(w0h, w0l)
+        w0h, w0l = df64.typesafe_apply_df64(M, *df64.split_f64(r), comm)
+        beta = df64.df_norm(w0h, w0l, comm)
     else:
         w0 = typesafe_apply(M, r.to(in_dt), comm)
         beta = nrm2(w0, comm)
@@ -402,7 +404,7 @@ def restart_cycle(cfg: GmresConfig, A_out, A_in, M, b, x, b_norm, minvb_norm,
                             prev_tail=prev)
 
     restart_tol = cycle_threshold(cfg, pstate, prec)
-    basis = (_PairBasis(cfg, A_in, M, w0h, w0l, beta) if cfg.precision.df64_inner
+    basis = (_PairBasis(cfg, A_in, M, w0h, w0l, beta, comm) if cfg.precision.df64_inner
              else _NativeBasis(cfg, A_in, M, w0, beta, comm))
     y, tail = _inner_cycle(cfg, basis, beta, cycle_steps(cfg, pstate),
                            restart_tol if residual_policy(cfg, pstate) else None, minvb_norm)

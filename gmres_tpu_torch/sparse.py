@@ -69,14 +69,15 @@ class CSRMatrix:
 
 
 def csr_from_arrays(row_ptr, col_idx, vals, n_cols: int | None = None) -> CSRMatrix:
-    """Build a CSRMatrix from raw CSR arrays (host numpy).  Entries past
-    ``row_ptr[-1]`` are dropped."""
+    """Build a CSRMatrix from raw CSR arrays (host numpy; ``vals`` may be a
+    CPU tensor).  Entries past ``row_ptr[-1]`` are dropped."""
     row_ptr = np.asarray(row_ptr, dtype=np.int64)
     n_rows = row_ptr.shape[0] - 1
     n_cols = int(n_cols) if n_cols is not None else n_rows
     nnz = int(row_ptr[-1])
     col_idx = np.asarray(col_idx, dtype=np.int64)
-    vals = np.asarray(vals)
+    if not isinstance(vals, torch.Tensor):
+        vals = torch.from_numpy(np.ascontiguousarray(vals))
     if col_idx.shape[0] < nnz or vals.shape[0] < nnz:
         raise ValueError(
             f"row_ptr declares {nnz} entries but col_idx/vals hold "
@@ -86,7 +87,7 @@ def csr_from_arrays(row_ptr, col_idx, vals, n_cols: int | None = None) -> CSRMat
         row_ptr=torch.from_numpy(row_ptr),
         col_idx=torch.from_numpy(np.ascontiguousarray(col_idx[:nnz])),
         row_ids=torch.from_numpy(row_ids),
-        vals=torch.from_numpy(np.ascontiguousarray(vals[:nnz])),
+        vals=vals[:nnz].contiguous(),
         n_rows=n_rows,
         n_cols=n_cols,
         nnz=nnz,

@@ -6,7 +6,9 @@ across grid sizes and forms, the df64 kernels K8-K11 and K4's pair mode
 (K8 and the updated pair of K10/K11 bit for bit), K12 (a rank's halo DIA
 block) in plain and residual modes at interior and boundary shards, and
 small DIA, SELL, ILU, MGS, df64 and distributed (two gloo ranks sharing the
-card) solves on the card against the same solves on the CPU; the dtype
+card; df64 too, with its sums over the ranks held to the one-device pair
+gram) solves on the card against the same solves on the CPU; a bf16
+ILU-Jacobi apply against the CPU's; the dtype
 forms of the compressed-basis and bf16 tiers (K2, K2x2, K3's three modes,
 K7, K4) against their plain versions at an aligned and a ragged n, K2's and
 K3 GRAM's forms bit for bit across grids and one device kernel a call, and
@@ -1001,6 +1003,72 @@ def test_distributed_solve_on_card_matches_cpu(mode):
             ref["restarts"], ref["total_iters"])
         tol = 1e-9 if mode == "baseline" else 1e-5
         assert np.linalg.norm(got["x"] - ref["x"]) / np.linalg.norm(ref["x"]) <= tol
+
+
+def test_distributed_df64_solve_on_card_matches_cpu():
+    # two gloo ranks sharing the card, mode df64: a rank's block takes the
+    # JAX package's plain-operator route (merge, K12 in fp64, split), its
+    # sweeps K9-K11 with their fp64 sums added over the ranks, the update
+    # K4's pair mode; no K1, K8 or native sweep.  The pair sums themselves:
+    # a 31-row K9 gram over the ranks' blocks equals the one-device gram to
+    # 2^-46 of its scale (the gram of |V| and |w|), and the same sum over
+    # the ranks' hi parts does not
+    from gmres_tpu_torch.ops.cuda._build import library
+    from gmres_tpu_torch.parallel import launch
+    from gmres_tpu_torch.parallel.dist_gmres import run_cases
+
+    import torch_rank_helpers
+
+    library()  # built here, so that the ranks load it
+    A = convection_diffusion_2d(32, beta=2.0)
+    b = A.to_scipy() @ gmres_tpu_torch.rand_vect(A.n_rows, 42)
+    cfg = gmres_tpu_torch.GmresConfig(
+        precision=gmres_tpu_torch.PrecisionSpec.from_mode("df64"), orth="cgsr",
+        precond="identity", restart_length=30, tol=1e-10, max_restarts=80)
+    cases = [dict(A=A, b=b, cfg=cfg)]
+    card = launch.spawn(run_cases, 2, args=(cases, "cuda"))
+    cpu = launch.spawn(run_cases, 2, args=(cases, "cpu"))
+    idle = PATH_KERNELS["dia"] | PATH_KERNELS["sell"] | ILU_KERNELS | {
+        "dia_spmv_df64", "basis_gram", "basis_update_gram", "basis_update_sumsq",
+        "basis_mgs", "basis_gram2", "basis_update"}
+    for (got,), (ref,) in zip(card, cpu):
+        c = got["launches"]
+        assert all(c[k] > 0 for k in DIST_KERNELS | {"df_gram", "df_update_gram",
+                                                     "df_update_sumsq", "basis_axpy"}), c
+        assert all(c[k] == 0 for k in idle), c
+        assert got["converged"] and (got["restarts"], got["total_iters"]) == (
+            ref["restarts"], ref["total_iters"])
+        assert np.linalg.norm(got["x"] - ref["x"]) / np.linalg.norm(ref["x"]) <= 1e-12
+    n, rows = 70_001, 31
+    for fp64_sum, hi_sum, whole, scale in launch.spawn(torch_rank_helpers.pair_sums, 2,
+                                                       args=(n, rows, 5, "cuda")):
+        scale = scale.max()
+        assert np.abs(fp64_sum - whole).max() <= DF_TOL * scale
+        assert np.abs(hi_sum - whole).max() > 2.0 ** -40 * scale
+
+
+@pytest.mark.parametrize("tier", ["bf16", "fp32_bf16_m"])
+@pytest.mark.parametrize("nx", [7, 64])
+def test_bf16_ilu_jacobi_apply_on_card_matches_plain(nx, tier):
+    # n = 49 and 4,096: bf16 ILU-Jacobi(3) factors on DIA (the plain-torch
+    # bf16 route on either device, no K1, no K6) applied to a bf16 vector,
+    # and to an fp32 one through the cast; against the same apply on the
+    # CPU, within one bf16 ulp a sweep of the result's scale
+    from gmres_tpu_torch.precond.apply import typesafe_apply
+
+    A = convection_diffusion_2d(nx, beta=2.0)
+    M = pbuild.optimize_precond_format(pbuild.build_ilu_jacobi(A, torch.bfloat16, 3))
+    assert M.lower.data.dtype == torch.bfloat16
+    dt = torch.bfloat16 if tier == "bf16" else torch.float32
+    w = torch.tensor(np.random.default_rng(nx).standard_normal(A.n_rows)).to(dt)
+    reset_launch_counts()
+    got = typesafe_apply(M.to("cuda"), w.to("cuda"))
+    counts = launch_counts()
+    assert all(v == 0 for v in counts.values()), counts
+    want = typesafe_apply(M, w)
+    assert got.dtype == dt and got.is_cuda
+    scale = float(want.abs().max())
+    assert float((got.cpu().double() - want.double()).abs().max()) <= 6 * 2.0 ** -7 * scale
 
 
 # The dtype forms of the compressed-basis and bf16 tiers: (basis, vectors).

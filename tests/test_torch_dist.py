@@ -6,7 +6,8 @@ four-device CPU mesh, and against the dense numpy oracle
 
 Held to: every rank the same result; restarts within one of the JAX
 package's in every mode, and equal restarts and iterations in ``baseline``
-(fp64 sums in another order; no case here sits on a restart boundary); x
+and ``df64`` (fp64 sums in another order; no case here sits on a restart
+boundary; the oracle's fp64 cycle stands for df64); x
 within 1e-6 of the JAX package's (1e-5 under a restart policy), the
 tolerances of ``tests/test_distributed.py``; and the oracle's restarts
 within one, x within 1e-6 (fp64 cycle) or 1e-5 (fp32 cycle).
@@ -57,6 +58,10 @@ CASES = {
     "orthloss": (poisson_2d, "mixed", dict(policy="orthloss", **POLICY)),
     "allgather": (poisson_2d, "mixed", dict(orth="cgsr", precond="identity", auto_format=False)),
     "halo-csr": (neighbour_local, "mixed", dict(orth="cgsr", precond="jacobi")),
+    # the df64 tier: the cycle on (hi, lo) pairs, its sums over the ranks in
+    # fp64 (tests/test_torch_dist_tiers.py holds the other orthogonalizations)
+    "df64-cgsr": (poisson_2d, "df64", dict(orth="cgsr", precond="identity")),
+    "df64-mgs-auto": (poisson_2d, "df64", dict(orth="mgs", precond="identity")),
 }
 SIZE = {poisson_2d: 12, convection_diffusion_2d: 10}
 
@@ -112,7 +117,7 @@ def test_matches_jax_distributed_and_oracle(label, port_results):
     ref = jax_solve_distributed(A, b, cj, mesh=mesh)
     assert ref.converged
     assert abs(got["restarts"] - ref.restarts) <= 1
-    if mode == "baseline":
+    if mode in ("baseline", "df64"):
         assert (got["restarts"], got["total_iters"]) == (ref.restarts, ref.total_iters)
     x_tol = 1e-5 if "policy" in kw else 1e-6
     assert _rel(got["x"], np.asarray(ref.x)) <= x_tol
@@ -127,7 +132,7 @@ def test_matches_jax_distributed_and_oracle(label, port_results):
                        if kw["precond"] == "ilu_jacobi" else 0)
     assert orc.converged
     assert abs(got["restarts"] - orc.restarts) <= 1
-    assert _rel(got["x"], orc.x) <= (1e-6 if mode == "baseline" else 1e-5)
+    assert _rel(got["x"], orc.x) <= (1e-6 if mode in ("baseline", "df64") else 1e-5)
 
 
 def test_dryrun_on_two_ranks():
@@ -153,15 +158,13 @@ def _rowblock(A):
                        n_rows=A.n_rows, n_cols=A.n_cols)
 
 
-@pytest.mark.parametrize("case", ["df64", "checkpoint", "bilu_jacobi", "exact_ilu",
-                                  "rowblock", "sell_route"])
+@pytest.mark.parametrize("case", ["checkpoint", "bilu_jacobi", "exact_ilu", "rowblock",
+                                  "sell_route"])
 def test_unported_distributed_options_raise(case):
     A = poisson_2d(12)
     cfg = gmres_tpu_torch.GmresConfig(orth="cgsr", precond="identity")
     kw = {}
-    if case == "df64":
-        cfg = cfg.with_(precision=gmres_tpu_torch.PrecisionSpec.from_mode("df64"))
-    elif case == "checkpoint":
+    if case == "checkpoint":
         from gmres_tpu_torch.utils.checkpoint import CheckpointSpec
 
         kw["checkpoint"] = CheckpointSpec(path="unused.ckpt")

@@ -112,7 +112,8 @@ def test_ilu0_bit_identical(case, dt):
     want, want_diag = jax_ilu0.ilu0_factorize_numpy(rp, ci, v, dt)
     bits = np.uint32 if dt == np.float32 else np.uint64
     for fn in (port_ilu0.ilu0_factorize, port_ilu0.ilu0_factorize_numpy):
-        got, diag = fn(rp, ci, v, dt)
+        got, diag = fn(rp, ci, v, TDT[dt])
+        got = got.numpy()
         assert got.dtype == want.dtype and np.array_equal(diag, want_diag)
         assert np.array_equal(got.view(bits), want.view(bits))
     if case == "boost":
@@ -148,6 +149,7 @@ def test_ilu_trisolve_host_matches_substitution():
     A = jax_synth.random_sparse(300, row_nnz=5, seed=5)
     rp, ci, v = _arrays(A)
     fvals, diag = port_ilu0.ilu0_factorize(rp, ci, v)
+    fvals = fvals.numpy()
     w = np.random.default_rng(1).standard_normal(A.n_rows)
     want = _substitution(jax_build.build_ilu_jacobi(A, np.float64, steps=1), w)
     _close(port_ilu0.ilu_trisolve_host(rp, ci, fvals, diag, w), want, np.float64)

@@ -43,7 +43,9 @@ def _imported_roots(path: Path):
 
 
 def test_port_never_imports_jax_or_gmres_tpu():
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    # tests/torch_rank_helpers.py: spawned ranks of the tests import it
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "tests" / "torch_rank_helpers.py"]
     names = {p.relative_to(REPO).as_posix() for p in files}
     assert {"gmres_tpu_torch/ops/cuda/mgs_kernel.py", "gmres_tpu_torch/ops/orth.py",
             "gmres_tpu_torch/solver/policies.py", "gmres_tpu_torch/ops/df64.py",
@@ -184,34 +186,37 @@ def test_solve_on_cuda_never_falls_back_to_cpu():
 
 
 @pytest.mark.parametrize("cfg", [
-    # distributed: the compressed basis (no ranks needed, it raises first)
-    dict(orth="cgsr", precond="identity", distributed=True,
-         precision=gmres_tpu_torch.PrecisionSpec("float64", "float32", "float32",
-                                                 basis="bfloat16")),
-    # distributed: the df64 tier
-    dict(orth="cgsr", precond="identity", distributed=True,
-         precision=gmres_tpu_torch.PrecisionSpec.from_mode("df64")),
-    # a bf16 ILU-Jacobi preconditioner
-    dict(orth="mgs", precond="ilu_jacobi", jacobi_steps=3,
-         precision=gmres_tpu_torch.PrecisionSpec("float64", "bfloat16", "bfloat16")),
+    # distributed: precond='bilu_jacobi' (the block-Jacobi ILU)
+    dict(orth="cgsr", precond="bilu_jacobi", distributed=True),
+    # distributed: per-host row-block input (RowBlockCSR)
+    dict(orth="cgsr", precond="identity", distributed=True, rowblock=True),
+    # distributed: the per-rank SELL route (unstructured, fp32 inner, >= 64K rows)
+    dict(orth="cgsr", precond="identity", distributed=True, unstructured=True,
+         precision=gmres_tpu_torch.PrecisionSpec.from_mode("mixed")),
     # distributed: checkpoint=
     dict(orth="cgsr", precond="identity", distributed=True, checkpoint=True),
-    # a bf16 exact-ILU preconditioner
-    dict(orth="cgsr", precond="ilu",
-         precision=gmres_tpu_torch.PrecisionSpec("float32", "bfloat16", "bfloat16")),
-    # distributed: the bf16 inner tier
-    dict(orth="cgsr", precond="identity", distributed=True,
-         precision=gmres_tpu_torch.PrecisionSpec("float64", "bfloat16", "bfloat16")),
+    # distributed: exact ILU (the JAX package refuses it too)
+    dict(orth="cgsr", precond="ilu", distributed=True),
+    # distributed: the per-rank SELL route under the compressed basis
+    dict(orth="cgsr", precond="identity", distributed=True, unstructured=True,
+         precision=gmres_tpu_torch.PrecisionSpec("float64", "float32", "float32",
+                                                 basis="bfloat16")),
 ])
 def test_unported_options_raise(cfg):
+    from gmres_tpu.sparse import RowBlockCSR
     from gmres_tpu_torch.utils.checkpoint import CheckpointSpec
 
-    A = synth.convection_diffusion_2d(8)
     cfg = dict(cfg)
+    A = (synth.unstructured_mesh(64 * 1024, run=8) if cfg.pop("unstructured", False)
+         else synth.convection_diffusion_2d(8))
+    if cfg.pop("rowblock", False):
+        rp, ci, v = A.numpy_arrays()
+        A = RowBlockCSR(row_ptr=rp, col_idx=ci, vals=v, row_lo=0, row_hi=A.n_rows,
+                        n_rows=A.n_rows, n_cols=A.n_cols)
     distributed = cfg.pop("distributed", False)
     kw = {"checkpoint": CheckpointSpec(path="unused.ckpt")} if cfg.pop("checkpoint", False) else {}
     fn = gmres_tpu_torch.solve_distributed if distributed else gmres_tpu_torch.solve
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(NotImplementedError, match="slice 7b"):
         fn(A, np.ones(A.n_rows), gmres_tpu_torch.GmresConfig(**cfg), device="cpu", **kw)
 
 

@@ -68,7 +68,20 @@ in fp64 numpy, CGSR unless said otherwise, restart length 30, tol 1e-8):
    single-card solve) and MGS ICWY and sequential (cut at 4), through
    K9-K11 and K12 in fp64, no K8, and the bf16 tier with Jacobi and a bf16
    ILU-Jacobi(3) at 262K, cut at 6 restarts, never escalating, beside the
-   single card's bf16 cycles;
+   single card's bf16 cycles; then the block-Jacobi ILU(3)
+   (``precond="bilu_jacobi"``, its DIA factor sweeps on K1) CGSR in both
+   modes at 1M (a window of restarts) and at 262K (the JAX package's CPU
+   counts, ``scripts/port_bilu_cpu.py``), the per-rank SELL route on
+   mesh3d@1M (K5, its outer residual on K5's rank form; the TPU's 1/30, x
+   against the second path's), a checkpointed mixed CGSR solve cut at 12
+   restarts and resumed (26/780, the uninterrupted solve's bits; df64 the
+   same, cut short) and mixed CGSR with ``multihost=True``; per-host
+   input: convdiff@1M written to the cli phase's ``.mtx`` here, each rank
+   loading its own rows (``load_matrix_rows``) and solving mixed CGSR with
+   identity and with the block-Jacobi ILU(3) (the whole-matrix solves'
+   counts and x, bit for bit); and ``cli.solve.main(["--dist", ...])`` on
+   the ranks at that file (rank 0 prints, the others nothing); each case's
+   launches held to ``dist_case_kernels``;
 7. the compressed-basis and bf16 path (convdiff-cb): the dtype forms of
    K2, K2x2, K3 (three modes), K7 and K4 held to their plain versions at
    convdiff@1M's shapes, K2's and K3 GRAM's forms counted one device kernel
@@ -90,7 +103,9 @@ parsed by the reference's regex; the reference's defaults, MGS and exact
 ILU, in mixed, equal in counts to the same ``solve`` called directly; the
 CGSR runs launch K1, its residual mode, K2, K3 GRAM and SUMSQ and K4, the
 defaults K1, its residual mode, K7, K6 fused and K4; K1 in fp32 in mixed
-and fp64 in baseline; no K8-K12); ``cli.condest_cli.main`` as the TPU
+and fp64 in baseline; no K8-K12); the block that ``cli.solve.main`` with
+``--dist`` printed on rank 0 of the distributed path's ranks, held to the
+single-device block (26/780); ``cli.condest_cli.main`` as the TPU
 campaign ran it, on convdiff:1024 (K1 fp64 only; sigma_max held to the
 TPU's, t and the LSQR wall a step logged with whether the run was capped)
 and mesh3d:262144 (K5 fp64 only; t and sigma_max held to the TPU's, cond
@@ -108,7 +123,7 @@ CSR matrix by the (n, s) block; ``solve_batched`` at convdiff@1M (x_true_j
 = rand_vect(n, 40 + j), CGSR, Jacobi) at s = 8 in mixed and baseline, each lane
 converged within one restart of 26/780 with the counts of the port's
 ``solve`` of its b and a backward error <= 1e-8, the batched wall beside
-the sequential solves' (medians of 3, interleaved); a few cycles of the s
+the sequential solves' (one each, after a batched warm-up); a few cycles of the s
 = 8 mixed solve traced in a fresh process (``batched_trace``: host wall and
 device busy time a step, device time by kernel); ``cli.bench_kernels``
 in-process, its K1, K2 and K3 times held to its own timer's on this
@@ -139,8 +154,10 @@ the other paths' SpMV kernels, (without ILU) K6, (without MGS, a policy
 or orth_steps != 2) the MGS kernels, (outside the df64 and distributed
 paths) K8-K11 and (outside the distributed path) K12 must not; on the df64
 path K1's plain mode, K2, K3, K2x2 and K7 must not; each distributed rank
-must launch K12 in both modes, K9-K11 and every tier's dtype forms, and no
-K1, K5, K6, K7 or K8.
+must launch K12 in both modes, K9-K11, every tier's dtype forms and K5's
+rank form, and each distributed case K1 only with the block-Jacobi ILU, K5
+only on the SELL route, K12 on the halo route, and never K1's residual
+mode, K6, K7 or K8.
 Any failed check raises and the script exits non-zero; without a CUDA
 device it exits non-zero at once.  Each phase prints its seconds.
 
@@ -310,26 +327,81 @@ CB_CUT_FACTOR = 4.0
 CB_BF16_STALL = (14, 56)
 CB_BF16_BEST = 1e-6
 CB_BF16_AFTER = 26
-CB_WALL_REPS = 3       # interleaved timed solves of mixed, mixed-cb, baseline, baseline-cb
+CB_WALL_REPS = 1       # timed solves of mixed, mixed-cb, baseline, baseline-cb, after a warm-up
 # the df64 path: the reference's CGSR df64 history at convdiff@1M
 # (results/round4/bench_df64.txt:7) and MGS (results/round5/bench_mgs_seq.txt)
 DF64_HISTORY = (26, 780)
-DF64_WALL_REPS = 3     # interleaved timed solves per form
+DF64_WALL_REPS = 1     # timed solves per form, after a warm-up
 # the distributed path (convdiff-dist): gloo ranks sharing the card, each
 # owning a block of rows of convdiff@1M
 DIST_RANKS = 4
 DIST_KERNELS = ("dia_spmv_halo", "dia_residual_halo")
-# what a distributed solve on halo DIA blocks must not launch: K1 (both
-# modes), K5, K6, K7 (distributed sequential MGS is a plain row loop with one
-# collective a row) and K8 (a rank's df64 SpMV is merge, K12 in fp64, split;
-# its df64 sweeps are K9-K11)
-DIST_IDLE = ("dia_spmv", "dia_residual", "sell_spmv", "sell_residual", *ILU_KERNELS,
-             "basis_mgs", "dia_spmv_df64")
-# MGS sequential against ICWY, mixed: this many interleaved solves of each,
-# cut at DIST_MGS_RESTARTS restarts (a step's wall is what the rule needs;
-# a whole sequential solve takes ~50 s there, PERF.md)
-DIST_MGS_REPS = 3
-DIST_MGS_RESTARTS = 4
+# what no distributed solve launches: K1's residual mode, K6, K7 (distributed
+# sequential MGS is a plain row loop with one collective a row) and K8 (a
+# rank's df64 SpMV is merge, an fp64 SpMV and split; its df64 sweeps K9-K11)
+DIST_NEVER = ("dia_residual", *ILU_KERNELS, "basis_mgs", "dia_spmv_df64")
+# MGS sequential against ICWY, mixed: this many solves of each (interleaved
+# when more than one), cut at DIST_MGS_RESTARTS restarts, after a warm-up
+# of each cut at one restart (a step's wall is what the rule needs;
+# a whole sequential solve takes ~50 s there, PERF.md; the repeats and
+# restarts of the earlier paths are cut to make room for the block-Jacobi
+# ILU, SELL-route, checkpoint and per-host cases, PERF.md section 4)
+DIST_MGS_REPS = 1
+DIST_MGS_RESTARTS = 2
+# the block-Jacobi ILU(3) (precond="bilu_jacobi"), CGSR, at convdiff@1M in
+# both modes: each converges (backward error <= 1e-8) within this window
+# of restarts, written before the first card reading (PERF.md section 6):
+# ILU-Jacobi(3) takes 52-54 / 51-64 there, and the block form drops
+# the couplings across three block edges of 262,144 rows
+BILU_RESTARTS = (45, 80)
+# at convdiff(NX_262K) over DIST_RANKS ranks the card's counts are held to
+# the JAX package's solve_distributed on a 4-device CPU mesh
+# (scripts/port_bilu_cpu.py --nx 512; (restarts, iterations) by mode)
+# within BILU_SLACK restarts: the port's route on the CPU reads 40/1200 in
+# both modes, its baseline history equal to the JAX package's to 1e-6
+# relative for 20 cycles, then both oscillating between 1e-8 and 4e-8
+# (--history), where the rounding picks the count
+BILU_CPU = {"baseline": (38, 1140), "mixed": (38, 1140)}
+BILU_SLACK = 6
+# Mixed: the JAX package's fp32 sums and the port's part by 1e-3 in the
+# first cycles and from cycle ~17 every history runs a sawtooth between
+# 7e-9 and 3.4e-7 whose dips under the tolerance the fp32 rounding picks.
+# The card read 53 after the window above was written; the witness of
+# scripts/dist_bilu_seeds.py and port_bilu_cpu.py --seeds (PERF.md
+# section 6) reads, at x_true seeds 42, 7, 1234: the JAX package on the
+# CPU 38, 48, 30, the port on the CPU 40, 46, 50, the card's kernels 53,
+# 46, 42 and the card's plain versions 46, 52, 40, each route the same
+# twice: two CPU routes with no kernel part by 20 at one seed.  So each
+# mode's first BILU_CYCLES cycles are held to the JAX package's
+# (BILU_CPU_CYCLES, from --history) within BILU_CYCLE_REL (every route
+# and seed read within 1.3e-3), and the mixed count within
+# BILU_MIXED_SLACK above its 38
+BILU_CYCLES = 12
+BILU_CPU_CYCLES = {
+    "baseline": (1.523511e-05, 4.227387e-06, 3.096817e-06, 1.247084e-06, 1.663053e-06,
+                 6.493031e-07, 6.894787e-07, 5.469587e-07, 4.151706e-07, 4.467144e-07,
+                 3.15447e-07, 3.369102e-07),
+    "mixed": (1.524849e-05, 4.231008e-06, 3.099379e-06, 1.248191e-06, 1.664348e-06,
+              6.499199e-07, 6.900518e-07, 5.474567e-07, 4.155411e-07, 4.470741e-07,
+              3.157845e-07, 3.371972e-07)}
+BILU_CYCLE_REL = {"baseline": 1e-5, "mixed": 3e-3}
+BILU_MIXED_SLACK = 20
+# the per-rank SELL route on mesh3d@1M (mixed CGSR, identity): the TPU's
+# 1/30 (results/round5_bench_dist.txt:8, its 1-device mesh SELL solve), x
+# within this of the single card's mesh3d mixed x, relative: one cycle of
+# fp32 Arnoldi steps whose sums round apart over the ranks (TOL_REL's fp32
+# bound)
+DIST_SELL_X_DIFF = 1e-5
+MESH3D_SPEC = f"mesh3d:{NX * NX}"
+# the checkpointed distributed mixed CGSR solve: saved every
+# DIST_CKPT_EVERY restarts, aborted at DIST_CKPT_CUT, resumed to the
+# reference's 26/780; its x equal to the uninterrupted distributed solve's
+# bit for bit (the resumed cycles are the same operations on the same bits).
+# df64, cut short: aborted at DIST_CKPT_DF64[0], resumed to
+# DIST_CKPT_DF64[1], equal to a solve cut at DIST_CKPT_DF64[1]
+DIST_CKPT_EVERY = 4
+DIST_CKPT_CUT = 12
+DIST_CKPT_DF64 = (4, 8)
 # the distributed bf16 tier at convdiff(512), cut at this many restarts (it
 # has no escalation; the single card's bf16 solve stalls later, PERF.md)
 DIST_BF16_RESTARTS = 6
@@ -381,6 +453,10 @@ CLI_SOLVES = (
       "basis_axpy"), "f64"),
     ("defaults (mgs, ilu) mixed", [],
      ("dia_spmv", "dia_residual", "basis_mgs", "ilu_trisolve_fused", "basis_axpy"), "f32"))
+# the --dist command line on the distributed path's ranks: the flags of the
+# cli phase's "mixed cgsr" run (CLI_SOLVES), whose block it is held to
+CLI_DIST_ARGV = ["--rlen", "30", "--tol", "1e-8", "--json", "--mode", "mixed", "--orth",
+                 "cgsr", "--prec", "identity"]
 # condest as the TPU campaign ran it (scripts/round5_hw_campaign.sh:113-116):
 # (spec, --max-iters, the TPU's printed sigma_max, sigma_min and t;
 # results/round5/condest_convdiff.txt and condest_mesh3d.txt).  convdiff:1024
@@ -407,8 +483,8 @@ CONDEST_COND_REL = 1e-4
 BATCHED_SOLVES = (("mixed", 8), ("baseline", 8))
 BATCHED_SEED = 40
 BATCHED_HISTORY = (26, 780)
-BATCHED_WALL_REPS = 3             # timed batched and sequential runs, after a warm-up
-BATCHED_TRACE_RESTARTS = 2        # cycles of the traced s = 8 mixed solve
+BATCHED_WALL_REPS = 1             # timed batched and sequential runs, after a warm-up
+BATCHED_TRACE_RESTARTS = 1        # cycles of the traced s = 8 mixed solve
 # what a batched solve (CGSR, Jacobi, DIA) launches, and what it must not
 BATCHED_KERNELS = ("dia_spmv", "dia_residual", "basis_gram", "basis_update_gram",
                    "basis_update_sumsq", "basis_axpy")
@@ -865,6 +941,14 @@ def csr_residual(A_csr, x, b):
     return b - np.bincount(rows, weights=v * x[ci], minlength=A_csr.n_rows)
 
 
+def walls_text(v):
+    """Walls as logged: the one wall, or the median of several with their
+    range."""
+    if len(v) == 1:
+        return f"{v[0]:.4f}"
+    return f"median {statistics.median(v):.4f} min {min(v):.4f} max {max(v):.4f}"
+
+
 def solve_timed(torch, label, mode, A_csr, A_dev, cfg, timed, M=None, history=False,
                 converges=True, warm_up=True):
     """One warm-up (unless not `warm_up`) and `timed` timed solves of A x = b
@@ -894,8 +978,8 @@ def solve_timed(torch, label, mode, A_csr, A_dev, cfg, timed, M=None, history=Fa
     err = float(np.linalg.norm(x - x_true) / np.linalg.norm(x_true))
     wall = statistics.median(times)
     log(f"solve {label} {mode}: converged={res.converged} restarts={res.restarts} "
-        f"total_iters={res.total_iters} wall median={wall:.4f} s "
-        f"walls={[round(t, 4) for t in times]} backward_err={backward:.3e} "
+        f"total_iters={res.total_iters} wall {walls_text(times)} s "
+        f"{'after a warm-up ' if warm_up else ''}backward_err={backward:.3e} "
         f"rel_fwd_err={err:.3e}")
     if history:
         log(f"  history {label} {mode} (backward error per cycle): "
@@ -1033,8 +1117,9 @@ def convdiff_path(torch, record, A):
 
 
 def mesh3d_path(torch, record):
-    """The unstructured path; returns its launch counts, and the matrix and
-    its staged SELL operator for the compressed-basis path."""
+    """The unstructured path; returns its launch counts, the matrix and its
+    staged SELL operator for the compressed-basis path, and the mixed
+    solve's x (the distributed SELL route is held to it)."""
     from gmres_tpu_torch.io.synth import unstructured_mesh
     from gmres_tpu_torch.ops.sell import SELLMatrix
 
@@ -1055,7 +1140,8 @@ def mesh3d_path(torch, record):
             return f"history {restarts}/{iters}, the TPU reference's is {MESH_TPU_HISTORY}"
         return None
 
-    return run_main_path(torch, "mesh3d", A, A_dev, expect)[0], A, A_dev
+    counts, xs, _ = run_main_path(torch, "mesh3d", A, A_dev, expect)
+    return counts, A, A_dev, xs["mixed"]
 
 
 def exact_ilu(A_csr, dt, n_seg=None):
@@ -1260,8 +1346,8 @@ def convdiff_ilu_path(torch, record, A, A_dev):
         cfg = config(mode, "ilu_jacobi", jacobi_steps=3)
         M = build_m("convdiff@1M ilu_jacobi(3)", A, cfg)
         require(isinstance(M.lower, DIAMatrix), "ILU-Jacobi factors repack to DIA")
-        res, _ = solve_timed(torch, "convdiff@1M ilu_jacobi(3)", mode, A, A_dev, cfg, 3,
-                             M=M)
+        res, _ = solve_timed(torch, "convdiff@1M ilu_jacobi(3)", mode, A, A_dev, cfg, 1,
+                             M=M, warm_up=False)
         want = ILU_JACOBI_HISTORY[mode]
         lo, hi = ILU_JACOBI_RESTARTS[mode]
         log(f"  vs the reference's {want[0]}/{want[1]}: restarts {res.restarts - want[0]:+d} "
@@ -1287,7 +1373,7 @@ def convdiff_ilu_path(torch, record, A, A_dev):
             M = build_m(label, A_csr, cfg)
             require(isinstance(M, ExactILUDIAPrec), f"{label} {mode}: exact ILU on K6")
             res, wall = solve_timed(torch, label, mode, A_csr, A_staged, cfg, 1, M=M,
-                                    history=True)
+                                    history=True, warm_up=False)
             exact_walls.append(f"{label} {mode} {wall:.4f} s ({res.restarts}/{res.total_iters}"
                                f", {'segmented' if M.seg else 'fused'})")
             if A_csr is A262 and mode == "mixed":
@@ -1524,7 +1610,7 @@ def convdiff_bf16ilu_path(torch, A, A_dev):
 
 
 MID_ROWS = 16          # the middle basis height of K7/K2x2/K3-plain checks
-ORTH_WALL_REPS = 6     # interleaved timed solves per form and mode
+ORTH_WALL_REPS = 1     # timed solves per form and mode, after a warm-up
 GRID_BLOCKS_PER_SM = (1, 2, 4, 0)  # K7 grids measured (0: every resident block)
 
 
@@ -1710,9 +1796,9 @@ def orth_solve_walls(torch, A, A_dev):
                 torch.cuda.synchronize()
                 walls[f].append(time.perf_counter() - t0)
         med = {f: statistics.median(v) for f, v in walls.items()}
-        log(f"solve walls {mode} (s, {ORTH_WALL_REPS} interleaved each): "
-            + "; ".join(f"{f} median {med[f]:.4f} min {min(v):.4f} max {max(v):.4f}"
-                        for f, v in walls.items())
+        log(f"solve walls {mode} (s, {ORTH_WALL_REPS} each after a warm-up"
+            f"{', interleaved' if ORTH_WALL_REPS > 1 else ''}): "
+            + "; ".join(f"{f} {walls_text(v)}" for f, v in walls.items())
             + f"; icwy/sequential {med['icwy'] / med['sequential']:.4f}, "
             f"sequential/cgsr {med['sequential'] / med['cgsr']:.4f}")
 
@@ -1733,14 +1819,14 @@ def convdiff_mgs_path(torch, record, A, A_dev, copy_gbs):
         cfg = config(mode, "identity", **kw)
         before = launch_counts()
         res, wall = solve_timed(torch, f"convdiff-mgs {label}", mode, A, A_dev, cfg, timed,
-                                history=True, converges=converges)
+                                history=True, converges=converges, warm_up=False)
         after = launch_counts()
         c = {k: after[k] - before[k] for k in after}
         log(f"  launches {label} {mode}: {c}")
         require(c["dia_spmv"] > 0 and c["dia_residual"] > 0, f"{label} {mode}: K1 launched")
         require(all(c[k] == 0 for k in PATH_KERNELS["mesh3d"] + ILU_KERNELS),
                 f"{label} {mode}: neither K5 nor K6 launched ({c})")
-        return res, wall, c, timed + 1
+        return res, wall, c, timed
 
     for mode in ("baseline", "mixed"):
         for form, lowsync in (("sequential", False), ("icwy", True)):
@@ -1942,9 +2028,9 @@ def df64_solve_walls(torch, A, A_dev):
             torch.cuda.synchronize()
             walls[f].append(time.perf_counter() - t0)
     med = {f: statistics.median(v) for f, v in walls.items()}
-    log(f"solve walls df64 path (s, {DF64_WALL_REPS} interleaved each): "
-        + "; ".join(f"{f} median {med[f]:.4f} min {min(v):.4f} max {max(v):.4f}"
-                    for f, v in walls.items()))
+    log(f"solve walls df64 path (s, {DF64_WALL_REPS} each after a warm-up"
+        f"{', interleaved' if DF64_WALL_REPS > 1 else ''}): "
+        + "; ".join(f"{f} {walls_text(v)}" for f, v in walls.items()))
     log(f"df64/baseline wall ratio (CGSR): {med['df64 cgsr'] / med['baseline cgsr']:.4f}; "
         f"df64 icwy/sequential {med['df64 mgs icwy'] / med['df64 mgs sequential']:.4f}")
     return med
@@ -2020,7 +2106,7 @@ def convdiff_df64_path(torch, record, A, A_dev):
         before = launch_counts()
         res, _ = solve_timed(torch, f"convdiff-df64 {label}", "df64", A, A_dev,
                              config("df64", "identity", **kw), 1, history=True,
-                             converges=converges)
+                             converges=converges, warm_up=False)
         after = launch_counts()
         c = {k: after[k] - before[k] for k in after}
         log(f"  launches {label} df64: {c}")
@@ -2031,7 +2117,7 @@ def convdiff_df64_path(torch, record, A, A_dev):
             require(abs(res.restarts - want[0]) <= 1,
                     f"df64 {label}: {res.restarts}/{res.total_iters} not within one restart "
                     f"of {want[0]}/{want[1]}")
-        require(c["dia_spmv_df64"] == 2 * res.total_iters and c["df_gram"] > 0
+        require(c["dia_spmv_df64"] == res.total_iters and c["df_gram"] > 0
                 and c["df_update_sumsq"] > 0 and c["dia_residual"] > 0
                 and c["basis_axpy"] > 0,
                 f"df64 {label}: K8 once a step, K9, K11, K1 residual and K4 pair launched ({c})")
@@ -2111,10 +2197,16 @@ def check_halo_kernels(torch, A_csr, record):
     record.require_ok()
 
 
-def dist_rank(cases):
+def dist_rank(cases, argv):
     """One rank of the convdiff-dist path, in a spawned process sharing the
-    card: the distributed dryrun, then every case (``run_cases``); returns
-    their results and the launch counts of this rank's solves."""
+    card: the distributed dryrun, every case (``run_cases``), then
+    ``cli.solve.main(argv)`` with its standard output captured; returns the
+    cases' results, the command's exit code, output, seconds and launches,
+    and the launch counts of this rank's solves."""
+    import contextlib
+    import io
+
+    from gmres_tpu_torch.cli import solve as cli
     from gmres_tpu_torch.ops.cuda import form_launch_counts, launch_counts
     from gmres_tpu_torch.parallel.dist_gmres import dryrun_on_rank, run_cases
 
@@ -2123,10 +2215,18 @@ def dist_rank(cases):
     dry = dryrun_on_rank("cuda")
     dry_seconds = time.perf_counter() - t0
     results = run_cases(cases, "cuda")
+    cli_before = launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    cli_seconds = time.perf_counter() - t0
     after, forms_after = launch_counts(), form_launch_counts()
     forms = {k: {f: n - forms_before[k].get(f, 0) for f, n in v.items()}
              for k, v in forms_after.items()}
     return dict(dryrun=dry, dryrun_seconds=dry_seconds, results=results,
+                cli=(rc, buf.getvalue(), cli_seconds,
+                     {k: after[k] - cli_before[k] for k in after}),
                 launches={k: after[k] - before[k] for k in after}, forms=forms)
 
 
@@ -2146,28 +2246,131 @@ def dist_tier_config(tier, precond="identity", **kw):
     return config(tier, precond, **kw)
 
 
-def convdiff_dist_path(torch, record, A, A_dev, x_single, walls_single):
-    """The distributed path: K12 checked at the row blocks of convdiff@1M,
-    then DIST_RANKS gloo ranks on this card run the dryrun, CGSR in both
-    modes (the reference's 26/780, x against the single-card solve of the
-    first path), mixed MGS under the low_sync_mgs=None rule (26/780), MGS
-    sequential and ICWY interleaved, cut at DIST_MGS_RESTARTS restarts (the
-    evidence for that rule on CUDA), and ILU-Jacobi(3) mixed at
-    convdiff(512); then the precision tiers: mixed-cb and baseline-cb CGSR
-    (CB_RESTARTS; mixed-cb's cycles and x against a single-card solve), df64 CGSR (the reference's
-    26/780, x against a single-card solve), df64 MGS ICWY and sequential cut
-    at DIST_MGS_RESTARTS, and the bf16 tier with Jacobi and with a bf16
+def check_sell_rank_kernels(torch, mesh, record):
+    """K5's rank form (residual mode on a rank's SELL block: b and r the
+    block's rows, x gathered, ||x||^2 over the rank's rows) against its plain
+    twin at the blocks of mesh3d@1M over DIST_RANKS ranks on the SELL grid,
+    the first and the last block, fp64 operator with the norm in fp32 and in
+    fp64.  Its bytes: each slot's value and column, the block's b and r and
+    the distinct entries of x its columns reach."""
+    from gmres_tpu_torch.ops.cuda import sell_kernel as sl
+    from gmres_tpu_torch.ops.sell import sell_from_csr
+    from gmres_tpu_torch.parallel.dist_gmres import sell_rows_per
+    from gmres_tpu_torch.sparse import csr_from_arrays
+
+    n = mesh.n_rows
+    r = sell_rows_per(n, DIST_RANKS)
+    rp, ci, v = mesh.numpy_arrays()
+    rng = np.random.default_rng(14)
+    timer = Timer(torch)
+    x64 = torch.tensor(rng.random(r * DIST_RANKS), device="cuda")
+    for side, rank in (("first", 0), ("last", DIST_RANKS - 1)):
+        lo, hi = min(rank * r, n), min((rank + 1) * r, n)
+        rows = np.full(r + 1, rp[hi] - rp[lo])
+        rows[:hi - lo + 1] = rp[lo:hi + 1] - rp[lo]
+        S = sell_from_csr(csr_from_arrays(rows, ci[rp[lo]:rp[hi]], v[rp[lo]:rp[hi]],
+                                          n_cols=r * DIST_RANKS), float("inf")).to("cuda")
+        b64 = torch.tensor(rng.standard_normal(r), device="cuda")
+        reach = int(torch.unique(S.cols).numel())
+        args = (S.vals, S.cols, S.slice_ptr, b64, x64)
+        for dt_name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+            check_residual(torch, record, "sell_residual", dt, dt_name, timer,
+                           lambda: sl.sell_residual_cuda(*args, dt, x_off=rank * r),
+                           lambda: sl.sell_residual_plain(*args, dt, x_off=rank * r),
+                           b64.abs() + sl.sell_spmv_plain(S.vals.abs(), S.cols, S.slice_ptr,
+                                                          x64, r),
+                           S.n_slots * 12 + 2 * r * 8 + reach * 8, 2 * S.n_slots + 5 * r,
+                           key=f"{dt_name} rank {side}")
+        torch.cuda.synchronize()
+        del S, b64
+    record.require_ok()
+
+
+def dist_case_kernels(case):
+    """(must launch, must not launch) for one distributed case on its ranks:
+    the per-rank SELL route K5 in both modes (its residual in the rank form)
+    and no K12 or K1; a block-Jacobi ILU K1 (its DIA factor sweeps) beside
+    K12; any other case K12 (the plain mode unless its operator is bf16) and
+    no K1 or K5; no case K1's residual mode, K6, K7 or K8 (DIST_NEVER)."""
+    if case.get("kind") == "sell":
+        return {"sell_spmv", "sell_residual"}, set(DIST_KERNELS) | {"dia_spmv", *DIST_NEVER}
+    halo = {"dia_residual_halo"}
+    if not case["label"].startswith("tier bf16"):
+        halo.add("dia_spmv_halo")
+    if case["cfg"].precond.value == "bilu_jacobi":
+        return halo | {"dia_spmv"}, {"sell_spmv", "sell_residual", *DIST_NEVER}
+    return halo, {"dia_spmv", "sell_spmv", "sell_residual", *DIST_NEVER}
+
+
+def convdiff_dist_path(torch, record, A, A_dev, x_single, walls_single, mesh, mesh_x):
+    """The distributed path: K12 checked at the row blocks of convdiff@1M
+    and K5's rank form at those of mesh3d@1M, then DIST_RANKS gloo ranks on
+    this card run the dryrun, CGSR in both modes (the reference's 26/780, x
+    against the single-card solve of the first path), mixed MGS under the
+    low_sync_mgs=None rule (26/780), MGS sequential and ICWY after a warm-up
+    of each, cut at DIST_MGS_RESTARTS restarts (the evidence for that rule
+    on CUDA), and
+    ILU-Jacobi(3) mixed at convdiff(512); then the precision tiers: mixed-cb
+    and baseline-cb CGSR (CB_RESTARTS; mixed-cb's cycles and x against a
+    single-card solve), df64 CGSR (the reference's 26/780, x against a
+    single-card solve), df64 MGS ICWY and sequential cut at
+    DIST_MGS_RESTARTS, and the bf16 tier with Jacobi and with a bf16
     ILU-Jacobi(3) at convdiff(512), cut at DIST_BF16_RESTARTS (no
     escalation), its backward error per cycle beside the single card's bf16
-    phase.  Returns the ranks' summed launch counts."""
+    phase; then the block-Jacobi ILU(3) CGSR in both modes at 1M
+    (BILU_RESTARTS) and at convdiff(512) (the JAX package's CPU counts,
+    BILU_CPU), the per-rank SELL route on mesh3d@1M (1/30, x against the
+    single card's, DIST_SELL_X_DIFF), the checkpointed mixed CGSR solve cut
+    at DIST_CKPT_CUT and resumed (26/780, x the uninterrupted solve's bits),
+    df64 the same cut short (DIST_CKPT_DF64), and mixed CGSR with
+    ``multihost=True`` (the default's bits from a quarter of the partition's
+    bytes, cut at DIST_CKPT_CUT); then per-host input: convdiff@1M written to
+    the cli phase's ``.mtx`` here (``mmio.write_coordinate``), each rank
+    loading its own rows (``load_matrix_rows`` of ``process_row_range(...,
+    fmt='auto')``) and solving mixed CGSR with identity and with the
+    block-Jacobi ILU(3), the whole-matrix solves' counts and x bit for bit;
+    last ``cli.solve.main(["--dist", ...])`` on the ranks at that file (only
+    rank 0 prints; its block is held to the single-device command's in the
+    cli phase).  Each case's launches are held to ``dist_case_kernels``, the
+    command line's to K12 alone.  Returns the ranks' summed launch counts,
+    their summed form counts, and for the cli phase the file's directory,
+    path, write seconds and each rank's command-line (exit code, output,
+    seconds, launches)."""
+    import shutil
+    import tempfile
+
+    from gmres_tpu_torch.io import mmio
+
+    cli_tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        a_path = os.path.join(cli_tmp, "convdiff_1m.mtx")
+        t0 = time.perf_counter()
+        mmio.write_coordinate(a_path, A.n_rows, A.n_cols, A.row_ids.numpy(), A.col_idx.numpy(),
+                              A.vals.numpy())
+        write_seconds = time.perf_counter() - t0
+        return (*dist_cases(torch, record, A, A_dev, x_single, walls_single, mesh, mesh_x,
+                            a_path), cli_tmp, a_path, write_seconds)
+    except BaseException:
+        shutil.rmtree(cli_tmp, ignore_errors=True)
+        raise
+
+
+def dist_cases(torch, record, A, A_dev, x_single, walls_single, mesh, mesh_x, a_path):
+    """The body of ``convdiff_dist_path``: returns the ranks' summed launch
+    and form counts and rank by rank their command-line results."""
+    import shutil
+    import tempfile
+
     from gmres_tpu_torch import rand_vect, solve
     from gmres_tpu_torch.io.synth import convection_diffusion_2d
     from gmres_tpu_torch.parallel import launch
+    from gmres_tpu_torch.utils.checkpoint import CheckpointSpec
 
     check_halo_kernels(torch, A, record)
+    check_sell_rank_kernels(torch, mesh, record)
     A512 = convection_diffusion_2d(NX_262K, beta=2.0)
-    b, b512 = (-csr_residual(M, rand_vect(M.n_rows, 42), np.zeros(M.n_rows))
-               for M in (A, A512))
+    b, b512, b_mesh = (-csr_residual(M, rand_vect(M.n_rows, 42), np.zeros(M.n_rows))
+                       for M in (A, A512, mesh))
     # the single card's solves the tiers are held to, run here before the ranks
     t0 = time.perf_counter()
     A512_dev = stage_timed(torch, A512)[0]
@@ -2191,6 +2394,9 @@ def convdiff_dist_path(torch, record, A, A_dev, x_single, walls_single):
              for mode in ("baseline", "mixed")]
     cases.append(dict(label="mgs default mixed", A=A, b=b,
                       cfg=config("mixed", "identity", orth="mgs")))
+    cases += [dict(label=f"mgs {form} mixed warm-up", warm_up=True, A=A, b=b,
+                   cfg=config("mixed", "identity", orth="mgs", low_sync_mgs=form == "icwy")
+                   .with_(max_restarts=1)) for form in ("sequential", "icwy")]
     for rep in range(DIST_MGS_REPS):
         forms = ("sequential", "icwy") if rep % 2 == 0 else ("icwy", "sequential")
         cases += [dict(label=f"mgs {form} mixed cut", A=A, b=b,
@@ -2216,21 +2422,56 @@ def convdiff_dist_path(torch, record, A, A_dev, x_single, walls_single):
                                              jacobi_steps=3))
                    for name, precond in (("jacobi", "jacobi"), ("ilu_jacobi(3)", "ilu_jacobi"))]
     cases += tier_cases
+    # the block-Jacobi ILU, the per-rank SELL route, the sharded
+    # checkpoint and per-host partitioning
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    spec = CheckpointSpec(os.path.join(ckpt_dir, "mixed"), every=DIST_CKPT_EVERY)
+    spec64 = CheckpointSpec(os.path.join(ckpt_dir, "df64"), every=DIST_CKPT_DF64[0])
+    for mode in ("baseline", "mixed"):
+        cases += [dict(label=f"bilu_jacobi(3) {mode}", kind="bilu", A=A, b=b,
+                       cfg=config(mode, "bilu_jacobi", jacobi_steps=3, max_restarts=200)),
+                  dict(label=f"bilu_jacobi(3) {mode} 262K", kind="bilu262", A=A512, b=b512,
+                       history=True,
+                       cfg=config(mode, "bilu_jacobi", jacobi_steps=3, max_restarts=200))]
+    cases += [
+        dict(label="sell mesh3d mixed", kind="sell", synth=MESH3D_SPEC, b=b_mesh,
+             cfg=config("mixed", "identity")),
+        dict(label="ckpt mixed cut", kind="ckpt-cut", A=A, b=b, checkpoint=spec,
+             cfg=config("mixed", "identity", max_restarts=DIST_CKPT_CUT)),
+        dict(label="ckpt mixed resume", kind="ckpt-resume", A=A, b=b, checkpoint=spec,
+             cfg=config("mixed", "identity")),
+        dict(label="ckpt df64 cut", kind="ckpt-cut", A=A, b=b, checkpoint=spec64,
+             cfg=dist_tier_config("df64", max_restarts=DIST_CKPT_DF64[0])),
+        dict(label="ckpt df64 resume", kind="ckpt-resume", A=A, b=b, checkpoint=spec64,
+             cfg=dist_tier_config("df64", max_restarts=DIST_CKPT_DF64[1])),
+        dict(label="df64 cut", kind="df64-cut", A=A, b=b,
+             cfg=dist_tier_config("df64", max_restarts=DIST_CKPT_DF64[1])),
+        dict(label="ckpt mixed cut multihost", kind="multihost", A=A, b=b, multihost=True,
+             cfg=config("mixed", "identity", max_restarts=DIST_CKPT_CUT)),
+        dict(label="rows cgsr mixed", kind="rows", mtx=a_path, b=b,
+             cfg=config("mixed", "identity")),
+        dict(label="rows bilu_jacobi(3) mixed", kind="rows", mtx=a_path, b=b,
+             cfg=config("mixed", "bilu_jacobi", jacobi_steps=3, max_restarts=200))]
     t0 = time.perf_counter()
-    ranks = launch.spawn(dist_rank, DIST_RANKS, args=(cases,), timeout=DIST_TIMEOUT,
-                         threads=2)
-    log(f"convdiff-dist: {DIST_RANKS} gloo ranks on one card, {len(cases)} solves, "
-        f"{time.perf_counter() - t0:.1f} s from spawn to the last rank's result")
+    try:
+        ranks = launch.spawn(dist_rank, DIST_RANKS, args=(cases, ["--dist", *CLI_DIST_ARGV,
+                                                                   "--Apath", a_path]),
+                             timeout=DIST_TIMEOUT, threads=2)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"convdiff-dist: {DIST_RANKS} gloo ranks on one card, {len(cases)} solves and the "
+        f"--dist command line, {time.perf_counter() - t0:.1f} s from spawn to the last rank's "
+        f"result")
     log(f"  dryrun (poisson_2d(10), mixed ILU-Jacobi(2)) per rank: "
         f"{[r['dryrun'] for r in ranks]}, {max(r['dryrun_seconds'] for r in ranks):.2f} s")
-    walls = {}
+    walls, got = {}, {}
     for i, case in enumerate(cases):
         res = [r["results"][i] for r in ranks]
-        first = res[0]
+        first = got[case["label"]] = res[0]
         require(all((q["restarts"], q["total_iters"]) == (first["restarts"], first["total_iters"])
                     and np.array_equal(q["x"], first["x"]) for q in res[1:]),
                 f"dist {case['label']}: every rank holds the same result")
-        M = case["A"]
+        M = mesh if case.get("kind") == "sell" else case.get("A", A)
         x = first["x"]
         backward = float(np.linalg.norm(csr_residual(M, x, case["b"]))
                          / (np.linalg.norm(case["b"])
@@ -2239,9 +2480,24 @@ def convdiff_dist_path(torch, record, A, A_dev, x_single, walls_single):
         walls.setdefault(case["label"], []).append(wall)
         log(f"solve dist {case['label']}: converged={first['converged']} "
             f"restarts={first['restarts']} total_iters={first['total_iters']} wall {wall:.4f} s "
-            f"(ranks {[round(q['seconds'], 4) for q in res]}) backward_err={backward:.3e}")
+            f"(ranks {[round(q['seconds'], 4) for q in res]}) backward_err={backward:.3e} "
+            f"setup {max(q['setup_seconds'] for q in res):.3f} s, partition bytes a rank "
+            f"{[q['partition_local_bytes'] for q in res]}")
         require(x.shape == (M.n_rows,) and np.all(np.isfinite(x)),
                 f"dist {case['label']}: x finite, shape ({M.n_rows},)")
+        on, off = dist_case_kernels(case)
+        for r, q in enumerate(res):
+            c = q["launches"]
+            require(all(c[k] > 0 for k in on) and all(c[k] == 0 for k in off),
+                    f"dist {case['label']} rank {r}: launched {sorted(on)}, none of "
+                    f"{sorted(off)} ({ {k: v for k, v in c.items() if v} })")
+        if case.get("warm_up"):
+            require(first["aborted"] and first["restarts"] == 1,
+                    f"dist {case['label']}: cut at 1 restart")
+            continue
+        if case.get("kind"):
+            dist_new_checks(case, first, backward, got, x_single, mesh_x)
+            continue
         if case["label"].startswith("tier "):
             dist_tier_checks(case, first, backward, single)
             continue
@@ -2263,27 +2519,124 @@ def convdiff_dist_path(torch, record, A, A_dev, x_single, walls_single):
             require(diff <= 1e-6, f"dist cgsr {mode}: x within 1e-6 of the single-card x "
                                   f"({diff:.3e})")
     for r, rank in enumerate(ranks):
+        rc, out, seconds, c = rank["cli"]
+        log(f"  cli solve --dist rank {r}: exit code {rc}, {seconds:.1f} s, launches "
+            f"{ {k: v for k, v in c.items() if v} }")
+        require(rc == 0 and (r == 0 or out == "")
+                and all(c[k] > 0 for k in DIST_KERNELS)
+                and all(c[k] == 0 for k in ("dia_spmv", "sell_spmv", "sell_residual",
+                                            *DIST_NEVER)),
+                f"cli solve --dist rank {r}: exit 0, no output but on rank 0, K12 in both modes "
+                f"and no K1, K5, K6, K7 or K8 ({c})")
         c = rank["launches"]
         log(f"  launches convdiff-dist rank {r}: {c}")
         require(all(c[k] > 0 for k in DIST_KERNELS + DF64_KERNELS[1:])
-                and all(c[k] == 0 for k in DIST_IDLE),
-                f"dist rank {r}: K12 both modes and K9-K11 launched; no K1, K5, K6, K7, K8 "
-                f"({c})")
+                and all(c[k] == 0 for k in DIST_NEVER),
+                f"dist rank {r}: K12 both modes and K9-K11 launched; no K1 residual, K6, K7, "
+                f"K8 ({c})")
         forms = rank["forms"]
         log(f"  form launches convdiff-dist rank {r}: {forms}")
-        require(all(forms[k].get(f, 0) > 0 for k, want in DIST_FORMS.items() for f in want),
-                f"dist rank {r}: every tier's dtype forms launched {DIST_FORMS} ({forms})")
+        require(all(forms[k].get(f, 0) > 0 for k, want in DIST_FORMS.items() for f in want)
+                and forms["sell_residual"].get("f64_rank", 0) > 0,
+                f"dist rank {r}: every tier's dtype forms and K5's rank form launched "
+                f"{DIST_FORMS} ({forms})")
     for mode in ("baseline", "mixed"):
         log(f"dist wall {mode} cgsr {walls[f'cgsr {mode}'][0]:.4f} s against the single "
             f"card's {walls_single[mode]:.4f} s (ratio "
             f"{walls[f'cgsr {mode}'][0] / walls_single[mode]:.4f})")
     steps = DIST_MGS_RESTARTS * RLEN
     med = {f: statistics.median(walls[f"mgs {f} mixed cut"]) for f in ("sequential", "icwy")}
-    log(f"dist mgs mixed, {DIST_MGS_REPS} interleaved solves of {steps} steps each (s): "
-        + "; ".join(f"{f} median {med[f]:.4f} {[round(w, 4) for w in walls[f'mgs {f} mixed cut']]}"
+    log(f"dist mgs mixed, {DIST_MGS_REPS} solves of {steps} steps each after a warm-up"
+        f"{', interleaved' if DIST_MGS_REPS > 1 else ''} (s): "
+        + "; ".join(f"{f} {walls_text(walls[f'mgs {f} mixed cut'])}"
                     f" ({1e3 * med[f] / steps:.2f} ms a step)" for f in med)
         + f"; icwy/sequential {med['icwy'] / med['sequential']:.4f}")
-    return {k: sum(rank["launches"][k] for rank in ranks) for k in ranks[0]["launches"]}
+    counts = {k: sum(rank["launches"][k] for rank in ranks) for k in ranks[0]["launches"]}
+    forms = Counter()
+    for rank in ranks:
+        for k, v in rank["forms"].items():
+            forms.update({(k, f): n for f, n in v.items()})
+    return counts, forms, [rank["cli"] for rank in ranks]
+
+
+def dist_new_checks(case, got, backward, results, x_single, mesh_x):
+    """The checks of the distributed cases with a ``kind``: the block-Jacobi
+    ILU at 1M in BILU_RESTARTS and at convdiff(512) held to the JAX
+    package's CPU counts and cycles, each converged; the SELL route's 1/30
+    and x within DIST_SELL_X_DIFF of the single card's; a checkpointed
+    solve's cut and its resume equal, bit for bit, to the uninterrupted
+    solve (26/780 in mixed; df64 the solve cut at DIST_CKPT_DF64[1]);
+    ``multihost=True`` and per-host rows the whole-matrix solve's bits from
+    about a quarter of its partition bytes."""
+    label, kind = case["label"], case["kind"]
+    rel = lambda a, c: float(np.linalg.norm(a - c) / np.linalg.norm(c))
+    if kind in ("bilu", "bilu262"):
+        require(got["converged"] and backward <= 1e-8,
+                f"dist {label}: converged, backward error {backward:.3e} <= 1e-8")
+        mode = label.split()[1]
+        if kind == "bilu":
+            lo, hi = BILU_RESTARTS
+        else:
+            want = BILU_CPU[mode][0]
+            lo, hi = want - BILU_SLACK, want + (BILU_MIXED_SLACK if mode == "mixed"
+                                                else BILU_SLACK)
+            history = [h["rel_initial"] for h in got["history"]]
+            ratios = [c / w for c, w in zip(history[1:BILU_CYCLES + 1], BILU_CPU_CYCLES[mode])]
+            log(f"  {label}: {got['restarts']}/{got['total_iters']}, the JAX package's on the "
+                f"CPU {want}/{BILU_CPU[mode][1]}; backward error per cycle "
+                f"{', '.join(f'{c:.4e}' for c in history)}; cycles "
+                f"1-{BILU_CYCLES} over the JAX package's {min(ratios):.6f}..{max(ratios):.6f}")
+            require(len(ratios) == BILU_CYCLES
+                    and all(abs(q - 1) <= BILU_CYCLE_REL[mode] for q in ratios),
+                    f"dist {label}: cycles 1-{BILU_CYCLES} within {BILU_CYCLE_REL[mode]:g} of "
+                    f"the JAX package's ({min(ratios):.6f}..{max(ratios):.6f})")
+        require(lo <= got["restarts"] <= hi,
+                f"dist {label}: {got['restarts']}/{got['total_iters']} restarts not in {lo}..{hi}")
+    elif kind == "sell":
+        diff = rel(got["x"], mesh_x)
+        log(f"  {label}: x against the single card's mesh3d mixed x: rel diff {diff:.3e}")
+        require(got["converged"] and backward <= 1e-8
+                and (got["restarts"], got["total_iters"]) == MESH_TPU_HISTORY
+                and diff <= DIST_SELL_X_DIFF,
+                f"dist {label}: {got['restarts']}/{got['total_iters']} (the TPU's "
+                f"{MESH_TPU_HISTORY}), backward error {backward:.3e}, x within "
+                f"{DIST_SELL_X_DIFF:g} of the single card's ({diff:.3e})")
+    elif kind == "ckpt-cut":
+        want = case["cfg"].max_restarts
+        require(got["aborted"] and got["restarts"] == want, f"dist {label}: cut at {want}")
+    elif kind == "ckpt-resume":
+        if "df64" in label:  # held at "df64 cut", which runs after it
+            return
+        ref = results["cgsr mixed"]
+        require(got["converged"] and abs(got["restarts"] - 26) <= 1
+                and (got["restarts"], got["total_iters"]) == (ref["restarts"], ref["total_iters"])
+                and np.array_equal(got["x"], ref["x"]),
+                f"dist {label}: {got['restarts']}/{got['total_iters']}, the uninterrupted "
+                f"solve's {ref['restarts']}/{ref['total_iters']} and x bit for bit")
+    elif kind == "df64-cut":
+        res = results["ckpt df64 resume"]
+        require(got["aborted"] and got["restarts"] == DIST_CKPT_DF64[1]
+                and (res["restarts"], res["total_iters"]) == (got["restarts"],
+                                                             got["total_iters"])
+                and np.array_equal(res["x"], got["x"]),
+                f"dist {label}: the resumed df64 solve equals the uninterrupted one, bit for "
+                f"bit ({res['restarts']}/{res['total_iters']} vs "
+                f"{got['restarts']}/{got['total_iters']})")
+    elif kind in ("multihost", "rows"):
+        # against the same solve on the whole matrix without per-host
+        # partitioning (the cut of the checkpointed solve is that solve's
+        # first DIST_CKPT_CUT restarts)
+        ref = results[{"multihost": "ckpt mixed cut"}.get(kind, label[len("rows "):])]
+        whole = results[label[len("rows "):]] if kind == "rows" else results["cgsr mixed"]
+        share = got["partition_local_bytes"] / whole["partition_local_bytes"]
+        log(f"  {label}: partition bytes a rank {got['partition_local_bytes']:,} against the "
+            f"whole matrix's {whole['partition_local_bytes']:,} ({share:.4f}); setup "
+            f"{got['setup_seconds']:.3f} s against {whole['setup_seconds']:.3f} s"
+            + (f"; load_matrix_rows {got['load_seconds']:.3f} s" if kind == "rows" else ""))
+        require((got["restarts"], got["total_iters"]) == (ref["restarts"], ref["total_iters"])
+                and np.array_equal(got["x"], ref["x"]) and share <= 0.3,
+                f"dist {label}: the whole-matrix solve's {ref['restarts']}/{ref['total_iters']} "
+                f"and x bit for bit from about a quarter of its bytes ({share:.4f})")
 
 
 def dist_tier_checks(case, got, backward, single):
@@ -2584,9 +2937,9 @@ def cb_solve_walls(torch, A, A_dev):
             torch.cuda.synchronize()
             walls[k].append(time.perf_counter() - t0)
     med = {k: statistics.median(v) for k, v in walls.items()}
-    log(f"solve walls convdiff-cb (s, {CB_WALL_REPS} interleaved each): "
-        + "; ".join(f"{k} median {med[k]:.4f} walls {[round(t, 4) for t in v]}"
-                    for k, v in walls.items())
+    log(f"solve walls convdiff-cb (s, {CB_WALL_REPS} each after a warm-up"
+        f"{', interleaved' if CB_WALL_REPS > 1 else ''}): "
+        + "; ".join(f"{k} {walls_text(v)}" for k, v in walls.items())
         + f"; mixed-cb/mixed {med['mixed-cb'] / med['mixed']:.4f}, "
         f"baseline-cb/baseline {med['baseline-cb'] / med['baseline']:.4f}")
 
@@ -2766,13 +3119,16 @@ def check_condest_operators(torch, A_csr, label):
     return type(ops[0]).__name__
 
 
-def cli_path(torch, A):
+def cli_path(torch, A, tmp, a_path, write_seconds, dist_clis):
     """The cli phase, after the eight paths: the reference-format entry
     points, each called in-process through its main(argv) or the package's
-    functions, at convdiff@1M (A).  Returns the phase's launch counts: the
-    sum of each entry point's own, read around its main(argv) call alone."""
+    functions, at convdiff@1M (A), whose ``.mtx`` the distributed path wrote
+    to ``a_path`` in ``tmp`` (the phase removes ``tmp``); rank 0's output of
+    that path's ``--dist`` command line (``dist_clis``) is held to the
+    single-device command's block.  Returns the phase's launch counts: the
+    sum of each entry point's own, read around its main(argv) call alone,
+    and its sweep rows."""
     import shutil
-    import tempfile
 
     from gmres_tpu_torch import GmresConfig, load_matrix, load_vector, rand_vect, solve
     from gmres_tpu_torch.cli import condest_cli
@@ -2782,20 +3138,16 @@ def cli_path(torch, A):
     from gmres_tpu_torch.ops.cuda import form_launch_counts, launch_counts, reset_launch_counts
     from gmres_tpu_torch.solver import condest as ce
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
         # 1. I/O: the matrix, x_true and b through MatrixMarket files
         n = A.n_rows
         rp, ci, v = A.numpy_arrays()
-        a_path = os.path.join(tmp, "convdiff_1m.mtx")
-        t0 = time.perf_counter()
-        mmio.write_coordinate(a_path, n, n, A.row_ids.numpy(), ci, v)
         t1 = time.perf_counter()
         B = load_matrix(a_path)
         t2 = time.perf_counter()
         log(f"cli I/O: write_coordinate of convdiff@1M ({A.nnz:,} entries, "
-            f"{os.path.getsize(a_path) / 2 ** 20:.1f} MiB) {t1 - t0:.3f} s; load_matrix "
-            f"{t2 - t1:.3f} s")
+            f"{os.path.getsize(a_path) / 2 ** 20:.1f} MiB; on the distributed path) "
+            f"{write_seconds:.3f} s; load_matrix {t2 - t1:.3f} s")
         require(np.array_equal(B.row_ptr.numpy(), rp) and np.array_equal(B.col_idx.numpy(), ci)
                 and B.vals.numpy().tobytes() == v.tobytes(),
                 "load_matrix gives back the written CSR arrays")
@@ -2830,12 +3182,12 @@ def cli_path(torch, A):
             dtypes.update(k15)
             return out, c, forms
 
-        runs = {}
+        runs, outs = {}, {}
         for label, extra, kernels, k1_form in CLI_SOLVES:
             extra = [b_path if f is None else f for f in extra]
-            out, c, forms = counted(f"cli solve {label}", cli.main,
-                                    ["--Apath", a_path, "--rlen", "30", "--tol", "1e-8",
-                                     "--json", *extra])
+            argv = ["--Apath", a_path, "--rlen", "30", "--tol", "1e-8", "--json", *extra]
+            out, c, forms = counted(f"cli solve {label}", cli.main, argv)
+            outs[label] = (argv, out)
             m = re.search(SUMMARY_REGEX, out)
             require(m is not None, f"cli solve {label}: the summary block parses")
             res = json.loads(out.splitlines()[-1])
@@ -2859,6 +3211,21 @@ def cli_path(torch, A):
         require((r["i"], r["total_iters"]) == (direct.restarts, direct.total_iters),
                 "cli solve defaults: the counts of the same solve called directly")
         del direct
+
+        # 2b. the --dist command line on the distributed path's ranks
+        rc, out, seconds, _ = dist_clis[0]
+        single = outs["mixed cgsr"][1]
+        log(f"cli solve --dist on {DIST_RANKS} ranks ({seconds:.1f} s on rank 0, on the "
+            f"distributed path): {' '.join(['--dist', *CLI_DIST_ARGV])}")
+        for line in out.splitlines():
+            log(f"  | {line}")
+        m, ms = re.search(SUMMARY_REGEX, out), re.search(SUMMARY_REGEX, single)
+        require(rc == 0 and m is not None and out.splitlines()[:4] == single.splitlines()[:4]
+                and m.group(2) == ms.group(2) and abs(int(m.group(3)) - CLI_HISTORY[0]) <= 1,
+                f"cli solve --dist: rank 0 prints the single-device block with "
+                f"{CLI_HISTORY[0]}/{CLI_HISTORY[1]} within one restart")
+        log(f"  the single-device command's counts: {ms.group(3)}/{ms.group(4)}; --dist: "
+            f"{m.group(3)}/{m.group(4)}")
 
         # 3. condest through its command line, each operator checked first
         stats = {}
@@ -2911,7 +3278,7 @@ def cli_path(torch, A):
         try:
             _, c, forms = counted("sweep", sweep.main,
                                   ["--device", "cuda", "--prec", "identity", "--orth", "cgsr",
-                                   "--no-singleprec", "--no-single", "--warmup", "1",
+                                   "--no-singleprec", "--no-single", "--warmup", "0",
                                    "--out-dir", tmp, "convdiff_1m", "30", "0", "1e-8", "42"])
         finally:
             del os.environ["MTXDIR"]
@@ -3126,8 +3493,8 @@ def batched_path(torch, record, A, A_dev, sweep_rows):
     BATCHED_SOLVES, each lane converged within one restart of
     BATCHED_HISTORY, with the counts of the port's solve of its b in the same
     run, at a backward error <= 1e-8 recomputed here in fp64; the batched
-    wall beside the s sequential solves' (medians of BATCHED_WALL_REPS,
-    interleaved, after a batched warm-up); where a batched step's time goes
+    wall beside the s sequential solves' (BATCHED_WALL_REPS each, after a
+    batched warm-up); where a batched step's time goes
     (batched_trace, a fresh process); bench_kernels in-process, its K1, K2
     and K3 times beside its own timer's on this script's operands; the
     analysis tables on the cli phase's sweep rows.  The launches are read
@@ -3218,9 +3585,9 @@ def batched_path(torch, record, A, A_dev, sweep_rows):
             swalls.append(wall)
         lanes_checked(label, res, seq)
         bw, sw = statistics.median(bwalls), statistics.median(swalls)
-        log(f"{label}: wall median {bw:.4f} s (walls {[round(w, 4) for w in bwalls]}) "
-            f"against {s} sequential solves' {sw:.4f} s (walls "
-            f"{[round(w, 4) for w in swalls]}): batched/sequential {bw / sw:.4f}")
+        log(f"{label}: wall {walls_text(bwalls)} s against {s} sequential solves' "
+            f"{walls_text(swalls)} s, after a batched warm-up: batched/sequential "
+            f"{bw / sw:.4f}")
         del res, seq
         part_seconds(label)
 
@@ -3316,7 +3683,7 @@ def main() -> int:
     t0 = time.perf_counter()
     convdiff_counts, x_single, walls_single, A_dev = convdiff_path(torch, record, A)
     t1 = time.perf_counter()
-    mesh3d_counts, mesh, mesh_dev = mesh3d_path(torch, record)
+    mesh3d_counts, mesh, mesh_dev, mesh_x = mesh3d_path(torch, record)
     t2 = time.perf_counter()
     ilu_counts = convdiff_ilu_path(torch, record, A, A_dev)
     t2b = time.perf_counter()
@@ -3326,12 +3693,13 @@ def main() -> int:
     t4 = time.perf_counter()
     df64_counts = convdiff_df64_path(torch, record, A, A_dev)
     t5 = time.perf_counter()
-    dist_counts = convdiff_dist_path(torch, record, A, A_dev, x_single, walls_single)
+    dist_counts, dist_forms, dist_clis, cli_tmp, a_path, write_seconds = convdiff_dist_path(
+        torch, record, A, A_dev, x_single, walls_single, mesh, mesh_x)
     t6 = time.perf_counter()
     cb_counts, form_counts = convdiff_cb_path(torch, record, A, A_dev, mesh, mesh_dev)
     del mesh, mesh_dev
     t7 = time.perf_counter()
-    cli_counts, sweep_rows = cli_path(torch, A)
+    cli_counts, sweep_rows = cli_path(torch, A, cli_tmp, a_path, write_seconds, dist_clis)
     t8 = time.perf_counter()
     batched_counts, lane_launches = batched_path(torch, record, A, A_dev, sweep_rows)
     del A_dev
@@ -3354,6 +3722,8 @@ def main() -> int:
     require(all(v > 0 for v in counts.values()), f"every kernel launched on some path ({counts})")
     records = record.records
     path_forms = cb_forms()[2]
+    # K5's rank form: its launches on the ranks of both distributed parts
+    rank_launches = dist_forms[("sell_residual", "f64_rank")]
 
     # kernel -> (source, the TPU kernels' pallas_calls it replaces); the
     # JSON numbers are the fp32 variant (the mixed inner loop; for the
@@ -3421,7 +3791,8 @@ def main() -> int:
             "gb_per_s": main_rec["gb_per_s"], "copy_gb_per_s": copy_gbs,
             "variants": {k: (dict(v, launches=form_counts[name].get(k, 0))
                              if k in path_forms.get(name, ()) else
-                             dict(v, launches=lane_launches[(name, k)]) if "_lanes" in k else v)
+                             dict(v, launches=lane_launches[(name, k)]) if "_lanes" in k else
+                             dict(v, launches=rank_launches) if " rank" in k else v)
                          for k, v in rec.items() if k != main},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,9 +11,13 @@ adds a line with the structured result.
 
 ``--device`` is ``cuda`` (the default; ``--gpu`` is the reference's
 spelling of it) or ``cpu``; without a CUDA device the default raises, as
-``solve`` does.  ``--dist`` raises ``NotImplementedError``: the port's
-distributed solve runs one process per rank, started by
-``parallel/launch.py``, not from inside this process.
+``solve`` does.  ``--dist`` solves row-partitioned (``solve_distributed``)
+over the default process group when a launcher or ``parallel/launch.py:
+spawn`` has initialized one, every rank running this command with the same
+flags; otherwise over a one-rank gloo group of its own
+(``launch.command_group``), as the JAX package's ``--dist`` runs over all
+the devices of one chip.  Rank 0 alone prints, the same block as the
+single-device command.
 
 Without ``--bpath``, b = A x_true for x_true = ``rand_vect(n, --rand)``,
 with the product summed row by row in the order of the stored entries, as
@@ -25,8 +29,10 @@ code.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import sys
 
 import numpy as np
@@ -59,7 +65,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="the reference's flag for the GPU: --device cuda")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--dist", action="store_true",
-                   help="row-partitioned solve (not in this command; see parallel/launch.py)")
+                   help="row-partition over the ranks of the process group")
     p.add_argument("--inner-dtype", choices=["float32", "bfloat16"], default=None,
                    help="override the mode's inner dtype")
     p.add_argument("--basis-dtype", choices=["float32", "bfloat16"], default=None,
@@ -89,10 +95,23 @@ def make_synth(spec: str):
     raise SystemExit(f"unknown synthetic matrix {spec!r}")
 
 
-def refuse_dist(command: str) -> None:
-    raise NotImplementedError(
-        f"{command} --dist: the port's distributed solve runs one process per rank "
-        "(gmres_tpu_torch.parallel.launch), and a distributed command line is slice 7b")
+@contextlib.contextmanager
+def dist_output(dist_run: bool):
+    """The body's context for ``--dist``: the process group
+    (``launch.command_group``), and standard output kept only on rank 0."""
+    if not dist_run:
+        yield
+        return
+    import torch.distributed as dist
+
+    from gmres_tpu_torch.parallel import launch
+
+    with launch.command_group():
+        if dist.get_rank() == 0:
+            yield
+        else:
+            with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+                yield
 
 
 def host_spmv(A, x: np.ndarray) -> np.ndarray:
@@ -110,12 +129,7 @@ def host_spmv(A, x: np.ndarray) -> np.ndarray:
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
 
-    import torch
-
-    from gmres_tpu_torch.config import GmresConfig, PrecisionSpec
-    from gmres_tpu_torch.io.loader import load_matrix, load_vector
-    from gmres_tpu_torch.io.rng import rand_vect
-    from gmres_tpu_torch.solver.gmres import resolve_device, solve
+    from gmres_tpu_torch.solver.gmres import resolve_device
 
     if args.repeat_iter and args.orthloss:
         print("Repeated Iteration Restart cannot be used with OrthLoss restart")
@@ -124,9 +138,19 @@ def main(argv=None) -> int:
         # the reference's message, word for word (gmres_perf_test.cpp:402)
         print("No value suplied for A")
         return 1
-    if args.dist:
-        refuse_dist("gmres_tpu_torch.cli.solve")
     dev = resolve_device("cuda" if args.gpu else args.device)
+    with dist_output(args.dist):
+        return _run(args, dev)
+
+
+def _run(args, dev) -> int:
+    import torch
+
+    from gmres_tpu_torch.config import GmresConfig, PrecisionSpec
+    from gmres_tpu_torch.io.loader import load_matrix, load_vector
+    from gmres_tpu_torch.io.rng import rand_vect
+    from gmres_tpu_torch.parallel.dist_gmres import solve_distributed
+    from gmres_tpu_torch.solver.gmres import solve
 
     A = make_synth(args.synth) if args.synth else load_matrix(args.Apath)
     n = A.n_rows
@@ -155,7 +179,7 @@ def main(argv=None) -> int:
     print(f"||A|| = {fmt(np.linalg.norm(A.vals.numpy()))}")
     print("Doing Mixed Precision test" if args.mode == "mixed" else "Doing Baseline test")
 
-    res = solve(A, b_host, cfg, device=dev)
+    res = (solve_distributed if args.dist else solve)(A, b_host, cfg, device=dev)
     if res.aborted:
         print(f"Aborting after {res.total_iters} iterations")
     else:

@@ -28,10 +28,15 @@
 // read-only path.  Padding slots carry value 0 and a valid column, so the
 // loop has no per-slot test.  Slot addresses are 64-bit.
 //
-// Residual mode (n_rows == n_cols == n) writes r = b - A x and per-block
-// partial sums of ||r'||^2 (r' = r rounded to fp32 when `demote` is set)
-// and ||x||^2 in fp64, finished by torch.sum: no atomics, so a run repeats
-// bit for bit.
+// Residual mode writes r = b - A x and per-block partial sums of ||r'||^2
+// (r' = r rounded to fp32 when `demote` is set) and ||x||^2 in fp64,
+// finished by torch.sum: no atomics, so a run repeats bit for bit.  Its
+// rank form serves a rank's row block of a distributed solve (the per-rank
+// SELL route, gmres_tpu_torch/parallel/dist_gmres.py): b and r hold the
+// rank's n_rows rows, x is the gathered global vector, and ||x||^2 is
+// taken over the rank's own rows x[x_off, x_off + n_rows), so that each
+// row counts once in the sum over the ranks.  On one card x_off = 0 and
+// x has the n rows of b.
 #include "common.cuh"
 
 using namespace gmres;
@@ -45,7 +50,8 @@ __global__ void __launch_bounds__(kThreads)
 sell_spmv_kernel(const T* __restrict__ vals, const int* __restrict__ cols,
                  const long long* __restrict__ slice_ptr, const T* __restrict__ x,
                  const T* __restrict__ b, T* __restrict__ y,
-                 double* __restrict__ partials, int n_rows, int demote) {
+                 double* __restrict__ partials, int n_rows, int demote,
+                 long long x_off) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   T acc = T(0);
   if (i < n_rows) {
@@ -69,7 +75,8 @@ sell_spmv_kernel(const T* __restrict__ vals, const int* __restrict__ cols,
       y[i] = r;
       const double rq = demote ? (double)(float)r : (double)r;
       r_sq = rq * rq;
-      x_sq = (double)x[i] * (double)x[i];
+      const double xi = (double)x[x_off + i];
+      x_sq = xi * xi;
     }
     r_sq = block_sum(r_sq, scratch[0]);
     x_sq = block_sum(x_sq, scratch[1]);
@@ -83,11 +90,11 @@ sell_spmv_kernel(const T* __restrict__ vals, const int* __restrict__ cols,
 template <typename T, bool RESIDUAL>
 int launch_sell(const T* vals, const int* cols, const long long* slice_ptr,
                 const T* x, const T* b, T* y, double* partials, int n_rows,
-                int demote, void* stream) {
-  if (n_rows <= 0) return (int)cudaErrorInvalidValue;
+                int demote, long long x_off, void* stream) {
+  if (n_rows <= 0 || x_off < 0) return (int)cudaErrorInvalidValue;
   sell_spmv_kernel<T, RESIDUAL><<<blocks_for(n_rows, kThreads), kThreads, 0,
                                   (cudaStream_t)stream>>>(
-      vals, cols, slice_ptr, x, b, y, partials, n_rows, demote);
+      vals, cols, slice_ptr, x, b, y, partials, n_rows, demote, x_off);
   return (int)cudaGetLastError();
 }
 
@@ -98,29 +105,29 @@ extern "C" {
 int gmres_sell_spmv_f32(const float* vals, const int* cols, const long long* slice_ptr,
                         const float* x, float* y, int n_rows, void* stream) {
   return launch_sell<float, false>(vals, cols, slice_ptr, x, nullptr, y, nullptr,
-                                   n_rows, 0, stream);
+                                   n_rows, 0, 0, stream);
 }
 
 int gmres_sell_spmv_f64(const double* vals, const int* cols, const long long* slice_ptr,
                         const double* x, double* y, int n_rows, void* stream) {
   return launch_sell<double, false>(vals, cols, slice_ptr, x, nullptr, y, nullptr,
-                                    n_rows, 0, stream);
+                                    n_rows, 0, 0, stream);
 }
 
 int gmres_sell_residual_f32(const float* vals, const int* cols,
                             const long long* slice_ptr, const float* x,
                             const float* b, float* r, double* partials, int n,
-                            int demote, void* stream) {
+                            int demote, long long x_off, void* stream) {
   return launch_sell<float, true>(vals, cols, slice_ptr, x, b, r, partials, n,
-                                  demote, stream);
+                                  demote, x_off, stream);
 }
 
 int gmres_sell_residual_f64(const double* vals, const int* cols,
                             const long long* slice_ptr, const double* x,
                             const double* b, double* r, double* partials, int n,
-                            int demote, void* stream) {
+                            int demote, long long x_off, void* stream) {
   return launch_sell<double, true>(vals, cols, slice_ptr, x, b, r, partials, n,
-                                   demote, stream);
+                                  demote, x_off, stream);
 }
 
 }  // extern "C"

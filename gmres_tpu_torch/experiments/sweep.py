@@ -13,8 +13,10 @@ rows' device column.  The operator is staged once for the whole sweep
 (``gmres_tpu_torch.stage``) and each solve gets a preconditioner built from
 the CSR matrix.  ``--warmup`` untimed solves run before the first recorded
 row of each configuration (seed excluded), so every recorded row is warm,
-as the reference's precompiled binaries are.  ``--dist`` raises
-``NotImplementedError`` (see ``cli/solve.py``).
+as the reference's precompiled binaries are.  ``--dist`` solves each
+configuration with ``solve_distributed`` over the process group of
+``cli/solve.py``'s ``--dist`` (the CSR matrix on every rank, partitioned by
+the solve; no staging); rank 0 alone prints and writes the rows.
 """
 
 from __future__ import annotations
@@ -28,10 +30,11 @@ import numpy as np
 
 
 def run_one(A, mat, mode, orth, prec, rlen, rtol, rorth, tol, max_restarts,
-            repeated_iter, seed, device, b_path=None, A_staged=None, warmup=0):
+            repeated_iter, seed, device, b_path=None, A_staged=None, warmup=0, dist=False):
     """One configuration, as a row of the history.  ``A`` is the CSR
     matrix; ``A_staged`` (optional) the operator staged once by the caller,
-    which the solves use while ``A`` builds the preconditioner.  ``warmup``
+    which the solves use while ``A`` builds the preconditioner; ``dist``
+    solves with ``solve_distributed`` (every rank calls this alike).  ``warmup``
     untimed solves are discarded first.  A run the solver reports as
     diverged (aborted, not converged) is recorded as a row of ``-`` fields,
     as the reference records it; an exception (a failed kernel build or
@@ -44,6 +47,7 @@ def run_one(A, mat, mode, orth, prec, rlen, rtol, rorth, tol, max_restarts,
     from gmres_tpu_torch.experiments.history import MODE_CODES
     from gmres_tpu_torch.io.loader import load_vector
     from gmres_tpu_torch.io.rng import rand_vect
+    from gmres_tpu_torch.parallel.dist_gmres import solve_distributed
     from gmres_tpu_torch.precond.build import build_preconditioner
     from gmres_tpu_torch.solver.gmres import solve
 
@@ -65,14 +69,16 @@ def run_one(A, mat, mode, orth, prec, rlen, rtol, rorth, tol, max_restarts,
         rtol=(rtol if rorth == 0 else rorth), tol=tol, max_restarts=max_restarts,
         repeat_iter=repeated_iter, orthloss=rorth != 0, jacobi_steps=jacobi_steps)
 
-    if A_staged is not None:
+    if dist:
+        op, kw, run = A, {}, solve_distributed
+    elif A_staged is not None:
         M = build_preconditioner(A, cfg)  # from CSR (ILU needs it)
-        op, kw = A_staged, dict(M=M)
+        op, kw, run = A_staged, dict(M=M), solve
     else:
-        op, kw = A, {}
+        op, kw, run = A, {}, solve
     for _ in range(warmup):
-        solve(op, b_host, cfg, device=device, **kw)
-    res = solve(op, b_host, cfg, device=device, **kw)
+        run(op, b_host, cfg, device=device, **kw)
+    res = run(op, b_host, cfg, device=device, **kw)
 
     row = {
         "mat": mat,
@@ -128,14 +134,22 @@ def main(argv=None) -> int:
     p.add_argument("seeds", nargs="?", default="42")
     args = p.parse_args(argv)
 
-    from gmres_tpu_torch.cli.solve import make_synth, refuse_dist
+    from gmres_tpu_torch.cli.solve import dist_output
+    from gmres_tpu_torch.solver.gmres import resolve_device
+
+    resolve_device(args.device)
+    with dist_output(args.dist):
+        return _sweep(args)
+
+
+def _sweep(args) -> int:
+    import torch.distributed as dist
+
+    from gmres_tpu_torch.cli.solve import make_synth
     from gmres_tpu_torch.experiments.history import append_rows
     from gmres_tpu_torch.io.loader import load_matrix
-    from gmres_tpu_torch.solver.gmres import resolve_device, stage
+    from gmres_tpu_torch.solver.gmres import stage
 
-    if args.dist:
-        refuse_dist("gmres_tpu_torch.experiments.sweep")
-    resolve_device(args.device)
     mat = args.mat
     if mat.startswith(("poisson2d:", "poisson3d:", "convdiff:", "mesh:", "mesh3d:")):
         A = make_synth(mat)
@@ -162,7 +176,8 @@ def main(argv=None) -> int:
              + ([] if args.skip_singlePrec else ["single-prec"])
              + ([] if args.skip_single else ["single"]))
 
-    A_staged = stage(A, device=args.device)  # the repack and upload, once
+    # the repack and upload, once (a distributed solve partitions the CSR)
+    A_staged = None if args.dist else stage(A, device=args.device)
     rows = []
     warmed = set()  # configurations (seed excluded) already warm
     try:
@@ -175,12 +190,13 @@ def main(argv=None) -> int:
             warmed.add(cfg_key)
             row = run_one(A, mat_name, mode, args.orth.lower(), prec, rl, rt, ro, t,
                           int(args.max_restarts), args.repeated_iter, seed, args.device,
-                          b_path, A_staged=A_staged, warmup=warmup)
+                          b_path, A_staged=A_staged, warmup=warmup, dist=args.dist)
             print(f"  -> i={row['i']} iters={row['total_iters']} res={row['res']} "
                   f"err={row['err']} ilu={row['ilu']}s gmres={row['gmres']}s", flush=True)
             rows.append(row)
     finally:  # the rows run so far are kept when a run raises
-        append_rows(mat_name, rows, args.out_dir)
+        if not args.dist or dist.get_rank() == 0:
+            append_rows(mat_name, rows, args.out_dir)
     return 0
 
 

@@ -5,8 +5,10 @@ The reference bundles NIST's ``mmio.c``; this reader is built on
 (coordinate|array) (real|integer|pattern|complex)
 (general|symmetric|skew-symmetric|hermitian)``.  The JAX package's native
 strtol/strtod parser (``gmres_tpu/native.py``) is not carried: it parses the
-same digits to the same doubles, so the arrays are the same.  Its row-block
-reader (``read_coordinate_rows``) belongs to the distributed per-host input.
+same digits to the same doubles, so the arrays are the same.
+``read_coordinate_rows`` streams a file for the distributed per-host input
+(``io/loader.py:load_matrix_rows``), keeping only the entries of a row
+block.
 """
 
 from __future__ import annotations
@@ -141,6 +143,87 @@ def read(path: str | os.PathLike):
                     idx += cnt
                 dense = dense + np.tril(dense, -1).T
             return header, dense
+
+
+def _parse_entries(buf: bytes, pattern: bool):
+    """0-based (rows, cols, vals) of the coordinate lines in ``buf``."""
+    import io
+
+    raw = np.loadtxt(io.StringIO(buf.decode()), dtype=np.float64, comments="%", ndmin=2)
+    if raw.size == 0:
+        return np.empty(0, np.int64), np.empty(0, np.int64), np.empty(0, np.float64)
+    r = raw[:, 0].astype(np.int64) - 1
+    c = raw[:, 1].astype(np.int64) - 1
+    v = np.ones(r.shape[0]) if pattern else raw[:, 2]
+    return r, c, v
+
+
+def read_coordinate_rows(path: str | os.PathLike, row_lo: int, row_hi: int,
+                         chunk_bytes: int = 64 << 20):
+    """Stream a coordinate .mtx keeping only the entries that assembled
+    rows ``[row_lo, row_hi)`` need (``gmres_tpu/io/mmio.py:
+    read_coordinate_rows``): an entry (r, c, v) when r is in range or, in a
+    symmetric file, when c is (its mirror lands in the block).  The file is
+    parsed ``chunk_bytes`` at a time, so the memory held is that of the
+    kept entries, a chunk and n counts.
+
+    Returns ``(header, rows, cols, vals, counts)``: the kept entries,
+    0-based, in file order, and ``counts[r]``, the assembled entry count of
+    every global row (the forced diagonal, the off-diagonals and their
+    mirrors), whose cumulative sum is the assembled global row pointer."""
+    header = read_header(path)
+    if not header.is_coordinate or header.field not in ("real", "integer", "pattern"):
+        raise MMIOError("row-block reading supports coordinate real/integer/pattern files")
+    symmetric = header.symmetry in ("symmetric", "skew-symmetric")
+    pattern = header.field == "pattern"
+    counts = np.ones(header.n_rows, dtype=np.int64)  # the forced diagonal of each row
+    kept = []
+    remaining = header.nnz
+
+    def take(buf: bytes) -> None:
+        nonlocal remaining
+        r, c, v = _parse_entries(buf, pattern)
+        if r.shape[0] == 0:
+            return
+        remaining -= r.shape[0]
+        off = r != c
+        np.add.at(counts, r[off], 1)
+        keep = (r >= row_lo) & (r < row_hi)
+        if symmetric:
+            np.add.at(counts, c[off], 1)
+            keep |= (c >= row_lo) & (c < row_hi)
+        if keep.any():
+            kept.append((r[keep], c[keep], v[keep]))
+
+    with open(path, "rb") as f:
+        f.readline()  # the banner
+        while True:  # comments, then the size line; the entries follow it
+            line = f.readline()
+            if not line:
+                raise MMIOError("Malformed matrix size information")
+            line = line.strip()
+            if line and not line.startswith(b"%"):
+                break
+        tail = b""
+        while remaining > 0:
+            buf = f.read(chunk_bytes)
+            if not buf:
+                break
+            buf = tail + buf
+            cut = buf.rfind(b"\n")
+            if cut < 0:
+                tail = buf
+                continue
+            tail = buf[cut + 1:]
+            take(buf[:cut + 1])
+        if remaining > 0 and tail.strip():
+            take(tail + b"\n")
+    if remaining != 0:
+        raise MMIOError(f"Malformed matrix data ({remaining} entries missing)")
+    parts = list(zip(*kept)) if kept else ([], [], [])
+    cat = lambda ps, dt: np.concatenate(ps) if ps else np.empty(0, dt)
+    return (header, cat(parts[0], np.int64), cat(parts[1], np.int64),
+            cat(parts[2], np.float64), counts)
 
 
 def write_coordinate(

@@ -61,8 +61,8 @@ _SIGNATURES = {
                                     _I, _I, _P),
     "gmres_sell_spmv_f32": (_P, _P, _P, _P, _P, _I, _P),
     "gmres_sell_spmv_f64": (_P, _P, _P, _P, _P, _I, _P),
-    "gmres_sell_residual_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-    "gmres_sell_residual_f64": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "gmres_sell_residual_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
+    "gmres_sell_residual_f64": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
     "gmres_basis_axpy_pair": (_P, _P, _P, _P, _I, _I, _P),
     "gmres_dia_spmv_df64": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "gmres_df_gram": (_P, _P, _P, _P, _P, _I, _I, _I, _P),

@@ -41,7 +41,9 @@ def outer_residual(A, b: torch.Tensor, x: torch.Tensor, inner_dtype: torch.dtype
     DIA operator takes K1's residual mode, a SELL operator K5's and a
     rank's block of a halo DIA operator K12's; a CPU operator, or a CSR
     one, the plain version.  With ``comm`` the rows are the rank's and the
-    two sums are summed over the ranks in one collective.  The residual
+    two sums are summed over the ranks in one collective; a rank's SELL
+    block (global columns) takes the gathered x and K5's rank form, whose
+    ||x||^2 covers the rank's own rows.  The residual
     modes round r' to fp32 or fp64; under a bf16 inner dtype ||r'||^2 is
     taken from r rounded to bf16 by torch ops (``gmres_tpu/solver/gmres.py:
     498-500``: the norm of the bf16 start vector, taken in bf16)."""
@@ -55,8 +57,11 @@ def outer_residual(A, b: torch.Tensor, x: torch.Tensor, inner_dtype: torch.dtype
         return fn(A.data, A.offsets, b, x, inner_dtype)
     if isinstance(A, SELLMatrix):
         fn = sell_residual_cuda if A.vals.is_cuda else sell_residual_plain
-        return fn(A.vals, A.cols, A.slice_ptr, b, x, inner_dtype)
-    if isinstance(A, LocalHaloDIA):
+        if comm is None:
+            return fn(A.vals, A.cols, A.slice_ptr, b, x, inner_dtype)
+        r, r_ss, x_ss = fn(A.vals, A.cols, A.slice_ptr, b, comm.all_gather(x), inner_dtype,
+                           x_off=comm.rank * b.shape[0])
+    elif isinstance(A, LocalHaloDIA):
         r, r_ss, x_ss = halo_residual(A, b, x, inner_dtype, comm)
     else:
         r = b - spmv(A, x, comm)

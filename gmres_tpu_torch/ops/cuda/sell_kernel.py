@@ -12,6 +12,11 @@ slice_ptr[s]) / 32; padding slots hold value 0 and a valid column.
     y[i] = sum_k vals[slot(i, k)] * x[cols[slot(i, k)]]
     r = b - A x,  ||r'||^2,  ||x||^2               (residual mode)
 
+Residual mode's rank form (``x_off``) serves a rank's row block of a
+distributed solve: b and r hold the block's rows, x is the gathered global
+vector, and ||x||^2 is taken over x[x_off : x_off + rows], the rank's own
+rows, so that each row counts once in the sum over the ranks.
+
 The ``*_cuda`` wrappers take CUDA tensors only and raise on anything the
 kernel does not take; the ``*_plain`` versions run on any device and are
 what the CPU path and the on-card comparisons use.
@@ -76,21 +81,35 @@ sell_spmv_cuda.launches = 0
 sell_spmv_cuda.forms = Counter()
 
 
-def sell_residual_plain(vals, cols, slice_ptr, b, x, inner_dtype: torch.dtype):
-    """(r, ||r'||^2, ||x||^2) for r = b - A x in A's dtype, where r' is r
-    rounded to ``inner_dtype`` and its norm is taken in that dtype."""
-    r = b - sell_spmv_plain(vals, cols, slice_ptr, x, b.shape[0])
+def sell_residual_plain(vals, cols, slice_ptr, b, x, inner_dtype: torch.dtype,
+                        x_off: int | None = None):
+    """(r, ||r'||^2, ||x_own||^2) for r = b - A x in A's dtype, where r' is
+    r rounded to ``inner_dtype`` and its norm is taken in that dtype, and
+    x_own is x, or with ``x_off`` the rows x[x_off : x_off + len(b)]."""
+    n = b.shape[0]
+    r = b - sell_spmv_plain(vals, cols, slice_ptr, x, n)
     ri = r.to(inner_dtype)
-    return r, torch.dot(ri, ri).to(torch.float64), torch.dot(x, x).to(torch.float64)
+    xo = x if x_off is None else x[x_off:x_off + n]
+    return r, torch.dot(ri, ri).to(torch.float64), torch.dot(xo, xo).to(torch.float64)
 
 
-def sell_residual_cuda(vals, cols, slice_ptr, b, x, inner_dtype: torch.dtype):
+def sell_residual_cuda(vals, cols, slice_ptr, b, x, inner_dtype: torch.dtype,
+                       x_off: int | None = None):
     """K5, residual mode: r in A's dtype and the two sums of squares, taken
-    in fp64 over per-block partials that torch.sum finishes."""
+    in fp64 over per-block partials that torch.sum finishes.  With
+    ``x_off`` the rank form: x is the gathered vector (at least x_off +
+    len(b) long) and its sum of squares is over the rank's rows.  Counts
+    each launch in ``forms`` as "f32"/"f64" or "f32_rank"/"f64_rank"."""
     n = b.shape[0]
     sfx = _sell_args("sell_residual", vals, cols, slice_ptr, n)
     check("b", b, vals.dtype, (n,), vals.device)
-    check("x", x, vals.dtype, (n,), vals.device)
+    if x_off is None:
+        check("x", x, vals.dtype, (n,), vals.device)
+    else:
+        if x_off < 0 or x.dim() != 1 or x.shape[0] < x_off + n:
+            raise ValueError(f"sell_residual: x of shape {tuple(x.shape)} lacks the rows "
+                             f"[{x_off}, {x_off + n})")
+        check("x", x, vals.dtype, (x.shape[0],), vals.device)
     if inner_dtype not in (torch.float32, torch.float64):
         raise TypeError(f"sell_residual: inner dtype {inner_dtype} is not float32/float64")
     lib = library()
@@ -100,10 +119,12 @@ def sell_residual_cuda(vals, cols, slice_ptr, b, x, inner_dtype: torch.dtype):
     demote = int(inner_dtype == torch.float32 and vals.dtype == torch.float64)
     lib.call(f"gmres_sell_residual_{sfx}", vals.data_ptr(), cols.data_ptr(),
              slice_ptr.data_ptr(), x.data_ptr(), b.data_ptr(), r.data_ptr(),
-             partials.data_ptr(), n, demote)
+             partials.data_ptr(), n, demote, 0 if x_off is None else x_off)
     sell_residual_cuda.launches += 1
+    sell_residual_cuda.forms[sfx if x_off is None else f"{sfx}_rank"] += 1
     sums = partials.sum(dim=0)
     return r, sums[0], sums[1]
 
 
 sell_residual_cuda.launches = 0
+sell_residual_cuda.forms = Counter()

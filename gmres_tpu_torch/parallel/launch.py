@@ -15,10 +15,16 @@ rendezvous under a new temporary directory, so concurrent spawns never
 collide on a port.  One rank per card needs NCCL and as many cards; on one
 card, or on the CPU, the ranks use gloo (NCCL refuses two ranks on one
 device).
+
+``command_group`` gives a command line's ``--dist`` its group: the default
+group when a launcher or ``spawn`` has initialized one, else one made for
+the command (from a launcher's environment, or a one-rank gloo group in
+this process).
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import pickle
@@ -42,6 +48,34 @@ def init(backend: str = "gloo", rank: int | None = None, world_size: int | None 
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size,
                             timeout=datetime.timedelta(seconds=timeout))
+
+
+@contextlib.contextmanager
+def command_group(timeout: float = 300.0):
+    """The default process group for the body of a ``with``: the one
+    already initialized (by a launcher or ``spawn``), else one initialized
+    here and destroyed at the end: from a launcher's environment
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``; gloo, the
+    card of ``LOCAL_RANK``) or, without one, a gloo group of one rank in
+    this process (on the H100 machine's one card, or the CPU)."""
+    if dist.is_initialized():
+        yield
+        return
+    tmp = None
+    if "WORLD_SIZE" in os.environ and "MASTER_ADDR" in os.environ:
+        if torch.cuda.is_available():
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("gloo", init_method="env://",
+                                timeout=datetime.timedelta(seconds=timeout))
+    else:
+        tmp = tempfile.mkdtemp(prefix="gmres_tpu_torch_rdzv_")
+        init("gloo", 0, 1, "file://" + os.path.join(tmp, "rendezvous"), timeout)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _rank_main(rank, world_size, init_method, timeout, threads, fn, args, results):

@@ -14,8 +14,14 @@ bit for bit):
 Column indices stay global: the allgather route gathers the whole operand
 and multiplies locally (``ops/spmv.py``).  The halo route is
 ``parallel/halo.py``.  Everything here is host numpy; ``local_block`` hands
-one rank its block as a ``CSRMatrix``.  The JAX package's per-host mode
-(``owned=``, ``ShardStack``) is not carried.
+one rank its block as a ``CSRMatrix``.
+
+Per-host mode (``owned=``): only the owned blocks' arrays are built, held
+in a ``ShardStack`` (the global stacked shape and the owned pieces), so a
+rank materializes ~1/P of the partition; the metadata comes from the global
+``row_ptr``, which every rank has.  A rank of the port owns the block of
+its own rank.  ``A`` may then be a per-host ``RowBlockCSR`` whose loaded
+rows cover the owned blocks.
 """
 
 from __future__ import annotations
@@ -25,7 +31,65 @@ import dataclasses
 import numpy as np
 import torch
 
-from gmres_tpu_torch.sparse import CSRMatrix
+from gmres_tpu_torch.sparse import CSRMatrix, RowBlockCSR
+
+
+@dataclasses.dataclass
+class ShardStack:
+    """A ``(P, ...)``-stacked host array of which only the owned shards
+    exist: ``pieces[s]`` is shard s without the leading axis; ``shape`` is
+    the global stacked shape."""
+
+    shape: tuple
+    dtype: np.dtype
+    pieces: dict
+
+    def astype(self, dtype) -> "ShardStack":
+        dt = np.dtype(dtype)
+        if dt == self.dtype:
+            return self
+        return ShardStack(self.shape, dt, {s: p.astype(dt) for s, p in self.pieces.items()})
+
+    def __getitem__(self, s: int) -> np.ndarray:
+        if isinstance(s, tuple):
+            return self.pieces[s[0]][s[1:]]
+        return self.pieces[s]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(p.nbytes for p in self.pieces.values())
+
+
+def stack_pieces(pieces: dict, shape: tuple, dtype, owned) -> np.ndarray | ShardStack:
+    """The shards' pieces as a stacked array, or a ``ShardStack`` of the
+    owned ones in per-host mode."""
+    if owned is not None:
+        return ShardStack(tuple(shape), np.dtype(dtype), pieces)
+    return np.stack([pieces[s] for s in range(shape[0])])
+
+
+def local_partition_nbytes(*objs) -> int:
+    """Host bytes of the partitioned forms in ``objs`` (dataclasses, tuples
+    and lists walked): a ``ShardStack`` counts its owned pieces, an array
+    or a tensor in full."""
+    total = 0
+
+    def walk(o):
+        nonlocal total
+        if isinstance(o, (ShardStack, np.ndarray)):
+            total += o.nbytes
+        elif isinstance(o, torch.Tensor):
+            total += o.nelement() * o.element_size()
+        elif isinstance(o, (tuple, list)):
+            for e in o:
+                walk(e)
+        elif dataclasses.is_dataclass(o):
+            for f in dataclasses.fields(o):
+                walk(getattr(o, f.name))
+
+    for o in objs:
+        walk(o)
+    return total
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,7 +99,7 @@ class PartitionedCSR:
     row_ptr: np.ndarray  # (P, rows_per+1) int32, block-local offsets
     col_idx: np.ndarray  # (P, K) int32, GLOBAL column indices
     row_ids: np.ndarray  # (P, K) int32, block-LOCAL row ids (sorted)
-    vals: np.ndarray     # (P, K)
+    vals: np.ndarray     # (P, K); each a ShardStack in per-host mode
     n_shards: int
     rows_per_shard: int
     n_cols: int          # global (padded) column count
@@ -69,9 +133,10 @@ def padded_size(n: int, n_shards: int) -> int:
     return -(-n // n_shards) * n_shards
 
 
-def pad_vector(v: np.ndarray, n_shards: int) -> np.ndarray:
-    """Zero-pad to ``n_shards`` equal blocks."""
-    n_pad = padded_size(v.shape[0], n_shards)
+def pad_vector(v: np.ndarray, n_shards: int, rows_per: int | None = None) -> np.ndarray:
+    """Zero-pad to ``n_shards`` equal blocks (of ``rows_per`` rows when
+    given: the SELL route's grid, ``parallel/dist_gmres.py``)."""
+    n_pad = rows_per * n_shards if rows_per is not None else padded_size(v.shape[0], n_shards)
     if n_pad == v.shape[0]:
         return v
     out = np.zeros((n_pad,), dtype=v.dtype)
@@ -79,18 +144,36 @@ def pad_vector(v: np.ndarray, n_shards: int) -> np.ndarray:
     return out
 
 
-def partition_rows(A: CSRMatrix, n_shards: int, pad_multiple: int = 1024) -> PartitionedCSR:
-    """Split A into ``n_shards`` contiguous row blocks with identical
-    shapes."""
-    n = A.n_rows
-    n_pad = padded_size(n, n_shards)
-    rows_per = n_pad // n_shards
-
+def host_arrays(A):
+    """(row_ptr int64, col_idx, vals) of a CSRMatrix as host numpy, or
+    (row_ptr, None, None) for a RowBlockCSR, whose entries come from
+    ``A.entries``."""
+    if isinstance(A, RowBlockCSR):
+        return np.asarray(A.row_ptr).astype(np.int64), None, None
     rp, ci, v = A.numpy_arrays()
     rp = rp.astype(np.int64)
+    return rp, ci[:rp[-1]], v[:rp[-1]]
+
+
+def partition_rows(A, n_shards: int, pad_multiple: int = 1024, rows_per: int | None = None,
+                   owned=None) -> PartitionedCSR:
+    """Split A into ``n_shards`` contiguous row blocks with identical
+    shapes.  ``rows_per`` sets the block height (at least ceil(n/P)), so
+    that pieces of a solve agree on their shapes; ``owned`` builds only
+    those blocks (per-host mode, ``ShardStack`` leaves).  ``A`` is a
+    ``CSRMatrix`` or a ``RowBlockCSR`` covering the owned blocks."""
+    n = A.n_rows
+    if rows_per is not None:
+        if rows_per * n_shards < n:
+            raise ValueError(f"{n_shards} blocks of {rows_per} rows do not cover {n}")
+        n_pad = rows_per * n_shards
+    else:
+        n_pad = padded_size(n, n_shards)
+        rows_per = n_pad // n_shards
+
+    rp, ci, v = host_arrays(A)
     nnz = int(rp[-1])
-    ci = ci[:nnz]
-    v = v[:nnz]
+    vdtype = A.vals.dtype if isinstance(A, RowBlockCSR) else v.dtype
 
     rp_pad = np.concatenate([rp, np.full(n_pad - n, rp[-1], dtype=np.int64)])
     starts = [int(rp_pad[s * rows_per]) for s in range(n_shards)]
@@ -98,18 +181,26 @@ def partition_rows(A: CSRMatrix, n_shards: int, pad_multiple: int = 1024) -> Par
     K = max(pad_multiple, -(-max(e - s0 for s0, e in zip(starts, ends)) // pad_multiple)
             * pad_multiple)
 
-    row_ptr = np.zeros((n_shards, rows_per + 1), dtype=np.int32)
-    col_idx = np.zeros((n_shards, K), dtype=np.int32)
-    row_ids = np.full((n_shards, K), rows_per - 1, dtype=np.int32)
-    vals = np.zeros((n_shards, K), dtype=v.dtype)
-    for s in range(n_shards):
+    pieces = {k: {} for k in ("rp", "ci", "rid", "v")}
+    for s in (sorted(owned) if owned is not None else range(n_shards)):
         lo, hi = starts[s], ends[s]
         cnt = hi - lo
         block = rp_pad[s * rows_per:(s + 1) * rows_per + 1]
-        row_ptr[s] = (block - lo).astype(np.int32)
-        col_idx[s, :cnt] = ci[lo:hi]
-        vals[s, :cnt] = v[lo:hi]
-        row_ids[s, :cnt] = np.repeat(np.arange(rows_per, dtype=np.int32), np.diff(block))
+        col_s = np.zeros(K, dtype=np.int32)
+        rid_s = np.full(K, rows_per - 1, dtype=np.int32)
+        val_s = np.zeros(K, dtype=vdtype)
+        if isinstance(A, RowBlockCSR):
+            ci_s, v_s = A.entries(min(s * rows_per, n), min((s + 1) * rows_per, n))
+            col_s[:cnt], val_s[:cnt] = ci_s, v_s
+        else:
+            col_s[:cnt], val_s[:cnt] = ci[lo:hi], v[lo:hi]
+        rid_s[:cnt] = np.repeat(np.arange(rows_per, dtype=np.int32), np.diff(block))
+        pieces["rp"][s] = (block - lo).astype(np.int32)
+        pieces["ci"][s], pieces["rid"][s], pieces["v"][s] = col_s, rid_s, val_s
 
-    return PartitionedCSR(row_ptr=row_ptr, col_idx=col_idx, row_ids=row_ids, vals=vals,
-                          n_shards=n_shards, rows_per_shard=rows_per, n_cols=n_pad, nnz=nnz)
+    return PartitionedCSR(
+        row_ptr=stack_pieces(pieces["rp"], (n_shards, rows_per + 1), np.int32, owned),
+        col_idx=stack_pieces(pieces["ci"], (n_shards, K), np.int32, owned),
+        row_ids=stack_pieces(pieces["rid"], (n_shards, K), np.int32, owned),
+        vals=stack_pieces(pieces["v"], (n_shards, K), vdtype, owned),
+        n_shards=n_shards, rows_per_shard=rows_per, n_cols=n_pad, nnz=nnz)

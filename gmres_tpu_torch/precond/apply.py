@@ -17,7 +17,9 @@ a CUDA tensor and to K6's plain versions on a CPU one.
 
 In a distributed solve ``w`` is the rank's block and ``comm`` reaches each
 sweep's SpMV (a halo exchange or an allgather, ``ops/spmv.py``); Jacobi
-needs none.
+needs none, and neither do the sweeps of a block-Jacobi ILU's diagonal
+block (``ILUJacobiPrec.block_local``, ``precond/bilu.py``), which run as
+a single card's do.
 
 ``typesafe_apply_lanes`` applies M to the s lanes of a batched solve, each
 lane with the bits of ``typesafe_apply``: identity and Jacobi broadcast, the
@@ -43,6 +45,8 @@ from gmres_tpu_torch.precond.level_ilu import LevelILUPrec, level_ilu_apply
 def _ilu_jacobi_apply(M: ILUJacobiPrec, w: torch.Tensor, comm=None, product=None) -> torch.Tensor:
     """The sweeps; ``product(A, x)`` is the SpMV (``spmv`` with ``comm``,
     or ``spmv_lanes`` for w of shape (s, n))."""
+    if M.block_local:
+        comm = None
     product = product or (lambda A, x: spmv(A, x, comm))
     x = w
     for _ in range(M.steps):

@@ -30,7 +30,9 @@ launch per sweep; bf16 bands take the plain-torch bf16 DIA route, the JAX
 package's XLA formula) and ``sell_pack_factors`` packs fp32 and fp64
 factors DIA refuses into the port's sliced ELL (one K5 launch per sweep)
 at every size, as the operator is packed; bf16 ones stay CSR, as a bf16
-operator does (K5 has no bf16 form).  The block-Jacobi ILU is slice 7.
+operator does (K5 has no bf16 form).  The block-Jacobi ILU of a
+distributed solve is ``precond/bilu.py``; ``build_jacobi_rowblock`` is
+Jacobi from one rank's rows (``RowBlockCSR``).
 """
 
 from __future__ import annotations
@@ -95,12 +97,15 @@ class ILUJacobiPrec:
 
     ``lower`` is the strictly-lower part (unit diagonal implied) and
     ``upper`` the upper part with the diagonal, each a CSR, DIA or SELL
-    operator."""
+    operator.  ``block_local``: the factors are one rank's diagonal block
+    of a block-Jacobi ILU (``precond/bilu.py``), so the sweeps of a
+    distributed apply run without collectives."""
 
     lower: object
     upper: object
     inv_diag: torch.Tensor
     steps: int
+    block_local: bool = False
 
     def to(self, device) -> "ILUJacobiPrec":
         return dataclasses.replace(self, lower=self.lower.to(device),
@@ -176,6 +181,45 @@ def build_jacobi(A: CSRMatrix, dtype: torch.dtype) -> JacobiPrec:
     np.add.at(row_abs, row_ids, np.abs(v))
     dv = v[diag_positions(rp, ci)]
     return JacobiPrec(inv_diag=_safeguarded_inverse(dv, row_abs, dtype))
+
+
+def build_jacobi_rowblock(A_blk, dtype: torch.dtype, exchange) -> JacobiPrec:
+    """``build_jacobi`` from one rank's ``RowBlockCSR``
+    (``gmres_tpu/precond/build.py:build_jacobi_rowblock``): each rank takes
+    the row sums and diagonal of its own rows; the safeguard's global
+    ``alpha`` and the global inverse diagonal come from ``exchange``
+    rounds, so the result equals ``build_jacobi`` of the whole matrix.  The
+    O(n) inverse diagonal is held whole on every rank."""
+    lo, hi, n = A_blk.row_lo, A_blk.row_hi, A_blk.n_rows
+    rp = np.asarray(A_blk.row_ptr).astype(np.int64)
+    ci, v_raw = A_blk.entries(lo, hi)
+    ci = np.asarray(ci).astype(np.int64)
+    v = _rounded(v_raw, dtype)
+    nb = hi - lo
+    row_ids = np.repeat(np.arange(nb, dtype=np.int64), np.diff(rp[lo:hi + 1]))
+    row_abs = np.zeros(nb)
+    np.add.at(row_abs, row_ids, np.abs(v))
+    # round 1: the global largest row 1-norm behind alpha
+    gmax = float(exchange(np.array([row_abs.max(initial=0.0)])).max())
+    alpha = float(np.finfo(np.float32).eps) * gmax
+    diag_mask = ci == (row_ids + lo)
+    if int(diag_mask.sum()) != nb:
+        raise ValueError(
+            "row block lacks an explicit diagonal entry in some row; load it with "
+            "io.loader.load_matrix_rows (the reference contract forces a diagonal)")
+    dv = v[diag_mask]
+    clamped = np.where(dv >= 0, np.maximum(dv, alpha), np.minimum(dv, -alpha))
+    inv_local = _rounded(1.0 / clamped, dtype)
+    # round 2: the global inverse diagonal from every rank's block
+    max_rows = int(exchange(np.array([nb])).max())
+    payload = np.zeros(2 + max_rows)
+    payload[0], payload[1] = lo, hi
+    payload[2:2 + nb] = inv_local
+    inv_diag = np.ones(n)  # rows no rank holds: 1
+    for row in np.asarray(exchange(payload)):
+        a, b = int(row[0]), int(row[1])
+        inv_diag[a:b] = row[2:2 + (b - a)]
+    return JacobiPrec(inv_diag=torch.from_numpy(inv_diag).to(dtype))
 
 
 def build_jacobi_from_dia(A, dtype: torch.dtype) -> JacobiPrec:

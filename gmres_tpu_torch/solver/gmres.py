@@ -416,7 +416,7 @@ def restart_cycle(cfg: GmresConfig, A_out, A_in, M, b, x, b_norm, minvb_norm,
 
 def drive_restarts(cycle, x, cfg: GmresConfig, record_history=False,
                    progress=None, checkpoint=None,
-                   stall_window: int | None = None) -> GmresResult:
+                   stall_window: int | None = None, ckpt_consensus=None) -> GmresResult:
     """The host outer loop: the reference's ``check_initial`` bookkeeping
     (restart counting, abort, convergence; ``IterUtil.hpp:42-51``,
     including the count-before-test quirk).  ``cycle(x, pstate, pending)``
@@ -438,7 +438,12 @@ def drive_restarts(cycle, x, cfg: GmresConfig, record_history=False,
     the solve with ``stalled`` set (``gmres_tpu/solver/gmres.py:1300-1322``),
     that cycle's update included.  With a checkpoint the stall is saved
     (``checkpoint.save_stalled``), and a solve with a ``stall_window`` that
-    resumes a file so marked runs no cycle and returns it as stalled."""
+    resumes a file so marked runs no cycle and returns it as stalled.
+
+    The distributed solve (``parallel/dist_gmres.py:_dist_ckpt_hooks``)
+    saves each rank's block of x to a file of its own and passes
+    ``ckpt_consensus(state)``, which turns this rank's loaded state (or
+    None) into the one every rank resumes from."""
     pstate = initial_policy_state()
     history = [] if record_history else None
     total_iters = 0
@@ -446,6 +451,8 @@ def drive_restarts(cycle, x, cfg: GmresConfig, record_history=False,
     resumed_stall = False
     if checkpoint is not None:
         state = ckpt.load_phase(checkpoint.path)
+        if ckpt_consensus is not None:
+            state = ckpt_consensus(state)
         if state is not None:
             x_np, i, total_iters, pstate, resumed_stall = state
             x = torch.tensor(x_np, dtype=x.dtype, device=x.device)

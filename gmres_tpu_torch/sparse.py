@@ -132,3 +132,59 @@ def csr_from_dense(a, keep_zeros: bool = False) -> CSRMatrix:
         rows, cols = np.nonzero(a)
         vals = a[rows, cols]
     return csr_from_coo(rows, cols, vals, n_rows=a.shape[0], n_cols=a.shape[1])
+
+
+@dataclasses.dataclass(frozen=True)
+class RowBlockCSR:
+    """Host container for rows ``[row_lo, row_hi)`` of a global CSR matrix
+    (``gmres_tpu/sparse.py:RowBlockCSR``): the per-host input form of a
+    distributed solve.  A rank loads only its own rows from disk
+    (``io/loader.py:load_matrix_rows``), so it holds the O(n) global
+    ``row_ptr`` and its local entries, never the global entry arrays.
+    Columns are global; the arrays are numpy."""
+
+    row_ptr: np.ndarray   # (n_rows+1,) int64, the GLOBAL assembled row pointer
+    col_idx: np.ndarray   # local entries, global columns
+    vals: np.ndarray      # local entries
+    row_lo: int
+    row_hi: int
+    n_rows: int           # global
+    n_cols: int           # global
+
+    @property
+    def nnz(self) -> int:
+        return int(self.row_ptr[-1])
+
+    @property
+    def local_nnz(self) -> int:
+        return int(self.row_ptr[self.row_hi] - self.row_ptr[self.row_lo])
+
+    @property
+    def dtype(self):
+        return self.vals.dtype
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.n_rows, self.n_cols)
+
+    def entries(self, lo: int, hi: int):
+        """(col_idx, vals) views for global rows ``[lo, hi)``, which must
+        lie inside the loaded block."""
+        if not (self.row_lo <= lo and hi <= self.row_hi and lo <= hi):
+            raise IndexError(f"rows [{lo}, {hi}) outside owned block "
+                             f"[{self.row_lo}, {self.row_hi})")
+        base = int(self.row_ptr[self.row_lo])
+        a = int(self.row_ptr[lo]) - base
+        b = int(self.row_ptr[hi]) - base
+        return self.col_idx[a:b], self.vals[a:b]
+
+    def astype(self, dtype) -> "RowBlockCSR":
+        dt = np.dtype(dtype)
+        if dt == self.vals.dtype:
+            return self
+        return dataclasses.replace(self, vals=self.vals.astype(dt))
+
+    def local_block(self) -> CSRMatrix:
+        """The loaded rows as a CSRMatrix (local rows, global columns)."""
+        rp = self.row_ptr[self.row_lo:self.row_hi + 1] - self.row_ptr[self.row_lo]
+        return csr_from_arrays(rp, self.col_idx, self.vals, n_cols=self.n_cols)

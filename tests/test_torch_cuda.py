@@ -7,7 +7,8 @@ across grid sizes and forms, the df64 kernels K8-K11 and K4's pair mode
 block) in plain and residual modes at interior and boundary shards, and
 small DIA, SELL, ILU, MGS, df64 and distributed (two gloo ranks sharing the
 card; df64 too, with its sums over the ranks held to the one-device pair
-gram) solves on the card against the same solves on the CPU; a bf16
+gram; the block-Jacobi ILU on K1 and the per-rank SELL route on K5 with its
+rank residual form) solves on the card against the same solves on the CPU; a bf16
 ILU-Jacobi apply against the CPU's; the dtype
 forms of the compressed-basis and bf16 tiers (K2, K2x2, K3's three modes,
 K7, K4) against their plain versions at an aligned and a ragged n, K2's and
@@ -1045,6 +1046,73 @@ def test_distributed_df64_solve_on_card_matches_cpu():
         scale = scale.max()
         assert np.abs(fp64_sum - whole).max() <= DF_TOL * scale
         assert np.abs(hi_sum - whole).max() > 2.0 ** -40 * scale
+
+
+@DTYPES
+@pytest.mark.parametrize("rank,ranks", [(0, 2), (1, 2), (3, 4)])
+def test_sell_residual_rank_form(dt, rank, ranks):
+    # K5's rank form (the per-rank SELL route's outer residual): a rank's
+    # rows with global columns, x gathered, ||x||^2 over the rank's rows;
+    # elementwise against its plain twin
+    from gmres_tpu_torch.parallel.dist_gmres import sell_rows_per
+    from gmres_tpu_torch.sparse import csr_from_arrays
+
+    A = unstructured_mesh(20_000, jitter=8, seed=3)
+    r = sell_rows_per(A.n_rows, ranks)
+    rp, ci, v = A.numpy_arrays()
+    lo, hi = min(rank * r, A.n_rows), min((rank + 1) * r, A.n_rows)
+    rows = np.full(r + 1, rp[hi] - rp[lo])
+    rows[:hi - lo + 1] = rp[lo:hi + 1] - rp[lo]
+    S = sell_from_csr(csr_from_arrays(rows, ci[rp[lo]:rp[hi]], v[rp[lo]:rp[hi]],
+                                      n_cols=r * ranks), max_padding=64.0).to("cuda")
+    rng = np.random.default_rng(rank)
+    x = torch.tensor(rng.standard_normal(r * ranks), device="cuda")
+    b = torch.tensor(rng.standard_normal(r), device="cuda")
+    before = sl.sell_residual_cuda.forms["f64_rank"]
+    got = sl.sell_residual_cuda(S.vals, S.cols, S.slice_ptr, b, x, dt, x_off=rank * r)
+    want = sl.sell_residual_plain(S.vals, S.cols, S.slice_ptr, b, x, dt, x_off=rank * r)
+    assert sl.sell_residual_cuda.forms["f64_rank"] == before + 1
+    _close(got[0], want[0], torch.float64)
+    # the sums of squares: fp32 sums round apart by 1e-5, fp64 ones only by
+    # their order (chip_smoke's check_residual holds fp64 to 1e-12)
+    tol = 1e-5 if dt == torch.float32 else 1e-12
+    for g, w in zip(got[1:], want[1:]):
+        assert abs(float(g - w)) <= tol * float(w)
+    with pytest.raises(ValueError):
+        sl.sell_residual_cuda(S.vals, S.cols, S.slice_ptr, b, x[:r * ranks - 1], dt,
+                              x_off=(ranks - 1) * r + 1)
+
+
+@pytest.mark.parametrize("label", ["bilu_jacobi", "sell"])
+def test_distributed_bilu_and_sell_solves_on_card_match_cpu(label):
+    # two gloo ranks sharing the card: the block-Jacobi ILU's DIA factor
+    # sweeps on K1 beside K12 for the operator; the per-rank SELL route's
+    # block on K5, its fp64 outer residual on K5's rank form, and no K12
+    from gmres_tpu_torch.ops.cuda._build import library
+    from gmres_tpu_torch.parallel import launch
+    from gmres_tpu_torch.parallel.dist_gmres import run_cases
+
+    library()  # built here, so that the ranks load it
+    if label == "sell":
+        A = unstructured_mesh(70_000, run=8)
+        kw, extra = dict(precond="identity"), {}
+        want_on, want_off = {"sell_spmv", "sell_residual"}, DIST_KERNELS | {"dia_spmv"}
+    else:
+        A = convection_diffusion_2d(64, beta=2.0)
+        kw, extra = dict(precond="bilu_jacobi", jacobi_steps=3), {}
+        want_on, want_off = DIST_KERNELS | {"dia_spmv"}, {"sell_spmv", "sell_residual"}
+    b = A.to_scipy() @ gmres_tpu_torch.rand_vect(A.n_rows, 42)
+    cfg = gmres_tpu_torch.GmresConfig(
+        precision=gmres_tpu_torch.PrecisionSpec.from_mode("mixed"), orth="cgsr",
+        restart_length=30, tol=1e-8, max_restarts=200, **kw)
+    cases = [dict(A=A, b=b, cfg=cfg, **extra)]
+    card = launch.spawn(run_cases, 2, args=(cases, "cuda"))
+    cpu = launch.spawn(run_cases, 2, args=(cases, "cpu"))
+    for (got,), (ref,) in zip(card, cpu):
+        c = got["launches"]
+        assert all(c[k] > 0 for k in want_on) and all(c[k] == 0 for k in want_off), c
+        assert got["converged"] and abs(got["restarts"] - ref["restarts"]) <= 1
+        assert np.linalg.norm(got["x"] - ref["x"]) / np.linalg.norm(ref["x"]) <= 1e-5
 
 
 @pytest.mark.parametrize("tier", ["bf16", "fp32_bf16_m"])

@@ -12,8 +12,8 @@ within 1e-6 of the JAX package's (1e-5 under a restart policy), the
 tolerances of ``tests/test_distributed.py``; and the oracle's restarts
 within one, x within 1e-6 (fp64 cycle) or 1e-5 (fp32 cycle).
 
-The refusals of what is still unported (slice 7b) need no ranks: they
-raise before the first collective.
+The refusal of distributed exact ILU needs no ranks: it raises before the
+first collective.
 """
 
 import jax
@@ -25,12 +25,11 @@ from jax.sharding import Mesh
 import gmres_tpu
 import gmres_tpu_torch
 from gmres_tpu.io.rng import rand_vect
-from gmres_tpu.io.synth import convection_diffusion_2d, poisson_2d, unstructured_mesh
+from gmres_tpu.io.synth import convection_diffusion_2d, poisson_2d
 from gmres_tpu.ops.spmv import spmv as jax_spmv
 from gmres_tpu.parallel.dist_gmres import AXIS
 from gmres_tpu.parallel.dist_gmres import solve_distributed as jax_solve_distributed
 from gmres_tpu.precond.build import build_jacobi as jax_build_jacobi
-from gmres_tpu.sparse import RowBlockCSR
 from gmres_tpu_torch.parallel import launch
 from gmres_tpu_torch.parallel.dist_gmres import run_cases
 
@@ -151,30 +150,11 @@ def test_halo_csr_case_takes_the_rebased_csr_route():
     assert isinstance(partition_halo(port_csr(neighbour_local()), P), HaloCSR)
 
 
-def _rowblock(A):
-    rp = np.asarray(A.row_ptr).astype(np.int64)
-    return RowBlockCSR(row_ptr=rp, col_idx=np.asarray(A.col_idx)[:rp[-1]],
-                       vals=np.asarray(A.vals)[:rp[-1]], row_lo=0, row_hi=A.n_rows,
-                       n_rows=A.n_rows, n_cols=A.n_cols)
-
-
-@pytest.mark.parametrize("case", ["checkpoint", "bilu_jacobi", "exact_ilu", "rowblock",
-                                  "sell_route"])
+@pytest.mark.parametrize("case", ["exact_ilu"])
 def test_unported_distributed_options_raise(case):
+    # distributed exact ILU stays refused, as in the JAX package; every other
+    # option of the JAX package's solve_distributed is ported
     A = poisson_2d(12)
-    cfg = gmres_tpu_torch.GmresConfig(orth="cgsr", precond="identity")
-    kw = {}
-    if case == "checkpoint":
-        from gmres_tpu_torch.utils.checkpoint import CheckpointSpec
-
-        kw["checkpoint"] = CheckpointSpec(path="unused.ckpt")
-    elif case in ("bilu_jacobi", "exact_ilu"):
-        cfg = cfg.with_(precond={"bilu_jacobi": "bilu_jacobi", "exact_ilu": "ilu"}[case])
-    elif case == "sell_route":
-        # unstructured, fp32 inner, at least 64K rows: the JAX package's
-        # per-rank SELL route
-        A = unstructured_mesh(64 * 1024, run=8)
-        cfg = cfg.with_(precision=gmres_tpu_torch.PrecisionSpec.from_mode("mixed"))
-    port_A = _rowblock(A) if case == "rowblock" else port_csr(A)
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        gmres_tpu_torch.solve_distributed(port_A, np.ones(A.n_rows), cfg, device="cpu", **kw)
+    cfg = gmres_tpu_torch.GmresConfig(orth="cgsr", precond="ilu")
+    with pytest.raises(NotImplementedError, match="distributed exact ILU"):
+        gmres_tpu_torch.solve_distributed(port_csr(A), np.ones(A.n_rows), cfg, device="cpu")

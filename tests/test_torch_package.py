@@ -186,52 +186,15 @@ def test_solve_on_cuda_never_falls_back_to_cpu():
 
 
 @pytest.mark.parametrize("cfg", [
-    # distributed: precond='bilu_jacobi' (the block-Jacobi ILU)
-    dict(orth="cgsr", precond="bilu_jacobi", distributed=True),
-    # distributed: per-host row-block input (RowBlockCSR)
-    dict(orth="cgsr", precond="identity", distributed=True, rowblock=True),
-    # distributed: the per-rank SELL route (unstructured, fp32 inner, >= 64K rows)
-    dict(orth="cgsr", precond="identity", distributed=True, unstructured=True,
-         precision=gmres_tpu_torch.PrecisionSpec.from_mode("mixed")),
-    # distributed: checkpoint=
-    dict(orth="cgsr", precond="identity", distributed=True, checkpoint=True),
     # distributed: exact ILU (the JAX package refuses it too)
     dict(orth="cgsr", precond="ilu", distributed=True),
-    # distributed: the per-rank SELL route under the compressed basis
-    dict(orth="cgsr", precond="identity", distributed=True, unstructured=True,
-         precision=gmres_tpu_torch.PrecisionSpec("float64", "float32", "float32",
-                                                 basis="bfloat16")),
 ])
 def test_unported_options_raise(cfg):
-    from gmres_tpu.sparse import RowBlockCSR
-    from gmres_tpu_torch.utils.checkpoint import CheckpointSpec
-
     cfg = dict(cfg)
-    A = (synth.unstructured_mesh(64 * 1024, run=8) if cfg.pop("unstructured", False)
-         else synth.convection_diffusion_2d(8))
-    if cfg.pop("rowblock", False):
-        rp, ci, v = A.numpy_arrays()
-        A = RowBlockCSR(row_ptr=rp, col_idx=ci, vals=v, row_lo=0, row_hi=A.n_rows,
-                        n_rows=A.n_rows, n_cols=A.n_cols)
-    distributed = cfg.pop("distributed", False)
-    kw = {"checkpoint": CheckpointSpec(path="unused.ckpt")} if cfg.pop("checkpoint", False) else {}
-    fn = gmres_tpu_torch.solve_distributed if distributed else gmres_tpu_torch.solve
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        fn(A, np.ones(A.n_rows), gmres_tpu_torch.GmresConfig(**cfg), device="cpu", **kw)
-
-
-@pytest.mark.parametrize("command", ["cli.solve", "experiments.sweep"])
-def test_unported_command_line_options_raise(command, tmp_path):
-    # --dist: the port's ranks are started by parallel/launch.py, one process
-    # each, so a distributed command line waits for slice 7b
-    import importlib
-
-    main = importlib.import_module(f"gmres_tpu_torch.{command}").main
-    argv = (["--synth", "poisson2d:8"] if command == "cli.solve"
-            else ["--out-dir", str(tmp_path), "poisson2d:8", "10", "0", "1e-6"])
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        main(["--device", "cpu", "--dist", *argv])
-    assert list(tmp_path.iterdir()) == []
+    A = synth.convection_diffusion_2d(8)
+    fn = gmres_tpu_torch.solve_distributed if cfg.pop("distributed", False) else gmres_tpu_torch.solve
+    with pytest.raises(NotImplementedError, match="distributed exact ILU"):
+        fn(A, np.ones(A.n_rows), gmres_tpu_torch.GmresConfig(**cfg), device="cpu")
 
 
 def test_single_device_bilu_jacobi_raises_the_references_value_error():

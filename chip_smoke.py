@@ -142,9 +142,11 @@ empty barrier of the same sync) and, where one PyTorch call computes the
 same function, that call's time (K6: two CSR torch.triangular_solve
 calls).  K2 is also timed on 1-4 blocks per SM and K3 GRAM in fp32 on
 its plan's, 2 and 3 blocks per SM (the same bits on each), and each is
-shown to be one device kernel a call; K3 GRAM in fp64 (its block partials
-added by torch.sum: two) under three caps of its blocks an SM, the same
-bits each; K3 GRAM's w' equals K3 SUMSQ's; K6
+shown to be one device kernel a call; K2x2 (K2's kernel with two vectors)
+is one device kernel a call, and its u0 and u1 are K2's u of each vector
+bit for bit (fp32, fp64 and its two dtype forms, at 31 and 16 rows); K3
+GRAM in fp64 (its block partials added by torch.sum: two) under three caps
+of its blocks an SM, the same bits each; K3 GRAM's w' equals K3 SUMSQ's; K6
 is held bit for bit to its plain version, fused and segmented to each
 other, and timed on one block and on cooperative grids beside the empty
 barrier of each sync candidate (clusters too) and the old design's floor.
@@ -1067,12 +1069,22 @@ def stage_timed(torch, A_csr):
 
 
 def one_kernel_checks(torch, n):
-    """K10 (rows 31 and 16 of the pair basis at n) and K12's residual mode
+    """K2x2 (fp32 and fp64, 31 rows at n: K2's kernel with two vectors), K10
+    (rows 31 and 16 of the pair basis at n) and K12's residual mode
     (convdiff@1M's shard: r = n / DIST_RANKS, offsets +-1 and +-NX, edges of
     NX values, zero on the first and last shard) are each one device kernel
     a call.  Counted before the solves, with the K2 and K3 GRAM counts."""
     from gmres_tpu_torch.ops.cuda import df64_orth_kernel as dk
     from gmres_tpu_torch.ops.cuda import halo_kernel as hk
+    from gmres_tpu_torch.ops.cuda import orth_kernel as ok_
+
+    for dt in (torch.float32, torch.float64):
+        V, w, _ = mgs_basis(torch, n, dt, 3)
+        names = device_kernels(torch, lambda: ok_.gram2_cuda(V, w, V[RLEN], RLEN + 1))
+        log(f"  K2x2 {dt} device kernels a call: {len(names)} {names}")
+        require(len(names) == 1 and kernel_group(names[0]) == "K2x2",
+                f"K2x2 {dt}: one device kernel a call, K2's kernel with two vectors ({names})")
+        del V, w
 
     Vh, Vl, wh, wl, u, _, _ = df64_pair_basis(torch, n, 7)
     for rows in (RLEN + 1, MID_ROWS):
@@ -1675,10 +1687,14 @@ def check_mgs_kernels(torch, n, record):
 
             vk = V[rows - 1]
             W = torch.stack([w, vk], dim=1)
+            u0, u1 = ok_.gram2_cuda(V, w, vk, rows).unbind(1)
+            require(torch.equal(u0, ok_.gram_cuda(V, w, rows))
+                    and torch.equal(u1, ok_.gram_cuda(V, vk, rows)),
+                    f"K2x2 {key}: u0 and u1 bit-equal to K2's u of w and of row {rows - 1}")
             record("basis_gram2", dt_name,
-                   *compare_each(dt_name, ok_.gram2_cuda(V, w, vk, rows),
-                                 ok_.gram2_plain(V, w, vk, rows),
-                                 ok_.gram2_plain(V.abs(), w.abs(), vk.abs(), rows)),
+                   *compare_each(dt_name, ok_.gram2_cuda(V, w, vk, rows).unbind(1),
+                                 ok_.gram2_plain(V, w, vk, rows).unbind(1),
+                                 ok_.gram2_plain(V.abs(), w.abs(), vk.abs(), rows).unbind(1)),
                    timer(lambda: ok_.gram2_cuda(V, w, vk, rows)),
                    timer(lambda: ok_.gram2_plain(V, w, vk, rows)), (rows + 2) * n * s,
                    4 * rows * n, timer(lambda: torch.mm(V[:rows], W)), key=key)
@@ -2785,10 +2801,12 @@ def check_cb_kernels(torch, n, record):
     w64 = V64.T @ c64 + CB_NOISE * np.sqrt(m1 / n) * rng.standard_normal(n)
     x64 = rng.standard_normal(n)
 
-    def rec(kname, key, acc_name, outs, cuda, plain, nbytes, flops, plain_reps=REPS):
+    def rec(kname, key, acc_name, outs, cuda, plain, nbytes, flops, plain_reps=REPS,
+            timed=None):
         """outs: (dtype name, bound) of each output, the bound elementwise
         (form_bound); reports the largest error and the bound of the element
-        nearest its own."""
+        nearest its own.  timed: the (kernel, plain) calls to time, where
+        they differ from the compared ones (an update in place)."""
         got, want = cuda(), plain()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -2803,8 +2821,9 @@ def check_cb_kernels(torch, n, record):
             e_max, b_at = float(err.max()), float(bound.flatten()[i] if bound.dim() else bound)
             if worst is None or float(ratio.max()) > worst[2]:
                 worst = (e_max, b_at, float(ratio.max()))
-        record(kname, acc_name, worst[0], worst[1], ok, timer(cuda),
-               timer(plain, plain_reps), nbytes, flops, key=key)
+        cuda_t, plain_t = timed or (cuda, plain)
+        record(kname, acc_name, worst[0], worst[1], ok, timer(cuda_t),
+               timer(plain_t, plain_reps), nbytes, flops, key=key)
 
     for form, vname, wname in sweeps:
         vt, wt = getattr(torch, vname), getattr(torch, wname)
@@ -2844,11 +2863,17 @@ def check_cb_kernels(torch, n, record):
                 2 * rows * n)
             if form in path["basis_gram2"]:
                 vk = V[rows - 1].to(acc)
+                u0, u1 = ok_.gram2_cuda(V, w, vk, rows).unbind(1)
+                require(torch.equal(u0, ok_.gram_cuda(V, w, rows))
+                        and torch.equal(u1, ok_.gram_cuda(V, vk, rows)),
+                        f"K2x2 {key}: u0 and u1 bit-equal to K2's u of w and of row {rows - 1}")
                 sg = form_bound(torch, an, ok_.gram_plain(Va, wa + vk.abs(), rows))
                 rec("basis_gram2", key, an, [(an, sg), (an, sg)],
-                    lambda: ok_.gram2_cuda(V, w, vk, rows),
-                    lambda: ok_.gram2_plain(V, w, vk, rows), rows * n * sV + 2 * n * sA,
-                    4 * rows * n)
+                    lambda: ok_.gram2_cuda(V, w, vk, rows).unbind(1),
+                    lambda: ok_.gram2_plain(V, w, vk, rows).unbind(1),
+                    rows * n * sV + 2 * n * sA, 4 * rows * n,
+                    timed=(lambda: ok_.gram2_cuda(V, w, vk, rows),
+                           lambda: ok_.gram2_plain(V, w, vk, rows)))
             # a bf16 w' carries up to CB_MGS_FLIPS flips, each one ulp of a
             # value the element took: at most |w| + sum |h_j| |v_j| (smw)
             sh, smw, sn = mgs_scale(torch, V.to(acc), w.to(acc), rows)
@@ -2873,12 +2898,14 @@ def check_cb_kernels(torch, n, record):
         an = str(acc).removeprefix("torch.")
         scale = x.abs().to(acc) + torch.mv(V[:RLEN].to(acc).abs().t(), y.to(acc).abs())
         inc_p = ou.basis_axpy_plain(torch.zeros_like(x), V, y)
+        xk, xp = x.clone(), x.clone()
         rec("basis_axpy", form, an,
             [(xname, form_bound(torch, an, scale, inc_p if inc == torch.bfloat16 else None))],
             lambda: ou.basis_axpy_cuda(x.clone(), V, y),
             lambda: ou.basis_axpy_plain(x.clone(), V, y),
-            RLEN * n * V.element_size() + 2 * n * x.element_size(), 2 * RLEN * n + n)
-        del V, y, x
+            RLEN * n * V.element_size() + 2 * n * x.element_size(), 2 * RLEN * n + n,
+            timed=(lambda: ou.basis_axpy_cuda(xk, V, y), lambda: ou.basis_axpy_plain(xp, V, y)))
+        del V, y, x, xk, xp
     torch.cuda.synchronize()
     record.require_ok()
 
@@ -3380,6 +3407,19 @@ def check_lane_kernels(torch, A_csr, record):
     record.require_ok()
 
 
+# device kernel name -> the port's kernel, for the traces: K2x2 is K2's
+# template with two vectors, its last template argument 2
+# (basis_gram_kernel<TV, TW, aligned, NV>)
+KERNEL_GROUPS = (("K1 lane form", r"dia_spmv_lanes_kernel"), ("K1", r"dia_spmv_kernel"),
+                 ("K2x2", r"basis_gram_kernel<[^>]*,\s*2>"), ("K2", r"basis_gram_kernel"),
+                 ("K3 GRAM", r"basis_update_gram"), ("K3 SUMSQ", r"basis_update_kernel"),
+                 ("K4", r"basis_axpy_kernel"))
+
+
+def kernel_group(name):
+    return next((g for g, pat in KERNEL_GROUPS if re.search(pat, name)), "torch")
+
+
 def batched_trace():
     """Run in a fresh process (``python3 -c "import chip_smoke;
     chip_smoke.batched_trace()"``; late in a long one torch.profiler records
@@ -3422,16 +3462,12 @@ def batched_trace():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     spans, by_kernel = [], Counter()
-    groups = (("K1 lane form", "dia_spmv_lanes_kernel"), ("K1", "dia_spmv_kernel"),
-              ("K2", "basis_gram_kernel"), ("K3 GRAM", "basis_update_gram"),
-              ("K3 SUMSQ", "basis_update_kernel"), ("K4", "basis_axpy_kernel"))
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         t_start, t_end = e.time_range.start, e.time_range.end
         spans.append((t_start, t_end))
-        group = next((g for g, key in groups if key in e.name), "torch")
-        by_kernel[group] += (t_end - t_start) / steps / 1e3
+        by_kernel[kernel_group(e.name)] += (t_end - t_start) / steps / 1e3
     spans.sort()
     busy, end = 0.0, float("-inf")
     for a, b in spans:

@@ -19,7 +19,8 @@
 //   replaces orth_kernel.py:_gram2 (:102), the one reduction of an ICWY
 //   (one-reduce MGS) step: each tile of V is read once for both vectors,
 //   so the sweep costs one read of the basis where two K2 launches cost
-//   two.  Partials (n_blocks, m+1, 2), no atomics, as in K2.
+//   two.  It is K2's kernel with two vectors (basis_gram_kernel, NV = 2):
+//   one launch, u0 and u1 each with the bits of K2's u for that vector.
 // K4 basis_axpy<TV,TY,TX>        x[i] += (TX)(sum_{j<rows} y[j] V[j,i])
 //   replaces gmres_tpu/ops/pallas/df64_kernel.py:axpy_df64 (:295) and the
 //   basis combination gmres_tpu/solver/gmres.py:547 does with jnp.matmul:
@@ -59,9 +60,11 @@
 //   every basis row is one coalesced pass over the tile.
 // - Cross-column sums are a warp-shuffle tree per row and per-block partials
 //   (n_blocks, m+1) that the wrapper finishes with torch.sum: no atomics.
-//   K2 and K3 GRAM (both redesigned) finish their own sums in the same
-//   launch: see basis_gram_kernel and basis_update_gram_kernel.
+//   K2, K2x2 and K3 GRAM (redesigned) finish their own sums in the same
+//   launch: see basis_gram_kernel and basis_update_gram_kernel; K4
+//   (redesigned) sums each column in one thread: see basis_axpy_kernel.
 #include <cstdint>
+#include <cstring>
 
 #include "common.cuh"
 
@@ -78,6 +81,15 @@ using namespace gmres;
 // adds the tiles' partials in tile order and writes u, so a call is one
 // launch and its bits depend on n and the alignment only, not on the grid.
 //
+// K2x2 is the same kernel with NV = 2 vectors: both w tiles in registers
+// (aligned form) or in shared memory (general form), each 16-byte chunk of
+// a basis row loaded once and used for both products, tile partials (rows,
+// NV, n_tiles) and u (m1, NV).  Every operation on vector v is the one K2
+// does on it, in the same order, so u[:, v] is K2's u for w_v bit for bit.
+// Two vectors keep twice the w values and sums in registers, so NV = 2
+// runs kGram2BlocksPerSM blocks an SM (up to 128 registers a thread, no
+// spill) where K2 runs kGramBlocksPerSM.
+//
 // Alignment: a row starts 16-byte aligned only where n is a multiple of
 // the basis's vector width.  The aligned form keeps w's tile in registers;
 // the general form stages w's tile in shared memory and splits each row's
@@ -90,75 +102,105 @@ using namespace gmres;
 constexpr int kGramRows = 8;
 constexpr int kGramTileCols = 2048;
 constexpr int kGramBlocksPerSM = 4;
+constexpr int kGram2BlocksPerSM = 2;
 
 template <typename TV>
 __host__ __device__ constexpr int gram_chunks() { return kGramTileCols / (kThreads * vec16<TV>()); }
+template <int NV>
+__host__ __device__ constexpr int gram_blocks_per_sm() {
+  return NV == 1 ? kGramBlocksPerSM : kGram2BlocksPerSM;
+}
+// dynamic shared bytes: the warps' row sums red[(v * kWarps + warp) *
+// kMaxRows + j], then (general form) w's tiles ws[v * kGramTileCols + c]
+template <typename TA, int NV>
+__host__ __device__ constexpr size_t gram_smem(bool aligned) {
+  return sizeof(TA) * NV * ((size_t)kWarps * kMaxRows + (aligned ? 0 : kGramTileCols));
+}
 
-// Row j's tile partial of this thread over its chunks, the general form:
-// w's tile in shared memory `ws`, the row split at its phase `a`
-template <typename TA, typename TV>
-__device__ __forceinline__ TA gram_row_general(const TV* __restrict__ vrow, const TA* ws,
-                                               int cols, int a) {
+// Row j's tile partials of this thread over its chunks against the NV
+// vectors, the general form: w's tiles in shared memory `ws`, the row split
+// at its phase `a`
+template <int NV, typename TA, typename TV>
+__device__ __forceinline__ void gram_row_general(const TV* __restrict__ vrow, const TA* ws,
+                                                 int cols, int a, TA (&acc)[NV]) {
   constexpr int kVec = vec16<TV>();
-  TA acc = TA(0);
-  if ((int)threadIdx.x < a && (int)threadIdx.x < cols)
-    acc = fmadd(up<TA>(vrow[threadIdx.x]), ws[threadIdx.x], acc);
+#pragma unroll
+  for (int v = 0; v < NV; ++v) acc[v] = TA(0);
+  if ((int)threadIdx.x < a && (int)threadIdx.x < cols) {
+    const TA x = up<TA>(vrow[threadIdx.x]);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) acc[v] = fmadd(x, ws[v * kGramTileCols + threadIdx.x], acc[v]);
+  }
 #pragma unroll
   for (int u = 0; u < gram_chunks<TV>(); ++u) {
     const int cc = a + (u * kThreads + (int)threadIdx.x) * kVec;
     if (cc + kVec <= cols) {
-      TA v[kVec];
-      ldg_as(vrow + cc, v);
+      TA x[kVec];
+      ldg_as(vrow + cc, x);
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) acc = fmadd(v[e], ws[cc + e], acc);
+      for (int v = 0; v < NV; ++v)
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          acc[v] = fmadd(x[e], ws[v * kGramTileCols + cc + e], acc[v]);
     } else {
-      for (int e = 0; e < kVec && cc + e < cols; ++e)
-        acc = fmadd(up<TA>(vrow[cc + e]), ws[cc + e], acc);
+      for (int e = 0; e < kVec && cc + e < cols; ++e) {
+        const TA x = up<TA>(vrow[cc + e]);
+#pragma unroll
+        for (int v = 0; v < NV; ++v) acc[v] = fmadd(x, ws[v * kGramTileCols + cc + e], acc[v]);
+      }
     }
   }
-  return acc;
 }
 
-template <typename TV, typename TW, bool kAligned>
-__global__ void __launch_bounds__(kThreads, kGramBlocksPerSM)
-basis_gram_kernel(const TV* __restrict__ V, const TW* __restrict__ w, TW* __restrict__ u,
+template <typename TV, typename TW, bool kAligned, int NV>
+__global__ void __launch_bounds__(kThreads, gram_blocks_per_sm<NV>())
+basis_gram_kernel(const TV* __restrict__ V, const TW* __restrict__ w0,
+                  const TW* __restrict__ w1, TW* __restrict__ u,
                   acc_t<TW>* __restrict__ partials, unsigned* __restrict__ ticket, int n,
                   int rows, int m1, int n_tiles) {
   using TA = acc_t<TW>;
   using R = typename Raw16<TV>::type;
   constexpr int kVec = vec16<TV>();
   constexpr int kTileCols = kGramTileCols;
-  __shared__ TA red[kWarps * kMaxRows];
-  __shared__ TA ws[kAligned ? 1 : kTileCols];
+  extern __shared__ __align__(16) unsigned char gram_smem_raw[];
+  TA* const red = reinterpret_cast<TA*>(gram_smem_raw);
+  TA* const ws = red + NV * kWarps * kMaxRows;
   __shared__ bool last;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const TW* const w[2] = {w0, w1};
   // element offset of V's first column from a 16-byte boundary
   const int v_phase = (int)((reinterpret_cast<uintptr_t>(V) / sizeof(TV)) % kVec);
 
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const size_t c0 = (size_t)t * kTileCols;
     const int cols = (int)min((size_t)kTileCols, (size_t)n - c0);
-    TA wv[gram_chunks<TV>()][kVec];
+    TA wv[NV][gram_chunks<TV>()][kVec];
     if constexpr (kAligned) {
 #pragma unroll
-      for (int q = 0; q < gram_chunks<TV>(); ++q) {
-        const int c = (q * kThreads + (int)threadIdx.x) * kVec;
-        if (c < cols) {
-          ldg_as(w + c0 + c, wv[q]);
-        } else {
+      for (int v = 0; v < NV; ++v)
 #pragma unroll
-          for (int e = 0; e < kVec; ++e) wv[q][e] = TA(0);
+        for (int q = 0; q < gram_chunks<TV>(); ++q) {
+          const int c = (q * kThreads + (int)threadIdx.x) * kVec;
+          if (c < cols) {
+            ldg_as(w[v] + c0 + c, wv[v][q]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) wv[v][q][e] = TA(0);
+          }
         }
-      }
     } else {
-      for (int c = threadIdx.x; c < kTileCols; c += kThreads)
-        ws[c] = c < cols ? up<TA>(w[c0 + c]) : TA(0);
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+        for (int c = threadIdx.x; c < kTileCols; c += kThreads)
+          ws[v * kTileCols + c] = c < cols ? up<TA>(w[v][c0 + c]) : TA(0);
       __syncthreads();
     }
     for (int g = 0; g < rows; g += kGramRows) {
-      TA acc[kGramRows];
+      TA acc[kGramRows][NV];
 #pragma unroll
-      for (int r = 0; r < kGramRows; ++r) acc[r] = TA(0);
+      for (int r = 0; r < kGramRows; ++r)
+#pragma unroll
+        for (int v = 0; v < NV; ++v) acc[r][v] = TA(0);
       if constexpr (kAligned) {
 #pragma unroll
         for (int q = 0; q < gram_chunks<TV>(); ++q) {
@@ -173,10 +215,12 @@ basis_gram_kernel(const TV* __restrict__ V, const TW* __restrict__ w, TW* __rest
                                   : R{};
 #pragma unroll
           for (int r = 0; r < kGramRows; ++r) {
-            TA v[kVec];
-            unpack16<TA>(raw[r], v);
+            TA x[kVec];
+            unpack16<TA>(raw[r], x);
 #pragma unroll
-            for (int e = 0; e < kVec; ++e) acc[r] = fmadd(v[e], wv[q][e], acc[r]);
+            for (int v = 0; v < NV; ++v)
+#pragma unroll
+              for (int e = 0; e < kVec; ++e) acc[r][v] = fmadd(x[e], wv[v][q][e], acc[r][v]);
           }
         }
       } else {
@@ -185,23 +229,28 @@ basis_gram_kernel(const TV* __restrict__ V, const TW* __restrict__ w, TW* __rest
           if (g + r >= rows) continue;
           const size_t start = (size_t)(g + r) * n + c0;
           const int a = (int)((kVec - (int)((v_phase + start) % kVec)) % kVec);
-          acc[r] = gram_row_general(V + start, ws, cols, a);
+          gram_row_general<NV>(V + start, ws, cols, a, acc[r]);
         }
       }
 #pragma unroll
       for (int r = 0; r < kGramRows; ++r) {
         if (g + r >= rows) continue;
-        const TA s = warp_sum(acc[r]);
-        if (lane == 0) red[warp * kMaxRows + g + r] = s;
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const TA s = warp_sum(acc[r][v]);
+          if (lane == 0) red[(v * kWarps + warp) * kMaxRows + g + r] = s;
+        }
       }
     }
     __syncthreads();
-    for (int j = threadIdx.x; j < rows; j += kThreads) {
-      TA s = TA(0);
 #pragma unroll
-      for (int q = 0; q < kWarps; ++q) s += red[q * kMaxRows + j];
-      partials[(size_t)j * n_tiles + t] = s;
-    }
+    for (int v = 0; v < NV; ++v)
+      for (int j = threadIdx.x; j < rows; j += kThreads) {
+        TA s = TA(0);
+#pragma unroll
+        for (int q = 0; q < kWarps; ++q) s += red[(v * kWarps + q) * kMaxRows + j];
+        partials[((size_t)j * NV + v) * n_tiles + t] = s;
+      }
     __syncthreads();
   }
 
@@ -216,73 +265,34 @@ basis_gram_kernel(const TV* __restrict__ V, const TW* __restrict__ w, TW* __rest
   // flight at once); each lane takes tiles lane, lane + 32, ... in order
   constexpr int kSumRows = 4;
   for (int j0 = warp; j0 < m1; j0 += kSumRows * kWarps) {
-    TA s[kSumRows];
+    TA s[kSumRows][NV];
 #pragma unroll
-    for (int r = 0; r < kSumRows; ++r) s[r] = TA(0);
+    for (int r = 0; r < kSumRows; ++r)
+#pragma unroll
+      for (int v = 0; v < NV; ++v) s[r][v] = TA(0);
 #pragma unroll 4
     for (int t = lane; t < n_tiles; t += 32) {
 #pragma unroll
       for (int r = 0; r < kSumRows; ++r) {
         const int j = j0 + r * kWarps;
-        if (j < rows) s[r] += __ldcg(partials + (size_t)j * n_tiles + t);
+        if (j >= rows) continue;
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+          s[r][v] += __ldcg(partials + ((size_t)j * NV + v) * n_tiles + t);
       }
     }
 #pragma unroll
     for (int r = 0; r < kSumRows; ++r) {
       const int j = j0 + r * kWarps;  // the same in every lane
       if (j >= m1) continue;
-      const TA v = j < rows ? warp_sum(s[r]) : TA(0);
-      if (lane == 0) u[j] = down<TW>(v);
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const TA x = j < rows ? warp_sum(s[r][v]) : TA(0);
+        if (lane == 0) u[(size_t)j * NV + v] = down<TW>(x);
+      }
     }
   }
   if (threadIdx.x == 0) *ticket = 0u;
-}
-
-template <typename TV, typename TW>
-__global__ void __launch_bounds__(kThreads)
-basis_gram2_kernel(const TV* __restrict__ V, const TW* __restrict__ w0,
-                   const TW* __restrict__ w1, acc_t<TW>* __restrict__ partials, int n,
-                   int rows, int m1) {
-  using TA = acc_t<TW>;
-  // red[(c * kWarps + warp) * kMaxRows + j]: warp `warp`'s share of row j
-  // against vector c (32 KB in fp64)
-  __shared__ TA red[2 * kWarps * kMaxRows];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const size_t col0 = (size_t)blockIdx.x * kTile + threadIdx.x;
-  TA av[kItems], bv[kItems];
-  load_tile_as(w0, col0, n, av);
-  load_tile_as(w1, col0, n, bv);
-  for (int j = 0; j < rows; ++j) {
-    TA rv[kItems];
-    load_tile_as(V + (size_t)j * n, col0, n, rv);
-    TA p0 = TA(0), p1 = TA(0);
-#pragma unroll
-    for (int it = 0; it < kItems; ++it) {
-      p0 += rv[it] * av[it];
-      p1 += rv[it] * bv[it];
-    }
-    p0 = warp_sum(p0);
-    p1 = warp_sum(p1);
-    if (lane == 0) {
-      red[warp * kMaxRows + j] = p0;
-      red[(kWarps + warp) * kMaxRows + j] = p1;
-    }
-  }
-  __syncthreads();
-  // partials[block][j][c]; rows past `rows` get zeros (the zero tail)
-  for (int j = threadIdx.x; j < m1; j += kThreads) {
-    TA s0 = TA(0), s1 = TA(0);
-    if (j < rows) {
-#pragma unroll
-      for (int q = 0; q < kWarps; ++q) {
-        s0 += red[q * kMaxRows + j];
-        s1 += red[(kWarps + q) * kMaxRows + j];
-      }
-    }
-    TA* out = partials + ((size_t)blockIdx.x * m1 + j) * 2;
-    out[0] = s0;
-    out[1] = s1;
-  }
 }
 
 template <typename TV, typename TW, bool SUMSQ>
@@ -705,30 +715,143 @@ basis_update_gram_blocks_kernel(const T* __restrict__ V, const T* __restrict__ w
   }
 }
 
-template <typename TV, typename TY, typename TX>
-__global__ void __launch_bounds__(kThreads)
-basis_axpy_kernel(const TV* __restrict__ V, const TY* __restrict__ y,
-                  TX* __restrict__ x, int n, int rows) {
+// K4, redesigned for Hopper: a thread owns kAxpyCols = 8 columns of a tile
+// of kThreads * kAxpyCols: axpy_chunks 16-byte chunks of a basis row (one
+// of a bf16 basis, two of fp32, four of fp64), chunk k at k * kThreads *
+// kVec columns from the thread's first, so that every chunk is one
+// coalesced pass of the block.  The block walks tiles t, t + grid, ...;
+// rows go axpy_rows at a time (4 of a bf16 or fp32 basis; of an fp64 basis
+// one, its four chunks the loads in flight), every row's chunk loads issued
+// before any multiply-add, y's rows in shared memory.  (The fastest of the
+// rows, chunks and grids tried on the card at n = 1M, 30 rows: PERF.md
+// section 6.)  The thread's values of
+// x are read once and written once, 16 bytes an access (a bf16 chunk meets
+// 32 bytes of fp32 x or 64 of fp64).  Each column's sum still runs over j
+// in order, in the accumulation dtype, one fmadd a term from 0 (the
+// one-row-at-a-time kernel it replaces contracted `acc += y_j * v` to the
+// same fma), and a bf16 y rounds the increment to bf16 before the add, so x
+// keeps that kernel's bits in every form and on every grid.
+//
+// Alignment: the aligned form (n a multiple of kVec, V and x 16-byte
+// aligned) loads every chunk whole.  Otherwise a row's chunk is one 16-byte
+// load where that row's chunk starts 16-byte aligned and lies whole below n,
+// else value by value (a column's sum runs down the column in one thread, so
+// a thread owns the same columns in every row, and rows of other phases
+// cannot be split at their own phase as K2's are); x value by value.
+// outer_kernel.py:axpy_plan holds the launch geometry, and
+// tests/test_torch_kernel_plans.py models the chunks and the split.
+constexpr int kAxpyCols = 8;
+constexpr int kAxpyBlocksPerSM = 4;
+
+template <typename TV>
+__host__ __device__ constexpr int axpy_chunks() { return kAxpyCols / vec16<TV>(); }
+template <typename TV>
+__host__ __device__ constexpr int axpy_rows() { return sizeof(TV) == 8 ? 1 : 4; }
+
+template <typename T>
+struct Bits;
+template <>
+struct Bits<bf16> {
+  using type = unsigned short;
+};
+template <>
+struct Bits<float> {
+  using type = unsigned;
+};
+template <>
+struct Bits<double> {
+  using type = unsigned long long;
+};
+
+// the live values of a basis row's chunk at p (zeros past them) as 16 raw
+// bytes: one load where p is 16-byte aligned and the chunk whole
+template <typename TV>
+__device__ __forceinline__ typename Raw16<TV>::type load_chunk(const TV* p, int live) {
+  using R = typename Raw16<TV>::type;
+  using B = typename Bits<TV>::type;
+  if (live == vec16<TV>() && reinterpret_cast<uintptr_t>(p) % 16 == 0)
+    return __ldg(reinterpret_cast<const R*>(p));
+  B b[vec16<TV>()];
+#pragma unroll
+  for (int e = 0; e < vec16<TV>(); ++e)
+    b[e] = e < live ? __ldg(reinterpret_cast<const B*>(p) + e) : B(0);
+  R r;
+  memcpy(&r, b, sizeof(r));
+  return r;
+}
+
+// kWhole (the aligned form where n is a whole number of tiles, as at n = 1M,
+// of a bf16 or fp32 basis): every chunk is whole, so none is checked.  An
+// fp64 basis keeps the checked loop: on the card it was the faster of the
+// two there (PERF.md section 6)
+template <typename TV, typename TY, typename TX, bool kAligned, bool kWhole>
+__global__ void __launch_bounds__(kThreads, kAxpyBlocksPerSM)
+basis_axpy_kernel(const TV* __restrict__ V, const TY* __restrict__ y, TX* __restrict__ x, int n,
+                  int rows, int n_tiles) {
   using TA = acc_t<TY>;
+  using R = typename Raw16<TV>::type;
+  constexpr int kVec = vec16<TV>();
+  constexpr int kChunks = axpy_chunks<TV>();
+  constexpr int kRows = axpy_rows<TV>();
   __shared__ TA ys[kMaxRows];
   for (int j = threadIdx.x; j < rows; j += kThreads) ys[j] = up<TA>(y[j]);
   __syncthreads();
-  const size_t col0 = (size_t)blockIdx.x * kTile + threadIdx.x;
-  TA acc[kItems];
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const size_t c0 = (size_t)t * kThreads * kAxpyCols + (size_t)threadIdx.x * kVec;
+    int live[kChunks];  // the chunk's columns below n
 #pragma unroll
-  for (int it = 0; it < kItems; ++it) acc[it] = TA(0);
-  for (int j = 0; j < rows; ++j) {
-    TA rv[kItems];
-    load_tile_as(V + (size_t)j * n, col0, n, rv);
-    const TA yj = ys[j];
+    for (int k = 0; k < kChunks; ++k) {
+      const size_t c = c0 + (size_t)k * kThreads * kVec;
+      live[k] = kWhole ? kVec : c < (size_t)n ? (int)min((size_t)kVec, (size_t)n - c) : 0;
+    }
+    TA acc[kChunks][kVec];
 #pragma unroll
-    for (int it = 0; it < kItems; ++it) acc[it] += yj * rv[it];
-  }
+    for (int k = 0; k < kChunks; ++k)
 #pragma unroll
-  for (int it = 0; it < kItems; ++it) {
-    const size_t c = col0 + (size_t)it * kThreads;
+      for (int e = 0; e < kVec; ++e) acc[k][e] = TA(0);
+    for (int g = 0; g < rows; g += kRows) {
+      R raw[kRows][kChunks];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (g + r >= rows) continue;
+#pragma unroll
+        for (int k = 0; k < kChunks; ++k) {
+          if (live[k] == 0) continue;
+          const TV* p = V + (size_t)(g + r) * n + c0 + (size_t)k * kThreads * kVec;
+          raw[r][k] = kAligned ? __ldg(reinterpret_cast<const R*>(p)) : load_chunk(p, live[k]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (g + r >= rows) continue;
+        const TA yj = ys[g + r];
+#pragma unroll
+        for (int k = 0; k < kChunks; ++k) {
+          if (live[k] == 0) continue;
+          TA v[kVec];
+          unpack16<TA>(raw[r][k], v);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) acc[k][e] = fmadd(yj, v[e], acc[k][e]);
+        }
+      }
+    }
     // a bf16 y gives a bf16 increment (jnp.matmul of two bf16 operands)
-    if (c < (size_t)n) x[c] += (TX)rounded<TY>(acc[it]);
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      TX* xc = x + c0 + (size_t)k * kThreads * kVec;
+      if constexpr (kAligned) {
+        if (live[k] == 0) continue;
+        TX xv[kVec];
+        lds_as(xc, xv);  // a generic load: x is written here, so not through __ldg
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) xv[e] += (TX)rounded<TY>(acc[k][e]);
+        st_as(xc, xv);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          if (e < live[k]) xc[e] += (TX)rounded<TY>(acc[k][e]);
+      }
+    }
   }
 }
 
@@ -763,25 +886,41 @@ static bool bad_shape(int n, int rows, int m1) {
 
 static bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <typename TV, typename TW>
-static int launch_gram(const TV* V, const TW* w, TW* u, acc_t<TW>* partials, unsigned* ticket,
-                       int n, int rows, int m1, int tile, int n_tiles, int grid, void* stream) {
+// A kernel's dynamic shared memory above the 48 KB default (K2x2's general
+// form in fp64), set once a device
+template <typename TV, typename TW, bool kAligned, int NV>
+static cudaError_t allow_gram_smem() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  err = cudaFuncSetAttribute((const void*)basis_gram_kernel<TV, TW, kAligned, NV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)gram_smem<acc_t<TW>, NV>(kAligned));
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
+// K2 (NV = 1, w1 unused) and K2x2 (NV = 2): u (m1, NV)
+template <typename TV, typename TW, int NV>
+static int launch_gram(const TV* V, const TW* w0, const TW* w1, TW* u, acc_t<TW>* partials,
+                       unsigned* ticket, int n, int rows, int m1, int tile, int n_tiles, int grid,
+                       void* stream) {
   if (bad_shape(n, rows, m1) || tile != kGramTileCols ||
       n_tiles != blocks_for(n, kGramTileCols) || grid < 1)
     return (int)cudaErrorInvalidValue;
-  const bool aligned = n % vec16<TV>() == 0 && aligned16(V) && aligned16(w);
-  auto kernel = aligned ? basis_gram_kernel<TV, TW, true> : basis_gram_kernel<TV, TW, false>;
-  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(V, w, u, partials, ticket, n, rows, m1,
-                                                      n_tiles);
-  return (int)cudaGetLastError();
-}
-
-template <typename TV, typename TW>
-static int launch_gram2(const TV* V, const TW* w0, const TW* w1, acc_t<TW>* partials, int n,
-                        int rows, int m1, void* stream) {
-  if (bad_shape(n, rows, m1)) return (int)cudaErrorInvalidValue;
-  basis_gram2_kernel<TV, TW><<<blocks_for(n, kTile), kThreads, 0, (cudaStream_t)stream>>>(
-      V, w0, w1, partials, n, rows, m1);
+  const bool aligned =
+      n % vec16<TV>() == 0 && aligned16(V) && aligned16(w0) && (NV == 1 || aligned16(w1));
+  const size_t smem = gram_smem<acc_t<TW>, NV>(aligned);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = aligned ? allow_gram_smem<TV, TW, true, NV>()
+                                    : allow_gram_smem<TV, TW, false, NV>();
+    if (err != cudaSuccess) return (int)err;
+  }
+  auto kernel =
+      aligned ? basis_gram_kernel<TV, TW, true, NV> : basis_gram_kernel<TV, TW, false, NV>;
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(V, w0, w1, u, partials, ticket, n, rows,
+                                                         m1, n_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -853,10 +992,19 @@ static int launch_update_gram_blocks(const double* V, const double* w, const dou
 }
 
 template <typename TV, typename TY, typename TX>
-static int launch_axpy(const TV* V, const TY* y, TX* x, int n, int rows, void* stream) {
-  if (bad_shape(n, rows, rows)) return (int)cudaErrorInvalidValue;
-  basis_axpy_kernel<TV, TY, TX><<<blocks_for(n, kTile), kThreads, 0, (cudaStream_t)stream>>>(
-      V, y, x, n, rows);
+static int launch_axpy(const TV* V, const TY* y, TX* x, int n, int rows, int n_tiles, int grid,
+                       void* stream) {
+  if (bad_shape(n, rows, rows) || n_tiles != blocks_for(n, kThreads * kAxpyCols) || grid < 1 ||
+      grid > n_tiles)
+    return (int)cudaErrorInvalidValue;
+  const bool aligned = n % vec16<TV>() == 0 && aligned16(V) && aligned16(x);
+  auto kernel = aligned ? basis_axpy_kernel<TV, TY, TX, true, false>
+                        : basis_axpy_kernel<TV, TY, TX, false, false>;
+  if constexpr (sizeof(TV) < 8) {
+    if (aligned && n % (kThreads * kAxpyCols) == 0)
+      kernel = basis_axpy_kernel<TV, TY, TX, true, true>;
+  }
+  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(V, y, x, n, rows, n_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -865,7 +1013,8 @@ static int launch_axpy(const TV* V, const TY* y, TX* x, int n, int rows, void* s
 //   gram          K2: u (m1,) from V and w in one launch; partials (rows,
 //                 n_tiles) of the accumulation dtype, scratch; ticket one
 //                 zeroed counter that the kernel leaves zeroed
-//   gram2         K2x2: the (n_blocks, m1, 2) block partials
+//   gram2         K2x2: u (m1, 2) from V, w0 and w1 in one launch, K2's
+//                 plan; partials (rows, 2, n_tiles) scratch; ticket as K2's
 //   update        K3 with the flag off: w' = w - u^T V alone
 //                 (orth_kernel.py:_update)
 //   update_sumsq  K3 with SUMSQ: w' and the (n_blocks,) partials of ||w'||^2
@@ -878,8 +1027,8 @@ static int launch_axpy(const TV* V, const TY* y, TX* x, int n, int rows, void* s
   int gmres_basis_gram_##SFX(const TV* V, const TW* w, TW* u, acc_t<TW>* partials,            \
                              unsigned* ticket, int n, int rows, int m1, int tile, int n_tiles,  \
                              int grid, void* stream) {                                          \
-    return launch_gram<TV, TW>(V, w, u, partials, ticket, n, rows, m1, tile, n_tiles, grid,    \
-                               stream);                                                         \
+    return launch_gram<TV, TW, 1>(V, w, nullptr, u, partials, ticket, n, rows, m1, tile,       \
+                                  n_tiles, grid, stream);                                       \
   }                                                                                             \
   int gmres_basis_update_##SFX(const TV* V, const TW* w, const TW* u, TW* w_out, int n,        \
                                int rows, int m1, void* stream) {                                \
@@ -891,9 +1040,11 @@ static int launch_axpy(const TV* V, const TY* y, TX* x, int n, int rows, void* s
     return launch_update<TV, TW, true>(V, w, u, w_out, partials, n, rows, m1, stream);         \
   }
 #define GMRES_GRAM2_FORM(SFX, TV, TW)                                                           \
-  int gmres_basis_gram2_##SFX(const TV* V, const TW* w0, const TW* w1, acc_t<TW>* partials,    \
-                              int n, int rows, int m1, void* stream) {                          \
-    return launch_gram2<TV, TW>(V, w0, w1, partials, n, rows, m1, stream);                     \
+  int gmres_basis_gram2_##SFX(const TV* V, const TW* w0, const TW* w1, TW* u,                  \
+                              acc_t<TW>* partials, unsigned* ticket, int n, int rows, int m1,   \
+                              int tile, int n_tiles, int grid, void* stream) {                  \
+    return launch_gram<TV, TW, 2>(V, w0, w1, u, partials, ticket, n, rows, m1, tile, n_tiles,  \
+                                  grid, stream);                                                \
   }
 #define GMRES_UPDATE_GRAM_FORM(SFX, TV, TW)                                                     \
   int gmres_basis_update_gram_##SFX(const TV* V, const TW* w, const TW* u, TW* w_out, TW* u2,  \
@@ -904,10 +1055,13 @@ static int launch_axpy(const TV* V, const TY* y, TX* x, int n, int rows, void* s
                                       n_tiles, stride, grid, smem, stream);                     \
   }
 // K4: suffix the basis dtype, then the iterate's, where y is in the basis
-// dtype; else the basis's, y's and the iterate's
+// dtype; else the basis's, y's and the iterate's; n_tiles (tiles of
+// kThreads x kAxpyCols columns) and grid as outer_kernel.py:axpy_plan gives
+// them (checked here)
 #define GMRES_AXPY_FORM(SFX, TV, TY, TX)                                                        \
-  int gmres_basis_axpy_##SFX(const TV* V, const TY* y, TX* x, int n, int rows, void* stream) { \
-    return launch_axpy<TV, TY, TX>(V, y, x, n, rows, stream);                                   \
+  int gmres_basis_axpy_##SFX(const TV* V, const TY* y, TX* x, int n, int rows, int n_tiles,    \
+                             int grid, void* stream) {                                          \
+    return launch_axpy<TV, TY, TX>(V, y, x, n, rows, n_tiles, grid, stream);                    \
   }
 
 extern "C" {

@@ -104,9 +104,10 @@ for _sfx in SWEEP_FORMS.values():
     _SIGNATURES[f"gmres_basis_mgs_{_sfx}"] = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I,
                                               _I, _I, _P, _P, _P)
 for _sfx in GRAM2_FORMS.values():
-    _SIGNATURES[f"gmres_basis_gram2_{_sfx}"] = (_P, _P, _P, _P, _I, _I, _I, _P)
+    _SIGNATURES[f"gmres_basis_gram2_{_sfx}"] = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                                _P)
 for _sfx in AXPY_FORMS.values():
-    _SIGNATURES[f"gmres_basis_axpy_{_sfx}"] = (_P, _P, _P, _I, _I, _P)
+    _SIGNATURES[f"gmres_basis_axpy_{_sfx}"] = (_P, _P, _P, _I, _I, _I, _I, _P)
 
 
 class KernelLibrary:

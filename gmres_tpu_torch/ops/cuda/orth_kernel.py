@@ -6,7 +6,7 @@ Replaces ``gmres_tpu/ops/pallas/orth_kernel.py``'s ``_gram``, ``_gram2``,
 ``cgsr2_pallas``:
 
     gram:          u = V w
-    gram2:         (u0, u1) = (V w0, V w1), one sweep
+    gram2:         u = [V w0, V w1], (m+1, 2), one sweep
     update:        w1 = w - u^T V
     update_gram:   w1 = w - u^T V,  u2 = V w1
     update_sumsq:  w2 = w - u^T V,  ||w2||^2
@@ -24,10 +24,12 @@ ones.  Sums run in the accumulation dtype (``_build.acc_dtype``: fp64 under
 fp64 vectors, else fp32) and the outputs are rounded to the vectors'
 dtype, as the TPU kernels do: u2 of ``update_gram`` and ||w'||^2 of
 ``update_sumsq`` are taken from w' before it is rounded, and the sum of
-squares stays in the accumulation dtype.  K2x2's outputs are its
-partials' dtype; the ICWY step passes it vectors in the accumulation
-dtype.  A CUDA tensor in a combination without a form raises; the plain
-versions compute every combination the same way.
+squares stays in the accumulation dtype.  K2x2 is K2's kernel with two
+vectors; the ICWY step passes it vectors in the accumulation dtype, and
+each column of its (m+1, 2) output has the bits of K2's u for that
+vector.  A CUDA tensor in
+a combination without a form raises; the plain versions compute every
+combination the same way.
 """
 
 from __future__ import annotations
@@ -49,9 +51,11 @@ from gmres_tpu_torch.ops.cuda._build import (
 
 # K2's tile width (csrc/basis_sweep.cu: kGramTileCols) and the blocks per SM
 # of its persistent grid (4 fit an SM; the fastest in the grid table of
-# chip_smoke.py, PERF.md)
+# chip_smoke.py, PERF.md); K2x2 keeps two vectors in registers, so 2 fit
+# (kGram2BlocksPerSM)
 GRAM_TILE = 2048
 GRAM_BLOCKS_PER_SM = 4
+GRAM2_BLOCKS_PER_SM = 2
 
 
 def _rows_ok(V: torch.Tensor, rows: int) -> None:
@@ -209,11 +213,12 @@ _STREAMS: dict = {}
 
 
 def _gram_state(device: torch.device):
-    """(SM count, the zeroed ticket counter) of a card.  K2, K3 GRAM, K10
-    and K12's residual mode share the counter: each kernel's last block
-    resets it, so two of them must never run at once.  They are therefore
-    held to the stream the counter was made on, and a launch from any other
-    stream raises."""
+    """(SM count, the zeroed ticket counter) of a card in this process.  K2,
+    K2x2, K3 GRAM, K10 and K12's residual mode share the counter: each
+    kernel's last block resets it, so two of them must never run at once.
+    They are therefore held to the stream the counter was made on, and a
+    launch from any other stream raises.  Each process makes its own
+    counter, so ranks that share a card share none."""
     stream = torch.cuda.current_stream(device).cuda_stream
     if device not in _TICKETS:
         _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
@@ -221,7 +226,7 @@ def _gram_state(device: torch.device):
         _STREAMS[device] = stream
     if stream != _STREAMS[device]:
         raise RuntimeError(
-            f"K2/K3 GRAM/K10/K12 residual share one ticket counter on {device}, made on "
+            f"K2/K2x2/K3 GRAM/K10/K12 residual share one ticket counter on {device}, made on "
             f"stream {_STREAMS[device]:#x}; launching from stream {stream:#x} could "
             "interleave two kernels' tickets")
     return _SMS[device], _TICKETS[device]
@@ -252,20 +257,31 @@ gram_cuda.grid = 0
 
 
 def gram2_plain(V: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor, rows: int):
-    return gram_plain(V, w0, rows), gram_plain(V, w1, rows)
+    """[V w0, V w1] as gram_plain computes each, the columns of one (m+1, 2)
+    tensor."""
+    return torch.stack([gram_plain(V, w0, rows), gram_plain(V, w1, rows)], dim=1)
 
 
-def gram2_cuda(V: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor, rows: int):
-    """K2x2: (V w0, V w1) from per-block partials, V read once; the
-    outputs in the accumulation dtype (w0's for every form it has)."""
-    lib, sfx, m1, n, nb = _sweep_args("gram2", V, rows, GRAM2_FORMS, w0=(w0, V.shape[1]),
-                                      w1=(w1, V.shape[1]))
-    partials = torch.empty((nb, m1, 2), dtype=acc_dtype(w0.dtype), device=V.device)
+def gram2_cuda(V: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor, rows: int,
+               blocks_per_sm: int | None = None) -> torch.Tensor:
+    """K2x2: [V w0, V w1] in one launch of K2's kernel with two vectors, V
+    read once, as the columns of one contiguous (m+1, 2) tensor in the
+    accumulation dtype (w0's for every form it has); each column has the
+    bits of gram_cuda's u for that vector (the same tiles and sums;
+    ``blocks_per_sm`` overrides GRAM2_BLOCKS_PER_SM and the bits do not
+    depend on it)."""
+    lib, sfx, m1, n, _ = _sweep_args("gram2", V, rows, GRAM2_FORMS, w0=(w0, V.shape[1]),
+                                     w1=(w1, V.shape[1]))
+    sms, ticket = _gram_state(V.device)
+    plan = gram_plan(n, V.element_size(), sms, blocks_per_sm or GRAM2_BLOCKS_PER_SM,
+                     lib.threads)
+    u = torch.empty((m1, 2), dtype=w0.dtype, device=V.device)
+    partials = torch.empty(rows * 2 * plan.n_tiles, dtype=acc_dtype(w0.dtype), device=V.device)
     lib.call(f"gmres_basis_gram2_{sfx}", V.data_ptr(), w0.data_ptr(), w1.data_ptr(),
-             partials.data_ptr(), n, rows, m1)
+             u.data_ptr(), partials.data_ptr(), ticket.data_ptr(), n, rows, m1, plan.tile,
+             plan.n_tiles, plan.grid)
     _count(gram2_cuda, sfx)
-    u = partials.sum(dim=0)
-    return u[:, 0], u[:, 1]
+    return u
 
 
 gram2_cuda.launches = 0

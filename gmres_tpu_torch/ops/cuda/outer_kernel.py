@@ -16,6 +16,7 @@ the port's outer phase matches the reference's CPU branch.
 
 from __future__ import annotations
 
+import dataclasses
 from collections import Counter
 
 import torch
@@ -98,11 +99,50 @@ def basis_axpy_plain(x: torch.Tensor, V: torch.Tensor, y: torch.Tensor) -> torch
     return x
 
 
-def basis_axpy_cuda(x: torch.Tensor, V: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+# K4's persistent grid: blocks an SM (csrc/basis_sweep.cu: kAxpyBlocksPerSM);
+# 0 gives one block a tile.  A thread owns AXPY_COLS columns of a tile
+# (kAxpyCols)
+AXPY_BLOCKS_PER_SM = 4
+AXPY_COLS = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class AxpyPlan:
+    """K4's launch geometry: tiles of ``tile`` = threads * AXPY_COLS columns
+    (the last may be partial), a grid of ``grid`` blocks taking tiles b, b +
+    grid, ...; in a tile thread ``i`` owns AXPY_COLS / ``vec`` chunks of
+    ``vec`` columns (16 bytes of a basis row), chunk k at (k * threads + i)
+    * vec, so that each chunk is one coalesced pass of the block."""
+
+    n: int
+    vec: int
+    tile: int
+    n_tiles: int
+    grid: int
+    threads: int = 256
+
+
+def axpy_plan(n: int, itemsize: int, sms: int, blocks_per_sm: int = AXPY_BLOCKS_PER_SM,
+              threads: int = 256) -> AxpyPlan:
+    """Chunks of 16 bytes of a basis row of ``itemsize``-byte values, tiles
+    of threads * AXPY_COLS columns, and a persistent grid of blocks_per_sm
+    blocks on each SM (no more than there are tiles), or with 0 one block a
+    tile."""
+    tile = threads * AXPY_COLS
+    n_tiles = -(-n // tile)
+    grid = n_tiles if blocks_per_sm == 0 else max(1, min(n_tiles, sms * blocks_per_sm))
+    return AxpyPlan(n=n, vec=16 // itemsize, tile=tile, n_tiles=n_tiles, grid=grid,
+                    threads=threads)
+
+
+def basis_axpy_cuda(x: torch.Tensor, V: torch.Tensor, y: torch.Tensor,
+                    blocks_per_sm: int | None = None) -> torch.Tensor:
     """K4: x += sum_j y[j] V[j] in place, in one of ``AXPY_FORMS``: summed
     in the accumulation dtype of jnp's promotion of (y, V) (fp64 for an fp64
     y, else fp32; a bf16 y rounds the increment to bf16) and added to x; the
-    increment is never written to memory."""
+    increment is never written to memory.  ``blocks_per_sm`` overrides
+    AXPY_BLOCKS_PER_SM (0: one block a tile); the bits do not depend on
+    it."""
     sfx = form("basis_axpy", AXPY_FORMS, V.dtype, y.dtype, x.dtype)
     name = f"gmres_basis_axpy_{sfx}"
     rows = y.shape[0]
@@ -115,7 +155,10 @@ def basis_axpy_cuda(x: torch.Tensor, V: torch.Tensor, y: torch.Tensor) -> torch.
     lib = library()
     if rows > lib.max_rows:
         raise ValueError(f"basis_axpy: {rows} basis rows > {lib.max_rows}")
-    lib.call(name, V.data_ptr(), y.data_ptr(), x.data_ptr(), n, rows)
+    per_sm = AXPY_BLOCKS_PER_SM if blocks_per_sm is None else blocks_per_sm
+    sms = torch.cuda.get_device_properties(V.device).multi_processor_count
+    plan = axpy_plan(n, V.element_size(), sms, per_sm, lib.threads)
+    lib.call(name, V.data_ptr(), y.data_ptr(), x.data_ptr(), n, rows, plan.n_tiles, plan.grid)
     basis_axpy_cuda.launches += 1
     basis_axpy_cuda.forms[sfx] += 1
     return x

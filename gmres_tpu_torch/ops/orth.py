@@ -76,9 +76,8 @@ def mgs_lowsync_step(V: torch.Tensor, k: int, w: torch.Tensor, L: torch.Tensor, 
     rows = k + 1
     acc = L.dtype
     wa = w.to(acc)
-    u, ell = gram2(V, wa, V[k].to(acc), rows)
-    if comm is not None:
-        u, ell = comm.all_reduce_sum(torch.stack([u, ell], dim=1)).unbind(1)
+    # (u, l) as the columns of K2x2's one (m+1, 2) output: one collective
+    u, ell = all_reduce(gram2(V, wa, V[k].to(acc), rows), comm).unbind(1)
     L[k, :k] = ell[:k]
     h = torch.linalg.solve_triangular(L, u.unsqueeze(1), upper=False,
                                       unitriangular=True).squeeze(1)

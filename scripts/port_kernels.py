@@ -4,11 +4,13 @@ and ``dia_residual_halo``), K10 (``df_update_gram``) and K11
 (``df_update_sumsq``) of one checkout of gmres_tpu_torch on one CUDA
 device, timed as ``chip_smoke.py`` times them, with their outputs saved for
 a bit-for-bit comparison of two checkouts; beside them the outputs (and
-times) of K2, K3 SUMSQ, K3 plain, K2x2 and K4 in fp32 and fp64, whose bits
-every change of the sweeps' dtype forms keeps.
+times) of K2, K3 SUMSQ and K3 plain in fp32 and fp64, whose bits every
+change of the sweeps' dtype forms keeps, and of K2x2 in its four forms and
+K4 in its eight.
 
     python3 scripts/port_kernels.py [--checkout DIR] [--save FILE]
     python3 scripts/port_kernels.py --compare A.pt B.pt
+    python3 scripts/port_kernels.py --pairs P --parent DIR
 
 imports ``gmres_tpu_torch`` from DIR (default: this checkout) and the timer
 and inputs of this checkout's ``chip_smoke.py`` (L2 flushed, the card kept
@@ -21,9 +23,9 @@ Shapes are the main path's:
   entries, w and u of N(0, 1) entries (numpy seed 0, as
   ``chip_smoke.check_kernels``), rows 31 and 16, fp32 and fp64; K7 on the
   near-orthonormal basis of ``chip_smoke.mgs_basis`` (seed 3).  K2, K3
-  SUMSQ, K3 plain and K2x2 (against w and row rows - 1) on the same inputs
-  as K3 GRAM; K4 with the first 30 values of u into an fp64 x of U(0, 1)
-  entries (seed 1).
+  SUMSQ and K3 plain on the same inputs as K3 GRAM, and K2x2 (against w and
+  row rows - 1) in each form on them cast to its dtypes; K4 in each form
+  with the first 30 values of u into an x of U(0, 1) entries (seed 1).
 - K12 at the row blocks of convdiff@1M over 4 ranks (r = 262,144, offsets
   +-1 and +-1024, edges of 1024 values; the interior block and the first
   and last, whose open edge is zeros), inputs as
@@ -42,16 +44,26 @@ it fails without them), then one JSON line; ``--save`` also writes the
 outputs to FILE with ``torch.save``.
 
 ``--compare`` reads two such files and prints, for each output, whether the
-two are bit-equal; it exits 1 if K3 GRAM's w', K12's y or residual r,
-K10's w' or K11's w' and sum of squares differ (each redesign keeps those
-bits), or any output of K2, K3 (every mode), K2x2, K7 or K4 in fp32 or
-fp64 (the dtype forms keep those), else 0.
+two are bit-equal, and the largest difference of each output that is not;
+it exits 1 if K3 GRAM's w', K12's y or residual r, K10's w' or K11's w'
+and sum of squares, or K4's x in any of its eight forms differ (each
+redesign keeps those bits), or any output of K2, K3 (every mode) or K7 in
+fp32 or fp64 (the dtype forms keep those), else 0.  K2x2's u0 and u1 may
+differ: since K2x2 became K2's kernel with two vectors they are K2's bits,
+no longer those of its block partials added by torch.sum.
+
+``--pairs P --parent DIR`` loads the K2x2 and K4 wrappers of the checkout
+in DIR and of this one into one process and times them in turns, P pairs
+(DIR's, then this one's) for each form of K2x2 (31 rows) and of K4 (30
+coefficients) on ``measure_forms_kept``'s inputs; it prints each form's
+pairs and how many of them this checkout's kernel won, in one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -70,8 +82,9 @@ KEPT = (("update_gram", "w1"), ("halo_spmv", "y"), ("halo_residual", "r"),
         # every output of the fp32 and fp64 sweep forms, which the forms for
         # other dtypes leave as they were
         ("gram", "u"), ("update_gram", "u2"), ("update_sumsq", "w1"), ("update_sumsq", "ss"),
-        ("update", "w1"), ("gram2", "u0"), ("gram2", "u1"), ("mgs", "h"), ("mgs", "w1"),
-        ("mgs", "norm"), ("axpy", "x"))
+        ("update", "w1"), ("mgs", "h"), ("mgs", "w1"), ("mgs", "norm"),
+        # K4's x in each of its eight forms (the redesign keeps them)
+        ("axpy", "x"))
 
 
 def _timer_module():
@@ -124,12 +137,24 @@ def measure_sweeps(torch, cs, timer, copy_gbs, times, outs):
         del V, w, u, Vm, wm
 
 
+def _longdouble(V, w):
+    """max_j |V_j . w| and V w summed in numpy's longdouble, V and w as the
+    card holds them (a bf16 basis widened exactly)."""
+    Vl = V.double().cpu().numpy().astype(np.longdouble)
+    return Vl @ w.double().cpu().numpy().astype(np.longdouble)
+
+
 def measure_forms_kept(torch, timer, times, outs):
-    """K2, K3 SUMSQ, K3 plain, K2x2 and K4 in fp32 and fp64 on
-    measure_sweeps' inputs: their outputs (and times), after the profiled
-    measurements (late in a long process the profiler records nothing)."""
+    """K2, K3 SUMSQ and K3 plain in fp32 and fp64, K2x2 in its four forms and
+    K4 in its eight on measure_sweeps' inputs: their outputs (and times),
+    after the profiled measurements (late in a long process the profiler
+    records nothing).  K2x2 also: its largest error against a longdouble
+    sum, whether u0 and u1 equal K2's u, and (where the checkout's wrapper
+    takes blocks_per_sm) its time on 1-4 blocks an SM; K4 (likewise) on its
+    persistent grid of 1, 2 and 4 blocks an SM and on one block a tile."""
     from gmres_tpu_torch.ops.cuda import orth_kernel as ok
     from gmres_tpu_torch.ops.cuda import outer_kernel as ou
+    from gmres_tpu_torch.ops.cuda._build import AXPY_FORMS, GRAM2_FORMS
 
     rng = np.random.default_rng(0)
     rng.random(N)
@@ -145,17 +170,100 @@ def measure_forms_kept(torch, timer, times, outs):
             for label, fn, names in (
                     ("gram", lambda: ok.gram_cuda(V, w, rows), ("u",)),
                     ("update_sumsq", lambda: ok.update_sumsq_cuda(V, w, u, rows), ("w1", "ss")),
-                    ("update", lambda: ok.update_cuda(V, w, u, rows), ("w1",)),
-                    ("gram2", lambda: ok.gram2_cuda(V, w, V[rows - 1], rows), ("u0", "u1"))):
+                    ("update", lambda: ok.update_cuda(V, w, u, rows), ("w1",))):
                 got = fn()
                 for nm, t in zip(names, got if isinstance(got, tuple) else (got,)):
                     outs[f"{label} {key} {nm}"] = t.cpu()
                 times[f"{label} {key}"] = dict(ms=timer(fn))
-        x = torch.tensor(x_np, device="cuda")
-        y = u[:M1 - 1].contiguous()
-        outs[f"axpy {name} x"] = ou.basis_axpy_cuda(x.clone(), V, y).cpu()
-        times[f"axpy {name}"] = dict(ms=timer(lambda: ou.basis_axpy_cuda(x.clone(), V, y)))
         del V, w, u
+    grid_kw = "blocks_per_sm" in inspect.signature(ok.gram2_cuda).parameters
+    for (vt, wt), form in GRAM2_FORMS.items():
+        V = torch.tensor(V_np, dtype=vt, device="cuda")
+        w = torch.tensor(w_np, dtype=wt, device="cuda")
+        exact_w = _longdouble(V, w)
+        for rows in ROWS:
+            vk = V[rows - 1].to(wt)
+            exact = (exact_w[:rows], _longdouble(V[:rows], vk))
+            key = f"gram2 {form} rows {rows}"
+            got = ok.gram2_cuda(V, w, vk, rows)  # (m+1, 2), or an older checkout's pair
+            got = got.unbind(1) if torch.is_tensor(got) else got
+            outs[f"{key} u0"], outs[f"{key} u1"] = got[0].cpu(), got[1].cpu()
+            err = max(float(np.max(np.abs(g[:rows].double().cpu().numpy() - e)))
+                      for g, e in zip(got, exact))
+            rec = dict(ms=timer(lambda: ok.gram2_cuda(V, w, vk, rows)), longdouble_err=err,
+                       bits_of_k2=bool(torch.equal(got[0], ok.gram_cuda(V, w, rows))
+                                       and torch.equal(got[1], ok.gram_cuda(V, vk, rows))))
+            if grid_kw:
+                rec["ms_by_blocks_per_sm"] = {
+                    b: timer(lambda: ok.gram2_cuda(V, w, vk, rows, blocks_per_sm=b))
+                    for b in (1, 2, 3, 4)}
+            times[key] = rec
+        del V, w
+    grid_kw = "blocks_per_sm" in inspect.signature(ou.basis_axpy_cuda).parameters
+    for (vt, yt, xt), form in AXPY_FORMS.items():
+        V = torch.tensor(V_np, dtype=vt, device="cuda")
+        y = torch.tensor(u_np[:M1 - 1], dtype=yt, device="cuda")
+        x = torch.tensor(x_np, dtype=xt, device="cuda")
+        outs[f"axpy {form} x"] = ou.basis_axpy_cuda(x.clone(), V, y).cpu()
+        rec = dict(ms=timer(lambda: ou.basis_axpy_cuda(x, V, y)))  # x in place
+        if grid_kw:
+            rec["ms_by_blocks_per_sm"] = {
+                b: timer(lambda: ou.basis_axpy_cuda(x, V, y, blocks_per_sm=b))
+                for b in (0, 1, 2, 4)}
+        times[f"axpy {form}"] = rec
+        del V, y, x
+
+
+def _wrappers(checkout):
+    """The orth_kernel and outer_kernel modules of gmres_tpu_torch in
+    ``checkout``.  Every module of the package imported before is dropped
+    from sys.modules first, so that two checkouts' wrappers can be held in
+    one process: each keeps the modules (and the kernel library) it was
+    made from."""
+    for name in [m for m in sys.modules if m.split(".")[0] == "gmres_tpu_torch"]:
+        del sys.modules[name]
+    sys.path.insert(0, os.path.abspath(checkout))
+    try:
+        from gmres_tpu_torch.ops.cuda import orth_kernel, outer_kernel
+    finally:
+        sys.path.pop(0)
+    return orth_kernel, outer_kernel
+
+
+def measure_pairs(torch, timer, parent, pairs):
+    """K2x2 (31 rows) and K4 (30 coefficients) in each form on
+    measure_forms_kept's inputs, the wrappers of ``parent`` and of this
+    checkout timed in turns: ``pairs`` (parent, this) pairs of medians, and
+    the number of pairs this checkout's won."""
+    old, new = _wrappers(parent), _wrappers(ROOT)
+    from gmres_tpu_torch.ops.cuda._build import AXPY_FORMS, GRAM2_FORMS
+
+    rng = np.random.default_rng(0)
+    rng.random(N)
+    rng.standard_normal(N)
+    V_np = rng.standard_normal((M1, N)) / np.sqrt(N)
+    w_np = rng.standard_normal(N)
+    u_np = rng.standard_normal(M1)
+    x_np = np.random.default_rng(1).random(N)
+    calls = {}
+    for (vt, wt), form in GRAM2_FORMS.items():
+        V = torch.tensor(V_np, dtype=vt, device="cuda")
+        w = torch.tensor(w_np, dtype=wt, device="cuda")
+        vk = V[M1 - 1].to(wt)
+        calls[f"gram2 {form}"] = [lambda ok=ok, V=V, w=w, vk=vk: ok.gram2_cuda(V, w, vk, M1)
+                                  for ok, _ in (old, new)]
+    for (vt, yt, xt), form in AXPY_FORMS.items():
+        V = torch.tensor(V_np, dtype=vt, device="cuda")
+        y = torch.tensor(u_np[:M1 - 1], dtype=yt, device="cuda")
+        x = torch.tensor(x_np, dtype=xt, device="cuda")
+        calls[f"axpy {form}"] = [lambda ou=ou, V=V, y=y, x=x: ou.basis_axpy_cuda(x, V, y)
+                                 for _, ou in (old, new)]  # x in place
+    out = {}
+    for key, (a, b) in calls.items():
+        a(), b()  # built and launched once before the first timed pair
+        ms = [(timer(a), timer(b)) for _ in range(pairs)]
+        out[key] = dict(pairs=ms, wins=sum(t_b < t_a for t_a, t_b in ms))
+    return out
 
 
 def measure_halo(torch, cs, timer, copy_gbs, times, outs):
@@ -235,15 +343,24 @@ def measure_df64(torch, cs, timer, copy_gbs, times, outs):
 
 
 def compare(torch, a_path, b_path) -> int:
+    sys.path.insert(0, ROOT)
+    from gmres_tpu_torch.ops.cuda._build import AXPY_FORMS
+
     a, b = torch.load(a_path), torch.load(b_path)
     equal = {k: bool(torch.equal(a[k], b[k])) for k in sorted(set(a) & set(b))}
     print(json.dumps({"compare": [a_path, b_path], "bit_equal": equal}), flush=True)
+    # outputs a change may move (K2x2's u): the largest difference
+    moved = {k: float((a[k].double() - b[k].double()).abs().max()) for k in equal
+             if not equal[k]}
     kept = [k for k in equal if any(k.startswith(p + " ") and k.endswith(" " + s)
                                     for p, s in KEPT)]
     missing = [p for p in KEPT if not any(k.startswith(p[0] + " ") and k.endswith(" " + p[1])
                                           for k in kept)]
+    missing += [f"axpy {sfx} x" for sfx in AXPY_FORMS.values() if f"axpy {sfx} x" not in kept]
     differ = [k for k in kept if not equal[k]]
-    print(json.dumps({"kept_bits_differ": differ, "kept_missing": missing}), flush=True)
+    print(json.dumps({"kept_bits_differ": differ, "kept_missing": missing,
+                      "max_abs_diff_of_others": {k: v for k, v in moved.items()
+                                                 if k not in differ}}), flush=True)
     return 0 if kept and not differ and not missing else 1
 
 
@@ -252,18 +369,27 @@ def main() -> int:
     ap.add_argument("--checkout", default=ROOT)
     ap.add_argument("--save")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
+    ap.add_argument("--pairs", type=int)
+    ap.add_argument("--parent")
     args = ap.parse_args()
     import torch
 
     if args.compare:
         return compare(torch, *args.compare)
-    sys.path.insert(0, os.path.abspath(args.checkout))
+    if args.pairs and not args.parent:
+        ap.error("--pairs needs --parent DIR")
     if not torch.cuda.is_available():
         print("port_kernels: torch sees no CUDA device", file=sys.stderr)
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     cs = _timer_module()
+    if args.pairs:
+        pairs = measure_pairs(torch, cs.Timer(torch), args.parent, args.pairs)
+        print(json.dumps(dict(parent=args.parent, device=torch.cuda.get_device_name(0),
+                              pairs=pairs)), flush=True)
+        return 0
+    sys.path.insert(0, os.path.abspath(args.checkout))
     copy_ms, copy_gbs = cs.copy_bandwidth(torch)
     timer = cs.Timer(torch)
     times, outs = {}, {}

@@ -109,7 +109,7 @@ def test_bf16_f32_sweeps_match_the_pallas_kernels(basis, rows):
     _close(w2, jw2, 1e-5)
     _close(float(ss), float(jss), 1e-5)
     vk = V[rows - 1].float()
-    for g, j in zip(ok.gram2(V, w, vk, rows),
+    for g, j in zip(ok.gram2(V, w, vk, rows).unbind(1),
                     jk._gram2(jV, jw, jnp.asarray(vk.numpy()), interpret=True)):
         assert g.dtype == torch.float32
         _close(g, j, 1e-5)
@@ -159,7 +159,7 @@ def test_f32_f64_sweeps_match_the_xla_route(basis, rows):
     vk = Vt[rows - 1].double()
     P = np.asarray(jnp.sum(jV.astype(jnp.float64)[:rows, None, :]
                            * jnp.stack([jw, jnp.asarray(vk.numpy())])[None], axis=2))
-    for c, g in enumerate(ok.gram2(Vt, wt, vk, rows)):
+    for c, g in enumerate(ok.gram2(Vt, wt, vk, rows).unbind(1)):
         _close(g[:rows], P[:, c], 1e-13, np.abs(V[:rows]).astype(np.float64) @ (
             np.abs(w) + np.abs(vk.numpy())))
 

@@ -39,7 +39,7 @@ from gmres_tpu_torch.ops import eft
 from gmres_tpu_torch.ops.cuda import df64_orth_kernel as dk
 from gmres_tpu_torch.ops.cuda import df64_spmv_kernel as ds
 from gmres_tpu_torch.ops.cuda import form_launch_counts, launch_counts, reset_launch_counts
-from gmres_tpu_torch.ops.cuda._build import SWEEP_FORMS
+from gmres_tpu_torch.ops.cuda._build import AXPY_FORMS, GRAM2_FORMS, SWEEP_FORMS
 from gmres_tpu_torch.ops.cuda import mgs_kernel as mk
 from gmres_tpu_torch.ops.cuda import orth_kernel as ok
 from gmres_tpu_torch.ops.cuda import outer_kernel as ou
@@ -209,7 +209,8 @@ def test_update_gram_w_keeps_the_one_row_at_a_time_bits():
 
 def _one_call(name):
     """The wrapper call whose device kernels a test counts, on its inputs
-    ("gram:<form>" and "update_gram:<form>" for the dtype forms)."""
+    ("gram:<form>", "gram2:<form>" and "update_gram:<form>" for the dtype
+    forms)."""
     from gmres_tpu_torch.ops.cuda import halo_kernel as hk
 
     if ":" in name:
@@ -219,6 +220,9 @@ def _one_call(name):
         w, u = torch.randn(1 << 20, device="cuda").to(wt), torch.randn(31, device="cuda").to(wt)
         if kernel == "gram":
             return lambda: ok.gram_cuda(V, w, 31)
+        if kernel == "gram2":
+            w1 = V[30].to(wt)
+            return lambda: ok.gram2_cuda(V, w, w1, 31)
         return lambda: ok.update_gram_cuda(V, w, u, 31)
 
     if name == "update_gram":
@@ -300,12 +304,119 @@ def test_gram2_and_plain_update(dt, n, rows):
     # n below one tile (700), exactly one (1024), ragged (5000, 70001)
     V, w = _basis(dt, n, rows)
     w1 = torch.roll(w, 3)
-    for got, want in zip(ok.gram2_cuda(V, w, w1, rows), ok.gram2_plain(V, w, w1, rows)):
+    got, want = ok.gram2_cuda(V, w, w1, rows), ok.gram2_plain(V, w, w1, rows)
+    assert got.shape == want.shape == (31, 2)
+    for got, want in zip(got.unbind(1), want.unbind(1)):
         _close(got, want, dt)
         assert not got[rows:].any()
     u = torch.zeros(31, dtype=dt, device="cuda")
     u[:rows] = torch.arange(1, rows + 1, dtype=dt, device="cuda") / rows
     _close(ok.update_cuda(V, w, u, rows), ok.update_plain(V, w, u, rows), dt)
+
+
+# K2x2's and K4's shapes: convdiff@1M's n, an odd n, and n = 1M with V
+# (and K2x2's vectors, K4's x) starting one value past a 16-byte boundary
+SHAPES = pytest.mark.parametrize("n,shift", [(2 ** 20, 0), (100_003, 0), (2 ** 20, 1)],
+                                 ids=["1M", "odd", "offset"])
+
+
+def _shifted(rng, shape, dt, shift, scale=1.0):
+    """A tensor of N(0, scale^2) entries that starts `shift` values into its
+    buffer (V sliced at an offset: contiguous, its rows not 16-byte
+    aligned)."""
+    size = int(np.prod(shape))
+    buf = torch.tensor(rng.standard_normal(size + shift) * scale, dtype=dt, device="cuda")
+    return buf[shift:].view(shape)
+
+
+@pytest.mark.parametrize("form", sorted(GRAM2_FORMS.values()))
+@SHAPES
+def test_gram2_bit_equal_to_gram(form, n, shift):
+    # K2x2 is K2's kernel with two vectors: u0 and u1 each have the bits of
+    # K2's u for that vector, in every form, aligned or not, on every grid,
+    # in one launch, zero past rows
+    vt, wt = next(k for k, v in GRAM2_FORMS.items() if v == form)
+    rng = np.random.default_rng(n + shift)
+    V = _shifted(rng, (31, n), vt, shift, 1 / np.sqrt(n))
+    w0 = _shifted(rng, (n,), wt, shift)
+    for rows in (1, 7, 16, 31):
+        w1 = V[rows - 1].to(wt)
+        reset_launch_counts()
+        u = ok.gram2_cuda(V, w0, w1, rows)
+        assert launch_counts()["basis_gram2"] == 1 and form_launch_counts()["basis_gram2"] == {
+            form: 1}
+        assert u.shape == (31, 2) and u.is_contiguous() and u.dtype == wt
+        assert not u[rows:].any()
+        assert torch.equal(u[:, 0], ok.gram_cuda(V, w0, rows))
+        assert torch.equal(u[:, 1], ok.gram_cuda(V, w1.contiguous(), rows))
+        for per_sm in (1, 3, 4):
+            assert torch.equal(ok.gram2_cuda(V, w0, w1, rows, blocks_per_sm=per_sm), u), per_sm
+
+
+@pytest.mark.parametrize("form", sorted(GRAM2_FORMS.values()))
+def test_gram2_is_one_device_kernel(form):
+    names = _device_kernels(f"gram2:{form}")
+    assert len(names) == 1 and "basis_gram_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_icwy_step_on_card_sums_u_and_l_in_one_collective(dt):
+    # the distributed ICWY step passes K2x2's (m+1, 2) output to the
+    # collective as it is: the same h, w', ||w'||^2 and L as summing
+    # torch.stack([u, l]) (a stand-in two-rank sum: fixed partials added)
+    from gmres_tpu_torch.ops.orth import mgs_lowsync_step
+
+    class TwoRankSum:
+        def __init__(self):
+            self.rng = np.random.default_rng(5)
+
+        def all_reduce_sum(self, t):
+            return t + torch.tensor(self.rng.standard_normal(tuple(t.shape)), dtype=t.dtype,
+                                    device=t.device)
+
+    V, w = _basis(dt, 70_001, 6)
+    k = 5
+    L = torch.tril(V @ V.T, diagonal=-1)
+    L[k:] = 0
+    got = mgs_lowsync_step(V, k, w, L.clone(), TwoRankSum())
+    old = TwoRankSum()
+    pair = [ok.gram_cuda(V, w, k + 1), ok.gram_cuda(V, V[k], k + 1)]
+    u, ell = old.all_reduce_sum(torch.stack(pair, dim=1)).unbind(1)
+    Lt = L.clone()
+    Lt[k, :k] = ell[:k]
+    h = torch.linalg.solve_triangular(Lt, u.unsqueeze(1), upper=False,
+                                      unitriangular=True).squeeze(1)
+    w2, ss = ok.update_sumsq_cuda(V, w, h, k + 1)
+    for g, w_ in zip(got, (h, w2, old.all_reduce_sum(ss), Lt)):
+        assert torch.equal(g, w_)
+
+
+@pytest.mark.parametrize("form", sorted(AXPY_FORMS.values()))
+@SHAPES
+def test_basis_axpy_every_form_and_grid(form, n, shift):
+    # K4 in all eight forms against basis_axpy_plain elementwise (the sums
+    # in another order: the accumulation dtype's tolerance of the scale, an
+    # fp32 x 2e-5, a bf16 increment one bf16 ulp more), the same bits on
+    # the persistent grid and on one block a tile, V and x at an offset too
+    vt, yt, xt = next(k for k, v in AXPY_FORMS.items() if v == form)
+    rng = np.random.default_rng(n + shift)
+    V = _shifted(rng, (31, n), vt, shift, 1 / np.sqrt(n))
+    x = _shifted(rng, (n,), xt, shift)
+    y = torch.tensor(rng.standard_normal(30), dtype=yt, device="cuda")
+    reset_launch_counts()
+    got = ou.basis_axpy_cuda(x.clone(), V, y)
+    assert form_launch_counts()["basis_axpy"] == {form: 1}
+    want = ou.basis_axpy_plain(x.clone(), V, y)
+    inc = torch.promote_types(yt, vt)
+    scale = x.abs().double() + torch.mv(V[:30].double().abs().t(), y.double().abs())
+    bound = (FORM_TOL[_acc(inc)] if inc != torch.float32 or xt != torch.float32 else 2e-5) \
+        * float(scale.max())
+    if inc == torch.bfloat16:
+        bound = bound + BF16_ULP * ou.basis_axpy_plain(torch.zeros_like(x), V, y).double().abs()
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= bound).all()), float(err.max())
+    for per_sm in (0, 1, 4):
+        assert torch.equal(ou.basis_axpy_cuda(x.clone(), V, y, blocks_per_sm=per_sm), got), per_sm
 
 
 @DTYPES
@@ -1208,7 +1319,8 @@ def test_basis_sweep_forms(vt, wt, n):
         _form_close(ss, pss, torch.dot(sw, sw), acc)
         if wt != torch.bfloat16:
             vk = V[rows - 1].to(acc)
-            for g, p_ in zip(ok.gram2_cuda(V, w, vk, rows), ok.gram2_plain(V, w, vk, rows)):
+            for g, p_ in zip(ok.gram2_cuda(V, w, vk, rows).unbind(1),
+                             ok.gram2_plain(V, w, vk, rows).unbind(1)):
                 _form_close(g, p_, ok.gram_plain(Va, wa + vk.abs(), rows), acc)
         h, wm, hn = mk.mgs_cuda(V, w, rows)
         ph, pwm, phn = mk.mgs_plain(V, w, rows)

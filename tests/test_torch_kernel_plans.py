@@ -22,6 +22,15 @@ kernel runs here; the card tests hold the kernels themselves).
   (each the tile's rows of Vh and Vl and w's pair) and u fit the per-block
   budget for every rows in 1..256, and its tiles cover every column exactly
   once over the persistent grid.
+- K2x2 (``basis_gram_kernel`` with two vectors, ``csrc/basis_sweep.cu``)
+  runs K2's plan: K2's tiles on a grid of its own blocks an SM.
+- ``axpy_plan`` (K4, ``csrc/basis_sweep.cu``): thread chunks of 16 bytes
+  of a basis row cover every column exactly once on either grid shape
+  (persistent, one block a tile); and a model of how the kernel reads a
+  basis row (16-byte loads where the row's chunk starts aligned and is
+  whole, else value by value) covers every column of the row once, for
+  every form and every phase of V's and x's first value, whole chunks only
+  in the aligned form.
 """
 
 import numpy as np
@@ -32,6 +41,8 @@ from gmres_tpu_torch.ops.cuda import df64_orth_kernel as dk
 from gmres_tpu_torch.ops.cuda import halo_kernel as hk
 from gmres_tpu_torch.ops.cuda import mgs_kernel as mk
 from gmres_tpu_torch.ops.cuda import orth_kernel as ok
+from gmres_tpu_torch.ops.cuda import outer_kernel as ou
+from gmres_tpu_torch.ops.cuda._build import AXPY_FORMS
 
 
 def test_update_gram_two_stages_fit_for_every_height(itemsize=4):
@@ -242,3 +253,105 @@ def test_df_update_gram_plan_refuses_tiles_the_kernel_does_not_take():
     for tile in (0, 16, 100, 4096):
         with pytest.raises(ValueError):
             dk.df_update_gram_plan(1 << 20, 31, 132, tile=tile)
+
+
+@pytest.mark.parametrize("n", [1, 3, 1023, 1025, 2048, 70_001, 2 ** 20, 2 ** 20 + 3])
+@pytest.mark.parametrize("itemsize", [4, 8, 2])
+def test_gram2_plan_is_gram_plan(n, itemsize):
+    # K2x2 walks K2's tiles (so each vector's tile partials, and then u, are
+    # K2's), on a grid of GRAM2_BLOCKS_PER_SM blocks an SM
+    k2 = ok.gram_plan(n, itemsize, 132)
+    k2x2 = ok.gram_plan(n, itemsize, 132, ok.GRAM2_BLOCKS_PER_SM)
+    assert (k2x2.tile, k2x2.n_tiles) == (k2.tile, k2.n_tiles) == (
+        ok.GRAM_TILE, -(-n // ok.GRAM_TILE))
+    assert [k2x2.columns(t) for t in range(k2.n_tiles)] == \
+        [k2.columns(t) for t in range(k2.n_tiles)]
+    assert k2x2.grid == min(k2.n_tiles, 132 * ok.GRAM2_BLOCKS_PER_SM)
+    assert ok.GRAM2_BLOCKS_PER_SM < ok.GRAM_BLOCKS_PER_SM
+
+
+# K4's forms: (basis, iterate) item sizes, by entry-point suffix
+AXPY_SIZES = {sfx: (v.itemsize, x.itemsize) for (v, _, x), sfx in AXPY_FORMS.items()}
+
+
+def _axpy_chunks(plan, t, thread):
+    """The column ranges of ``thread``'s chunks in tile ``t`` (empty past n):
+    chunk k at (k * threads + thread) * vec, one coalesced pass of the
+    block each."""
+    out = []
+    for k in range(ou.AXPY_COLS // plan.vec):
+        c = t * plan.tile + (k * plan.threads + thread) * plan.vec
+        out.append(range(min(c, plan.n), min(c + plan.vec, plan.n)))
+    return out
+
+
+def _axpy_split(n, vec, phase):
+    """How K4 reads the n values of one basis row whose first value lies
+    ``phase`` values past a 16-byte boundary, in chunks of ``vec`` columns:
+    a chunk is one 16-byte load where it starts 16-byte aligned and lies
+    whole below n, else value by value.  Returns (the starts of the 16-byte
+    loads, the columns read one by one).  The kernel's aligned form (n a
+    multiple of vec, V and x 16-byte aligned) is the case with no column
+    read alone; x is read and written 16 bytes at a time there, value by
+    value otherwise."""
+    starts = np.arange(0, n, vec)
+    vector = (starts + vec <= n) & ((phase + starts) % vec == 0)
+    rest = starts[~vector]
+    cols = (rest[:, None] + np.arange(vec)).ravel()
+    return starts[vector], cols[cols < n]
+
+
+def _axpy_chunk_columns(plan):
+    """Every thread chunk's columns, tile by tile as the grid takes them
+    (chunk k of thread i at (k * threads + i) * vec in its tile)."""
+    tiles = np.concatenate([np.arange(b, plan.n_tiles, plan.grid) for b in range(plan.grid)])
+    k, i = np.divmod(np.arange(plan.tile // plan.vec), plan.threads)
+    starts = (tiles[:, None] * plan.tile + (k * plan.threads + i) * plan.vec).ravel()
+    cols = (starts[:, None] + np.arange(plan.vec)).ravel()
+    return tiles, cols[cols < plan.n]
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 1023, 1025, 4099, 262_144])
+@pytest.mark.parametrize("sfx", sorted(AXPY_SIZES))
+def test_axpy_split_covers_every_column_once(n, sfx):
+    itemsize, x_itemsize = AXPY_SIZES[sfx]
+    vec = 16 // itemsize
+    for sms, per_sm in ((132, ou.AXPY_BLOCKS_PER_SM), (132, 0), (7, 3)):
+        plan = ou.axpy_plan(n, itemsize, sms, per_sm)
+        assert plan.vec == vec and plan.tile == 256 * ou.AXPY_COLS
+        tiles, cols = _axpy_chunk_columns(plan)
+        assert np.array_equal(np.sort(tiles), np.arange(plan.n_tiles))
+        assert np.array_equal(np.bincount(cols, minlength=n), np.ones(n, dtype=np.int64))
+    for v_phase in range(vec):
+        for x_phase in range(16 // x_itemsize):
+            aligned = n % vec == 0 and v_phase == 0 and x_phase == 0
+            for j in range(4):
+                phase = (v_phase + j * n) % vec
+                vector, scalar = _axpy_split(n, vec, phase)
+                seen = np.bincount(np.concatenate([(vector[:, None] + np.arange(vec)).ravel(),
+                                                   scalar]), minlength=n)
+                assert np.array_equal(seen, np.ones(n, dtype=np.int64))
+                assert np.all(vector % vec == 0) and np.all(vector + vec <= n)
+                assert np.all((phase + vector) % vec == 0)  # 16-byte aligned loads
+                if aligned:
+                    # no value read alone; x's chunks are whole 16-byte chunks
+                    assert scalar.size == 0 and vec * x_itemsize % 16 == 0
+                elif phase:
+                    assert vector.size == 0
+
+
+def test_axpy_plan_grids():
+    # the persistent grid holds AXPY_BLOCKS_PER_SM blocks an SM, no more
+    # than there are tiles; 0 gives one block a tile; a thread owns
+    # AXPY_COLS columns of a tile, in 16-byte chunks threads * vec apart
+    plan = ou.axpy_plan(2 ** 22, 4, 132)
+    assert (plan.vec, plan.tile, plan.n_tiles) == (4, 2048, 2048)
+    assert plan.grid == 132 * ou.AXPY_BLOCKS_PER_SM
+    assert ou.axpy_plan(2 ** 22, 4, 132, 0).grid == 2048
+    assert ou.axpy_plan(2 ** 20, 8, 132).grid == ou.axpy_plan(2 ** 20, 8, 132, 0).grid == 512
+    assert ou.axpy_plan(1000, 2, 132).grid == 1
+    assert _axpy_chunks(ou.axpy_plan(4000, 8, 132), 1, 3) == [
+        range(2048 + 6, 2048 + 8), range(2048 + 512 + 6, 2048 + 512 + 8),
+        range(2048 + 1024 + 6, 2048 + 1024 + 8), range(2048 + 1536 + 6, 2048 + 1536 + 8)]
+    assert _axpy_chunks(ou.axpy_plan(2100, 8, 132), 1, 26) == [range(2100, 2100)] * 4
+    assert _axpy_chunks(ou.axpy_plan(2100, 8, 132), 1, 25) == [range(2098, 2100)] + [range(2100, 2100)] * 3

@@ -1,7 +1,9 @@
 """The port's MGS sweeps (the plain versions of kernels K7, K2x2 and K3's
 plain mode, on the CPU) against the JAX package: ``_mgs``, ``_gram2`` and
 ``_update`` in interpret mode, the rolled ``ops.orth.mgs`` on an fp64 basis,
-and the ICWY step ``mgs_lowsync_step`` (its einsum path) in fp32 and fp64.
+and the ICWY step ``mgs_lowsync_step`` (its einsum path) in fp32 and fp64;
+with a stand-in two-rank sum, that the ICWY step sums K2x2's (u, l) in one
+collective with the bits of summing ``torch.stack([u, l])``.
 
 Shapes: an (m+1, n) = (15, 32768) basis whose first 6 rows are orthonormal
 and the rest zero (the Arnoldi invariant).  The JAX kernels sweep all 15
@@ -19,7 +21,8 @@ import torch
 from gmres_tpu.ops import orth as jax_orth
 from gmres_tpu.ops.pallas.orth_kernel import _gram2, _mgs, _update
 from gmres_tpu_torch.ops.cuda.mgs_kernel import mgs_plain
-from gmres_tpu_torch.ops.cuda.orth_kernel import gram2_plain, update_plain
+from gmres_tpu_torch.ops.cuda.orth_kernel import (gram2_plain, gram_plain, update_plain,
+                                                  update_sumsq_plain)
 from gmres_tpu_torch.ops.orth import mgs, mgs_lowsync_step, orthogonalize, orthonormalize_step
 
 M1, N, LIVE = 15, 32768, 6
@@ -69,7 +72,7 @@ def test_mgs_plain_matches_pallas_mgs(basis, rows):
 def test_gram2_plain_matches_pallas_gram2(basis, rows):
     V, w, _ = basis
     w1 = V[LIVE - 1].copy()
-    u0, u1 = gram2_plain(*_t(V, w, w1), rows)
+    u0, u1 = gram2_plain(*_t(V, w, w1), rows).unbind(1)
     j0, j1 = _gram2(jnp.asarray(V), jnp.asarray(w), jnp.asarray(w1), interpret=True)
     _close(u0.numpy(), j0)
     _close(u1.numpy(), j1)
@@ -118,3 +121,43 @@ def test_lowsync_step_matches_jax(dtype, k):
     _close(float(ss), float(jss), dtype)
     _close(L2.numpy(), jL, dtype)
     assert not h[k + 1:].any()
+
+
+class _TwoRankSum:
+    """A stand-in for ``parallel.comm.Comm``: each sum adds a second rank's
+    partials (drawn from a seed, one draw a call, in the tensor's shape and
+    dtype) and records the shape it summed."""
+
+    def __init__(self, seed=5):
+        self.rng = np.random.default_rng(seed)
+        self.shapes = []
+
+    def all_reduce_sum(self, t):
+        self.shapes.append(tuple(t.shape))
+        return t + torch.from_numpy(self.rng.standard_normal(tuple(t.shape))).to(t.dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_icwy_step_sums_u_and_l_in_one_collective(dtype):
+    # distributed ICWY: K2x2's (m+1, 2) output goes to the collective as it
+    # is; h, w', ||w'||^2 and L are the bits of summing torch.stack([u, l])
+    k = LIVE - 1
+    V, w, _ = _basis(dtype, seed=3)
+    L = np.tril(V @ V.T, k=-1).astype(dtype)
+    L[k:] = 0.0
+    comm = _TwoRankSum()
+    got = mgs_lowsync_step(*_t(V), k, torch.from_numpy(w), torch.from_numpy(L.copy()), comm)
+    assert comm.shapes == [(M1, 2), ()]
+
+    old = _TwoRankSum()
+    Vt, wt, Lt = *_t(V, w), torch.from_numpy(L.copy())
+    u, ell = gram_plain(Vt, wt, k + 1), gram_plain(Vt, Vt[k], k + 1)
+    assert torch.equal(gram2_plain(Vt, wt, Vt[k], k + 1), torch.stack([u, ell], dim=1))
+    u, ell = old.all_reduce_sum(torch.stack([u, ell], dim=1)).unbind(1)
+    Lt[k, :k] = ell[:k]
+    h = torch.linalg.solve_triangular(Lt, u.unsqueeze(1), upper=False,
+                                      unitriangular=True).squeeze(1)
+    w2, ss = update_sumsq_plain(Vt, wt, h, k + 1)
+    want = (h, w2, old.all_reduce_sum(ss), Lt)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)

@@ -146,7 +146,10 @@ shown to be one device kernel a call; K2x2 (K2's kernel with two vectors)
 is one device kernel a call, and its u0 and u1 are K2's u of each vector
 bit for bit (fp32, fp64 and its two dtype forms, at 31 and 16 rows); K3
 GRAM in fp64 (its block partials added by torch.sum: two) under three caps
-of its blocks an SM, the same bits each; K3 GRAM's w' equals K3 SUMSQ's; K6
+of its blocks an SM, the same bits each; K3 GRAM's w' equals K3 SUMSQ's; K1
+(plain and residual modes) on several grids, y, r and the two sums the same
+bits on each, and its residual mode and residual lane form (s = 1, 2, 4, 8)
+one device kernel a call (counted in a fresh process); K6
 is held bit for bit to its plain version, fused and segmented to each
 other, and timed on one block and on cooperative grids beside the empty
 barrier of each sync candidate (clusters too) and the old design's floor.
@@ -284,6 +287,7 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "df64": 33.5e12}
 DF_OPS = 20
 SYNC_PROBE = 2000      # barriers per timed empty cooperative launch
 GRAM_GRID_BLOCKS_PER_SM = (1, 2, 3, 4)   # K2 grids measured
+K1_GRIDS_PER_SM = (1, 4)                 # K1 grids held to the same bits
 UG_GRID_BLOCKS_PER_SM = (None, 2, 3)     # K3 GRAM fp32 grids measured (None: its plan's)
 UG_F64_PADS = (0, 100_000, 200_000)      # K3 GRAM fp64 occupancy caps measured (bytes)
 DF_UG_TILES = (None, 224, 128)           # K10 tiles measured (None: its plan's)
@@ -657,7 +661,7 @@ def check_residual(torch, record, kname, dt, dt_name, timer, fn_cuda, fn_plain, 
            timer(fn_cuda), timer(fn_plain), nbytes, flops, key=key)
 
 
-def device_kernels(torch, fn, sessions=3):
+def device_kernels(torch, fn, sessions=5):
     """Names of the device kernels one call of fn launches (torch.profiler):
     the most that any of `sessions` profiled calls recorded.  A session can
     drop device kernels but not invent them: on the card one has recorded
@@ -665,7 +669,8 @@ def device_kernels(torch, fn, sessions=3):
     K3 GRAM fp64's two kernels.  A session that records none in all fails
     the run.  Late in a long process the card's profiler has recorded no
     device activity at all, for any kernel, so the counts are taken before
-    the solves (one_kernel_checks)."""
+    the solves (one_kernel_checks); early in one (K2x2 fp64, PR 16) three
+    sessions in a row recorded none, so it takes five."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -798,6 +803,25 @@ def halo_table(torch, timer, dt, data, offs, x, left, right, A262, copy_gbs):
         f"of copy")
 
 
+def k1_grids(torch, data, offs, x, y, d64, x64, b64, dt, dt_name):
+    """K1 on grids of K1_GRIDS_PER_SM blocks an SM (and one block, and the
+    default of one a block of rows): y, and in residual mode (fp64 operator,
+    the norm in dt) r and both sums, the same bits on each."""
+    from gmres_tpu_torch.ops.cuda import spmv_kernel as sk
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res = sk.dia_residual_cuda(d64, offs, b64, x64, dt)
+    grids = (1, *(sms * k for k in K1_GRIDS_PER_SM))
+    for grid in grids:
+        require(torch.equal(sk.dia_spmv_cuda(data, offs, x, grid=grid), y),
+                f"K1 {dt_name}: y the same bits on {grid} blocks")
+        got = sk.dia_residual_cuda(d64, offs, b64, x64, dt, grid=grid)
+        require(all(torch.equal(g, w_) for g, w_ in zip(got, res)),
+                f"K1 residual {dt_name} norm: r and both sums the same bits on {grid} blocks")
+    log(f"  K1 {dt_name}: y, and r with ||r'||^2 = {float(res[1])!r}, ||x||^2 = "
+        f"{float(res[2])!r}, the same bits on grids of {grids} blocks and the default")
+
+
 def check_kernels(torch, A_csr, record):
     """K1-K4 against their plain versions at the banded path's shapes, with
     the one PyTorch call that computes the same function where there is
@@ -849,6 +873,8 @@ def check_kernels(torch, A_csr, record):
                        lambda: sk.dia_residual_plain(d64, offs, b64, x64, dt),
                        b64.abs() + sk.dia_spmv_plain(d64.abs(), offs, x64), (D + 3) * n * 8,
                        (2 * D + 5) * n)
+        k1_grids(torch, data, offs, x, sk.dia_spmv_cuda(data, offs, x), d64, x64, b64, dt,
+                 dt_name)
 
         # K2 gram over all m+1 rows (the last Arnoldi step)
         got = ok_.gram_cuda(V, w, m1)
@@ -2913,13 +2939,25 @@ def check_cb_kernels(torch, n, record):
 def form_device_kernels():
     """For a fresh process (late in a long one the profiler records no
     device kernel): the device kernels one call of K2 and of K3 GRAM takes
-    in each form at convdiff@1M (31 rows), printed as one JSON line."""
+    in each form at convdiff@1M (31 rows), and one call of K1's residual
+    mode and of its residual lane form at s = 1, 2, 4, 8 (fp64 operator,
+    the norm in fp32), printed as one JSON line."""
     import torch
 
     from gmres_tpu_torch.ops.cuda import orth_kernel as ok_
+    from gmres_tpu_torch.ops.cuda import spmv_kernel as sk
 
     n, m1 = NX * NX, RLEN + 1
     out = {}
+    offs = (-NX, -1, 0, 1, NX)
+    data = torch.randn((len(offs), n), dtype=torch.float64, device="cuda")
+    X, B = (torch.randn((8, n), dtype=torch.float64, device="cuda") for _ in range(2))
+    out["dia_residual"] = device_kernels(
+        torch, lambda: sk.dia_residual_cuda(data, offs, B[0], X[0], torch.float32))
+    for s in sorted(sk.LANE_WIDTHS):
+        out[f"dia_residual lanes{s}"] = device_kernels(
+            torch, lambda: sk.dia_residual_lanes_cuda(data, offs, B[:s], X[:s], torch.float32))
+    del data, X, B
     for form, vname, wname in cb_forms()[0]:
         vt, wt = getattr(torch, vname), getattr(torch, wname)
         V = torch.randn((m1, n), device="cuda").to(vt)
@@ -2931,8 +2969,8 @@ def form_device_kernels():
 
 
 def cb_one_kernel_checks():
-    """K2's and K3 GRAM's forms are one device kernel a call (counted in a
-    fresh process)."""
+    """K2's and K3 GRAM's forms, and K1's residual mode and residual lane
+    form, are one device kernel a call (counted in a fresh process)."""
     here = os.path.dirname(os.path.abspath(__file__))
     code = f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; chip_smoke.form_device_kernels()"
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -3339,7 +3377,7 @@ def cli_path(torch, A, tmp, a_path, write_seconds, dist_clis):
 
 def check_lane_kernels(torch, A_csr, record):
     """K1's lane form at every lane count a launch takes (1, 2, 4 and 8,
-    ``spmv_kernel.LANE_CHUNKS``), fp32 and fp64, in both
+    ``spmv_kernel.LANE_WIDTHS``), fp32 and fp64, in both
     modes: each lane bit for bit against K1 on that lane (plain mode on the
     strided view V[:, 1, :] of a lane basis; residual mode with each lane's
     two sums, the norm demoted to fp32 and kept in fp64), the whole against
@@ -3353,7 +3391,7 @@ def check_lane_kernels(torch, A_csr, record):
     dia = from_csr(A_csr)
     n, offs = dia.n_rows, dia.offsets
     D = len(offs)
-    widths = sorted(sk.LANE_CHUNKS)
+    widths = sorted(sk.LANE_WIDTHS)
     smax = max(widths)
     rng = np.random.default_rng(BATCHED_SEED)
     timer = Timer(torch)
@@ -3409,9 +3447,11 @@ def check_lane_kernels(torch, A_csr, record):
 
 # device kernel name -> the port's kernel, for the traces: K2x2 is K2's
 # template with two vectors, its last template argument 2
-# (basis_gram_kernel<TV, TW, aligned, NV>)
-KERNEL_GROUPS = (("K1 lane form", r"dia_spmv_lanes_kernel"), ("K1", r"dia_spmv_kernel"),
-                 ("K2x2", r"basis_gram_kernel<[^>]*,\s*2>"), ("K2", r"basis_gram_kernel"),
+# (basis_gram_kernel<TV, TW, aligned, NV>); K1's lane form is K1's template
+# over 2, 4 or 8 lanes (dia_spmv_kernel<T, RESIDUAL, aligned, L>)
+KERNEL_GROUPS = (("K1 lane form", r"dia_spmv_kernel<[^>]*,\s*[248]>"),
+                 ("K1", r"dia_spmv_kernel"), ("K2x2", r"basis_gram_kernel<[^>]*,\s*2>"),
+                 ("K2", r"basis_gram_kernel"),
                  ("K3 GRAM", r"basis_update_gram"), ("K3 SUMSQ", r"basis_update_kernel"),
                  ("K4", r"basis_axpy_kernel"))
 
@@ -3807,9 +3847,9 @@ def main() -> int:
                            "gmres_tpu/ops/pallas/df64_kernel.py:602"),
         "df_update_sumsq": ("gmres_tpu_torch/csrc/df64_sweep.cu",
                             "gmres_tpu/ops/pallas/df64_kernel.py:656"),
-        "dia_spmv_halo": ("gmres_tpu_torch/csrc/dia_halo.cu",
+        "dia_spmv_halo": ("gmres_tpu_torch/csrc/dia_spmv.cu",
                           "gmres_tpu/ops/pallas/spmv_kernel.py:88"),
-        "dia_residual_halo": ("gmres_tpu_torch/csrc/dia_halo.cu",
+        "dia_residual_halo": ("gmres_tpu_torch/csrc/dia_spmv.cu",
                               "gmres_tpu/ops/pallas/df64_kernel.py:243"),
     }
     require(set(sources) == set(kernel_wrappers()), "every kernel has a JSON entry")

@@ -33,7 +33,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "gmres_tpu_torch"
 SOURCES = ("dia_spmv.cu", "basis_sweep.cu", "sell_spmv.cu", "ilu_trisolve.cu", "basis_mgs.cu",
-           "df64_spmv.cu", "df64_sweep.cu", "dia_halo.cu")
+           "df64_spmv.cu", "df64_sweep.cu")
 HEADERS = ("common.cuh", "df64.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,20 +45,15 @@ _L = ctypes.c_longlong
 # C entry point -> argument types.  Every pointer and the stream are
 # c_void_p: an undeclared Python int would be passed as a 32-bit int.
 _SIGNATURES = {
-    "gmres_dia_spmv_f32": (_P, _P, _P, _I, _I, _I, _P, _P),
-    "gmres_dia_spmv_f64": (_P, _P, _P, _I, _I, _I, _P, _P),
-    "gmres_dia_residual_f32": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P),
-    "gmres_dia_residual_f64": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P),
-    "gmres_dia_spmv_lanes_f32": (_P, _P, _L, _P, _L, _I, _I, _I, _P, _I, _P),
-    "gmres_dia_spmv_lanes_f64": (_P, _P, _L, _P, _L, _I, _I, _I, _P, _I, _P),
-    "gmres_dia_residual_lanes_f32": (_P, _P, _L, _P, _L, _P, _L, _P, _L, _I, _I, _P, _I, _I, _P),
-    "gmres_dia_residual_lanes_f64": (_P, _P, _L, _P, _L, _P, _L, _P, _L, _I, _I, _P, _I, _I, _P),
-    "gmres_dia_spmv_halo_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P),
-    "gmres_dia_spmv_halo_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P),
-    "gmres_dia_residual_halo_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I,
-                                    _I, _I, _P),
-    "gmres_dia_residual_halo_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I,
-                                    _I, _I, _P),
+    # K1 and K12 (csrc/dia_spmv.cu)
+    "gmres_dia_spmv_f32": (_P, _P, _L, _P, _P, _I, _I, _P, _L, _I, _I, _I, _P, _I, _I, _I, _I, _I,
+                           _P),
+    "gmres_dia_spmv_f64": (_P, _P, _L, _P, _P, _I, _I, _P, _L, _I, _I, _I, _P, _I, _I, _I, _I, _I,
+                           _P),
+    "gmres_dia_residual_f32": (_P, _P, _L, _P, _P, _I, _I, _P, _L, _P, _L, _P, _P, _P, _I, _I, _P,
+                               _I, _I, _I, _I, _I, _I, _P),
+    "gmres_dia_residual_f64": (_P, _P, _L, _P, _P, _I, _I, _P, _L, _P, _L, _P, _P, _P, _I, _I, _P,
+                               _I, _I, _I, _I, _I, _I, _P),
     "gmres_sell_spmv_f32": (_P, _P, _P, _P, _P, _I, _P),
     "gmres_sell_spmv_f64": (_P, _P, _P, _P, _P, _I, _P),
     "gmres_sell_residual_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _P),

@@ -212,24 +212,30 @@ _TICKETS: dict = {}
 _STREAMS: dict = {}
 
 
+def sm_count(device: torch.device) -> int:
+    """The SM count of a card, read once a process."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
+
+
 def _gram_state(device: torch.device):
     """(SM count, the zeroed ticket counter) of a card in this process.  K2,
-    K2x2, K3 GRAM, K10 and K12's residual mode share the counter: each
-    kernel's last block resets it, so two of them must never run at once.
-    They are therefore held to the stream the counter was made on, and a
-    launch from any other stream raises.  Each process makes its own
-    counter, so ranks that share a card share none."""
+    K2x2, K3 GRAM, K10 and the residual modes of K1 and K12 share the
+    counter: each kernel's last block resets it, so two of them must never
+    run at once.  They are therefore held to the stream the counter was
+    made on, and a launch from any other stream raises.  Each process makes
+    its own counter, so ranks that share a card share none."""
     stream = torch.cuda.current_stream(device).cuda_stream
     if device not in _TICKETS:
-        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
         _TICKETS[device] = torch.zeros(1, dtype=torch.int32, device=device)
         _STREAMS[device] = stream
     if stream != _STREAMS[device]:
         raise RuntimeError(
-            f"K2/K2x2/K3 GRAM/K10/K12 residual share one ticket counter on {device}, made on "
-            f"stream {_STREAMS[device]:#x}; launching from stream {stream:#x} could "
-            "interleave two kernels' tickets")
-    return _SMS[device], _TICKETS[device]
+            f"K2/K2x2/K3 GRAM/K10 and the K1/K12 residual share one ticket counter on "
+            f"{device}, made on stream {_STREAMS[device]:#x}; launching from stream "
+            f"{stream:#x} could interleave two kernels' tickets")
+    return sm_count(device), _TICKETS[device]
 
 
 def gram_cuda(V: torch.Tensor, w: torch.Tensor, rows: int,

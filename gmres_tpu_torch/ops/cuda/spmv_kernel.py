@@ -12,23 +12,102 @@ residual mode, ``gmres_tpu/ops/pallas/df64_kernel.py:residual_df64``.
 
 The ``*_cuda`` wrappers take CUDA tensors only and raise on anything the
 kernel does not take; the ``*_plain`` versions run on any device and are
-what the CPU path and the on-card comparisons use.  The lane form launches
-in chunks of ``LANE_CHUNKS`` lanes and counts into K1's wrappers, each
-chunk as the form ``<dtype>_lanes<L>``; lane j of it is K1 on lane j, bit
-for bit.
+what the CPU path and the on-card comparisons use.
+
+The kernel (redesigned for Hopper; K12, ``halo_kernel.py``, is the same
+kernel with halo edges) sweeps blocks of ``block_rows`` rows, each thread
+``rows_per_thread`` of them: an interior block, whose rows read x inside
+[0, n_cols) for every band, takes a branch-free body, and the blocks within
+max|offset| of either end the window path.  ``dia_plan`` is that split,
+which the launcher checks against its own.  A launch takes 1 to 8 lanes
+(``lane_chunks`` cuts wider batches) on the narrowest of ``LANE_WIDTHS``
+that holds them, and counts into K1's wrappers as the form
+``<dtype>_lanes<width>``.  y and r have the bits of one fused multiply-add
+chain a row, bands in ascending order from 0, on every grid and for every
+lane; the residual modes add their fp64 partials of each block in block
+order inside the launch (K2's ticket), on the same blocks for every lane
+count, so the sums are the same on every grid and lane l's are K1's on
+x_l.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from collections import Counter
 
 import torch
 
 from gmres_tpu_torch.ops.cuda._build import check, kernel_dtype, library
+from gmres_tpu_torch.ops.cuda.orth_kernel import _gram_state, sm_count
 
-# lanes a launch of the lane form takes (csrc/dia_spmv.cu: launch_dia_lanes)
-LANE_CHUNKS = (8, 4, 2, 1)
+THREADS = 256  # csrc/common.cuh: kThreads
+# lanes a launch's accumulators are compiled for (csrc/dia_spmv.cu:
+# launch_dia); a launch of s <= 8 lanes runs on the narrowest that holds s
+LANE_WIDTHS = (1, 2, 4, 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class DiaPlan:
+    """The kernel's blocks of rows: block b owns rows [b * block_rows,
+    min((b + 1) * block_rows, n)); blocks [b0, b1) are interior (each of
+    their rows i reads x[i + off] inside [0, n_cols) for every band), the
+    others take the window path.  A launch of G blocks sweeps blocks g, g +
+    G, ...; the residual sums add the blocks' partials in block order."""
+
+    n: int
+    n_cols: int
+    block_rows: int
+    n_blocks: int
+    b0: int
+    b1: int
+
+    def rows(self, b: int) -> range:
+        return range(b * self.block_rows, min((b + 1) * self.block_rows, self.n))
+
+    def interior(self, b: int) -> bool:
+        return self.b0 <= b < self.b1
+
+
+def rows_per_thread(itemsize: int, width: int = 1, residual: bool = False) -> int:
+    """Rows a thread of a launch of ``width`` lanes owns
+    (``csrc/dia_spmv.cu:dia_rows_per_thread``): a 16-byte chunk in residual
+    mode, whatever the lanes (so every lane count sums the same blocks), and
+    at one lane; in the plain lane form two rows, one fp64 row at 8 lanes
+    (PERF.md, section 6)."""
+    if residual or width == 1:
+        return 16 // itemsize
+    return 2 if itemsize == 4 or width <= 4 else 1
+
+
+def dia_plan(offsets, n: int, n_cols: int, itemsize: int, rows: int | None = None,
+             threads: int = THREADS) -> DiaPlan:
+    """Blocks of ``threads`` times ``rows`` rows (by default a 16-byte chunk
+    a thread); the interior range is the blocks whose first row is at least
+    lo = max(0, -min offset) and whose end is at most n_cols - hi, hi =
+    max(0, max offset) (``csrc/dia_spmv.cu:dia_interior``)."""
+    if n < 1 or n_cols < 1:
+        raise ValueError(f"K1: n={n}, n_cols={n_cols}")
+    block_rows = threads * (rows or 16 // itemsize)
+    lo = max(0, -min(offsets))
+    hi = max(0, max(offsets))
+    n_blocks = -(-n // block_rows)
+    b0 = min(n_blocks, -(-lo // block_rows))
+    room = n_cols - hi
+    end = n_blocks if n <= room else max(0, room) // block_rows
+    return DiaPlan(n=n, n_cols=n_cols, block_rows=block_rows, n_blocks=n_blocks, b0=b0,
+                   b1=max(b0, end))
+
+
+def lane_chunks(s: int) -> list:
+    """(first lane, lanes) of each launch over s lanes: 8 lanes a launch,
+    the rest in one."""
+    return [(j, min(8, s - j)) for j in range(0, s, 8)]
+
+
+def lane_width(lanes: int) -> int:
+    """The narrowest of ``LANE_WIDTHS`` that holds ``lanes``."""
+    return next(w for w in LANE_WIDTHS if w >= lanes)
 
 
 def _band_args(name: str, data: torch.Tensor, offsets):
@@ -46,6 +125,41 @@ def _band_args(name: str, data: torch.Tensor, offsets):
     return lib, sfx, D, n, (ctypes.c_int * D)(*offsets)
 
 
+def launch_spmv(lib, sfx, data, offs, plan, x, x_ld, y, y_ld, lanes, grid=None,
+                left=None, right=None) -> None:
+    """One launch of the kernel's plain mode over ``lanes`` lanes (x and y
+    lane strides x_ld and y_ld), or over one lane and the halo edges."""
+    hl, hr = (0, 0) if left is None else (left.shape[0], right.shape[0])
+    lib.call(f"gmres_dia_spmv_{sfx}", data.data_ptr(), x.data_ptr(), x_ld,
+             None if left is None else left.data_ptr(),
+             None if right is None else right.data_ptr(), hl, hr, y.data_ptr(), y_ld, plan.n,
+             plan.n_cols, data.shape[0], offs, lanes, plan.b0, plan.b1, grid or 0,
+             sm_count(data.device))
+
+
+def launch_residual(lib, sfx, data, offs, plan, x, x_ld, b, b_ld, r, r_ld, sums, demote, lanes,
+                    grid=None, left=None, right=None) -> None:
+    """One launch of the kernel's residual mode over ``lanes`` lanes (or one
+    lane and the halo edges), the sums of squares into ``sums`` (lanes, 2)
+    in fp64; it takes K2's ticket counter, so it keeps to K2's stream.  Its
+    default grid is persistent: the kernel sizes it from the SM count given
+    here."""
+    sms, ticket = _gram_state(data.device)
+    hl, hr = (0, 0) if left is None else (left.shape[0], right.shape[0])
+    partials = torch.empty((lanes, plan.n_blocks, 2), dtype=torch.float64, device=data.device)
+    lib.call(f"gmres_dia_residual_{sfx}", data.data_ptr(), x.data_ptr(), x_ld,
+             None if left is None else left.data_ptr(),
+             None if right is None else right.data_ptr(), hl, hr, b.data_ptr(), b_ld,
+             r.data_ptr(), r_ld, partials.data_ptr(), ticket.data_ptr(), sums.data_ptr(), plan.n,
+             data.shape[0], offs, demote, lanes, plan.b0, plan.b1, grid or 0, sms)
+
+
+def _demote(name: str, data: torch.Tensor, inner_dtype: torch.dtype) -> int:
+    if inner_dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: inner dtype {inner_dtype} is not float32/float64")
+    return int(inner_dtype == torch.float32 and data.dtype == torch.float64)
+
+
 def dia_spmv_plain(data: torch.Tensor, offsets, x: torch.Tensor) -> torch.Tensor:
     """y = A x over the DIA bands, one shifted multiply-add per band."""
     n = data.shape[1]
@@ -58,13 +172,15 @@ def dia_spmv_plain(data: torch.Tensor, offsets, x: torch.Tensor) -> torch.Tensor
     return y
 
 
-def dia_spmv_cuda(data: torch.Tensor, offsets, x: torch.Tensor) -> torch.Tensor:
-    """K1, plain mode."""
+def dia_spmv_cuda(data: torch.Tensor, offsets, x: torch.Tensor,
+                  grid: int | None = None) -> torch.Tensor:
+    """K1, plain mode; ``grid`` blocks (default: one a block of rows)."""
     lib, sfx, D, n, offs = _band_args("dia_spmv", data, offsets)
-    check("x", x, data.dtype, (x.shape[0],), data.device)
+    n_cols = x.shape[0]
+    check("x", x, data.dtype, (n_cols,), data.device)
+    plan = dia_plan(offsets, n, n_cols, data.element_size(), threads=lib.threads)
     y = torch.empty(n, dtype=data.dtype, device=data.device)
-    lib.call(f"gmres_dia_spmv_{sfx}", data.data_ptr(), x.data_ptr(), y.data_ptr(),
-             n, x.shape[0], D, offs)
+    launch_spmv(lib, sfx, data, offs, plan, x, n_cols, y, n, 1, grid)
     dia_spmv_cuda.launches += 1
     dia_spmv_cuda.forms[sfx] += 1
     return y
@@ -72,17 +188,6 @@ def dia_spmv_cuda(data: torch.Tensor, offsets, x: torch.Tensor) -> torch.Tensor:
 
 dia_spmv_cuda.launches = 0
 dia_spmv_cuda.forms = Counter()
-
-
-def lane_chunks(s: int) -> list:
-    """(first lane, lanes) of each launch over s lanes: the widest chunks of
-    ``LANE_CHUNKS`` first."""
-    out, j = [], 0
-    for width in LANE_CHUNKS:
-        while s - j >= width:
-            out.append((j, width))
-            j += width
-    return out
 
 
 def _check_lanes(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -117,20 +222,22 @@ def dia_spmv_lanes_plain(data: torch.Tensor, offsets, X: torch.Tensor) -> torch.
     return Y
 
 
-def dia_spmv_lanes_cuda(data: torch.Tensor, offsets, X: torch.Tensor) -> torch.Tensor:
+def dia_spmv_lanes_cuda(data: torch.Tensor, offsets, X: torch.Tensor,
+                        grid: int | None = None) -> torch.Tensor:
     """K1's lane form, plain mode: Y (s, n) contiguous from the lanes of X
-    (s, n_cols), read in place at their stride."""
+    (s, n_cols), read in place at their stride, 8 lanes a launch."""
     lib, sfx, D, n, offs = _band_args("dia_spmv_lanes", data, offsets)
     if X.dim() != 2:
         raise ValueError(f"dia_spmv_lanes: X must be (lanes, n_cols), got {tuple(X.shape)}")
     s, n_cols = X.shape
     x_ld = _check_lanes("X", X, data.dtype, (s, n_cols), data.device)
     Y = torch.empty((s, n), dtype=data.dtype, device=data.device)
-    for j, width in lane_chunks(s):
-        lib.call(f"gmres_dia_spmv_lanes_{sfx}", data.data_ptr(), X[j].data_ptr(), x_ld,
-                 Y[j].data_ptr(), n, n, n_cols, D, offs, width)
+    for j, lanes in lane_chunks(s):
+        plan = dia_plan(offsets, n, n_cols, data.element_size(),
+                        rows_per_thread(data.element_size(), lane_width(lanes)), lib.threads)
+        launch_spmv(lib, sfx, data, offs, plan, X[j], x_ld, Y[j], n, lanes, grid)
         dia_spmv_cuda.launches += 1
-        dia_spmv_cuda.forms[f"{sfx}_lanes{width}"] += 1
+        dia_spmv_cuda.forms[f"{sfx}_lanes{lane_width(lanes)}"] += 1
     return Y
 
 
@@ -143,22 +250,19 @@ def dia_residual_plain(data, offsets, b, x, inner_dtype: torch.dtype):
     return r, torch.dot(ri, ri).to(torch.float64), torch.dot(x, x).to(torch.float64)
 
 
-def dia_residual_cuda(data, offsets, b, x, inner_dtype: torch.dtype):
-    """K1, residual mode: r in A's dtype and the two sums of squares, taken
-    in fp64 over per-block partials that torch.sum finishes."""
+def dia_residual_cuda(data, offsets, b, x, inner_dtype: torch.dtype, grid: int | None = None):
+    """K1, residual mode: r in A's dtype and the two sums of squares, fp64
+    partials of each block that the launch adds in block order (one launch,
+    the same bits on every ``grid``; by default a persistent grid)."""
     lib, sfx, D, n, offs = _band_args("dia_residual", data, offsets)
     check("b", b, data.dtype, (n,), data.device)
     check("x", x, data.dtype, (n,), data.device)
-    if inner_dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"dia_residual: inner dtype {inner_dtype} is not float32/float64")
+    demote = _demote("dia_residual", data, inner_dtype)
+    plan = dia_plan(offsets, n, n, data.element_size(), threads=lib.threads)
     r = torch.empty(n, dtype=data.dtype, device=data.device)
-    partials = torch.empty((-(-n // lib.threads), 2), dtype=torch.float64,
-                           device=data.device)
-    demote = int(inner_dtype == torch.float32 and data.dtype == torch.float64)
-    lib.call(f"gmres_dia_residual_{sfx}", data.data_ptr(), x.data_ptr(), b.data_ptr(),
-             r.data_ptr(), partials.data_ptr(), n, D, offs, demote)
+    sums = torch.empty(2, dtype=torch.float64, device=data.device)
+    launch_residual(lib, sfx, data, offs, plan, x, n, b, n, r, n, sums, demote, 1, grid)
     dia_residual_cuda.launches += 1
-    sums = partials.sum(dim=0)
     return r, sums[0], sums[1]
 
 
@@ -176,31 +280,22 @@ def dia_residual_lanes_plain(data, offsets, B, X, inner_dtype: torch.dtype):
     return R, r_ss, x_ss
 
 
-# a lane's residual partials start this many fp64 values after the previous
-# lane's (512 bytes), so that each lane's (blocks, 2) view lies as K1's does
-_PARTIALS_ALIGN = 64
-
-
-def dia_residual_lanes_cuda(data, offsets, B, X, inner_dtype: torch.dtype):
+def dia_residual_lanes_cuda(data, offsets, B, X, inner_dtype: torch.dtype,
+                            grid: int | None = None):
     """K1's lane form, residual mode: R (s, n) contiguous and each lane's
-    two sums of squares, its per-block partials finished by torch.sum lane
-    by lane exactly as ``dia_residual_cuda`` finishes K1's."""
+    two sums of squares, each lane's bits those of ``dia_residual_cuda`` on
+    it; 8 lanes a launch, each launch one kernel that adds its lanes' sums."""
     lib, sfx, D, n, offs = _band_args("dia_residual_lanes", data, offsets)
     s = X.shape[0]
     x_ld = _check_lanes("X", X, data.dtype, (s, n), data.device)
     b_ld = _check_lanes("B", B, data.dtype, (s, n), data.device)
-    if inner_dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"dia_residual_lanes: inner dtype {inner_dtype} is not float32/float64")
+    demote = _demote("dia_residual_lanes", data, inner_dtype)
+    plan = dia_plan(offsets, n, n, data.element_size(), threads=lib.threads)
     R = torch.empty((s, n), dtype=data.dtype, device=data.device)
-    blocks = -(-n // lib.threads)
-    p_ld = -(-2 * blocks // _PARTIALS_ALIGN) * _PARTIALS_ALIGN
-    partials = torch.empty((s, p_ld), dtype=torch.float64, device=data.device)
-    demote = int(inner_dtype == torch.float32 and data.dtype == torch.float64)
-    for j, width in lane_chunks(s):
-        lib.call(f"gmres_dia_residual_lanes_{sfx}", data.data_ptr(), X[j].data_ptr(), x_ld,
-                 B[j].data_ptr(), b_ld, R[j].data_ptr(), n, partials[j].data_ptr(), p_ld, n, D,
-                 offs, demote, width)
+    sums = torch.empty((s, 2), dtype=torch.float64, device=data.device)
+    for j, lanes in lane_chunks(s):
+        launch_residual(lib, sfx, data, offs, plan, X[j], x_ld, B[j], b_ld, R[j], n, sums[j],
+                        demote, lanes, grid)
         dia_residual_cuda.launches += 1
-        dia_residual_cuda.forms[f"{sfx}_lanes{width}"] += 1
-    sums = torch.stack([p[:2 * blocks].view(blocks, 2).sum(dim=0) for p in partials])
+        dia_residual_cuda.forms[f"{sfx}_lanes{lane_width(lanes)}"] += 1
     return R, sums[:, 0], sums[:, 1]

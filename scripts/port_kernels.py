@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""K3 GRAM (``basis_update_gram``), K7 (``basis_mgs``), K12 (``dia_spmv_halo``
-and ``dia_residual_halo``), K10 (``df_update_gram``) and K11
+"""K1 (``dia_spmv``, ``dia_residual`` and their lane forms), K3 GRAM
+(``basis_update_gram``), K7 (``basis_mgs``), K12 (``dia_spmv_halo`` and
+``dia_residual_halo``), K10 (``df_update_gram``) and K11
 (``df_update_sumsq``) of one checkout of gmres_tpu_torch on one CUDA
 device, timed as ``chip_smoke.py`` times them, with their outputs saved for
 a bit-for-bit comparison of two checkouts; beside them the outputs (and
@@ -19,6 +20,16 @@ alike: run them in turns (A, B, B, A) on the same card, one right after the
 other.
 
 Shapes are the main path's:
+- K1 at convdiff@1M (``convection_diffusion_2d(1024, beta=2.0)``, n =
+  1,048,576, offsets +-1 and +-1024): plain mode on x of U(0, 1) entries in
+  fp32 and fp64; residual mode on the fp64 operator, x and b of U(0, 1) and
+  N(0, 1) entries, its norm in fp32 and fp64 (numpy seed 0, as
+  ``chip_smoke.check_kernels``); the lane form at s = 1, 2, 4, 8 in both
+  modes and dtypes, plain mode on the strided view V[:, 1] of an (8, 3, n)
+  lane basis, residual mode on (8, n) B and X (seed 14, as
+  ``chip_smoke.check_lane_kernels``).  Each beside its bound (its bytes,
+  section 2 of PERF.md, over this run's copy rate) and, where the
+  checkout's wrappers take ``grid``, its time on persistent grids.
 - K3 GRAM and K7 at convdiff@1M: n = 1,048,576, a 31-row basis of N(0, 1/n)
   entries, w and u of N(0, 1) entries (numpy seed 0, as
   ``chip_smoke.check_kernels``), rows 31 and 16, fp32 and fp64; K7 on the
@@ -45,16 +56,21 @@ outputs to FILE with ``torch.save``.
 
 ``--compare`` reads two such files and prints, for each output, whether the
 two are bit-equal, and the largest difference of each output that is not;
-it exits 1 if K3 GRAM's w', K12's y or residual r, K10's w' or K11's w'
-and sum of squares, or K4's x in any of its eight forms differ (each
-redesign keeps those bits), or any output of K2, K3 (every mode) or K7 in
-fp32 or fp64 (the dtype forms keep those), else 0.  K2x2's u0 and u1 may
+it exits 1 if K1's y or r in any mode, dtype or lane count, K3 GRAM's w',
+K12's y, residual r or sums, K10's w' or K11's w' and sum of squares, or
+K4's x in any of its eight forms differ (each redesign keeps those bits),
+or any output of K2, K3 (every mode) or K7 in fp32 or fp64 (the dtype
+forms keep those), else 0.  K1's sums may differ: since K1's redesign the
+launch adds its blocks' partials in block order, where torch.sum added
+them before.  K2x2's u0 and u1 may
 differ: since K2x2 became K2's kernel with two vectors they are K2's bits,
 no longer those of its block partials added by torch.sum.
 
-``--pairs P --parent DIR`` loads the K2x2 and K4 wrappers of the checkout
-in DIR and of this one into one process and times them in turns, P pairs
-(DIR's, then this one's) for each form of K2x2 (31 rows) and of K4 (30
+``--pairs P --parent DIR`` loads the K1, K12, K2x2 and K4 wrappers of the
+checkout in DIR and of this one into one process and times them in turns,
+P pairs (DIR's, then this one's) for each mode, dtype and lane count of K1
+on ``measure_k1``'s inputs, each mode and dtype of K12 on the interior
+block of ``measure_halo``, each form of K2x2 (31 rows) and of K4 (30
 coefficients) on ``measure_forms_kept``'s inputs; it prints each form's
 pairs and how many of them this checkout's kernel won, in one JSON line.
 """
@@ -76,8 +92,11 @@ M1 = 31
 N = 1024 * 1024
 ROWS = (31, 16)
 RANKS = 4
+LANES = (1, 2, 4, 8)
 # outputs whose bits each redesign keeps (suffixes of the saved keys)
-KEPT = (("update_gram", "w1"), ("halo_spmv", "y"), ("halo_residual", "r"),
+KEPT = (("k1_spmv", "y"), ("k1_residual", "r"), ("k1_lanes", "y"), ("k1_residual_lanes", "r"),
+        ("halo_residual", "sums"),
+        ("update_gram", "w1"), ("halo_spmv", "y"), ("halo_residual", "r"),
         ("df_update_gram", "w1"), ("df_update_sumsq", "w1"), ("df_update_sumsq", "sumsq"),
         # every output of the fp32 and fp64 sweep forms, which the forms for
         # other dtypes leave as they were
@@ -101,6 +120,75 @@ def _of_copy(nbytes, ms, copy_gbs):
 
 def _kernels_a_call(torch, cs, fn):
     return len(cs.device_kernels(torch, fn))
+
+
+def k1_inputs(torch):
+    """K1's inputs at convdiff@1M: (bands fp64 on the card, offsets, x, b,
+    the (8, 3, n) lane basis, B, X), as chip_smoke.check_kernels and
+    check_lane_kernels draw them."""
+    from gmres_tpu_torch.io.synth import convection_diffusion_2d
+    from gmres_tpu_torch.ops.dia import from_csr
+
+    dia = from_csr(convection_diffusion_2d(1024, beta=2.0))
+    n = dia.n_rows
+    rng = np.random.default_rng(0)
+    x, b = rng.random(n), rng.standard_normal(n)
+    rng = np.random.default_rng(14)
+    V = rng.standard_normal((max(LANES), 3, n))
+    B, X = rng.standard_normal((max(LANES), n)), rng.random((max(LANES), n))
+    return dia.data.to("cuda", torch.float64), dia.offsets, x, b, V, B, X
+
+
+def k1_calls(torch, sk, inputs):
+    """name -> (call of K1 through the wrappers of module ``sk``, bytes it
+    must move, output names): each mode, dtype and lane count.  A call
+    passes its keywords (``grid``) to the wrapper."""
+    d64, offs, x_np, b_np, V_np, B_np, X_np = inputs
+    D, n = d64.shape
+    x64, b64 = (torch.tensor(a, device="cuda") for a in (x_np, b_np))
+    B64, X64 = (torch.tensor(a, device="cuda") for a in (B_np, X_np))
+    calls = {}
+    for name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        sz = dt.itemsize
+        data, x = d64.to(dt), x64.to(dt)
+        calls[f"k1_spmv {name}"] = (
+            lambda data=data, x=x, **kw: sk.dia_spmv_cuda(data, offs, x, **kw),
+            (D + 2) * n * sz, ("y",))
+        calls[f"k1_residual {name}"] = (
+            lambda dt=dt, **kw: sk.dia_residual_cuda(d64, offs, b64, x64, dt, **kw),
+            (D + 3) * n * 8, ("r", "r_ss", "x_ss"))
+        V = torch.tensor(V_np, dtype=dt, device="cuda")
+        for s in LANES:
+            X = V[:s, 1]
+            calls[f"k1_lanes {name} s{s}"] = (
+                lambda data=data, X=X, **kw: sk.dia_spmv_lanes_cuda(data, offs, X, **kw),
+                (D + 2 * s) * n * sz, ("y",))
+            calls[f"k1_residual_lanes {name} s{s}"] = (
+                lambda dt=dt, s=s, **kw: sk.dia_residual_lanes_cuda(d64, offs, B64[:s],
+                                                                    X64[:s], dt, **kw),
+                (D + 3 * s) * n * 8, ("r", "r_ss", "x_ss"))
+    return calls
+
+
+def measure_k1(torch, timer, copy_gbs, times, outs):
+    """K1 in its four modes at convdiff@1M: outputs, times beside the bound,
+    and (where the wrappers take ``grid``) times on persistent grids of
+    1, 2, 4 and 8 blocks an SM."""
+    from gmres_tpu_torch.ops.cuda import spmv_kernel as sk
+
+    grid_kw = "grid" in inspect.signature(sk.dia_spmv_cuda).parameters
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for key, (fn, nbytes, names) in k1_calls(torch, sk, k1_inputs(torch)).items():
+        got = fn()
+        for nm, t in zip(names, got if isinstance(got, tuple) else (got,)):
+            outs[f"{key} {nm}"] = t.cpu()
+        ms = timer(fn)
+        rec = dict(ms=ms, bound_ms=nbytes / (copy_gbs * 1e9) * 1e3,
+                   of_bound=nbytes / (copy_gbs * 1e9) * 1e3 / ms)
+        if grid_kw:
+            rec["ms_by_blocks_per_sm"] = {k: timer(lambda: fn(grid=sms * k))
+                                          for k in (1, 2, 4, 8)}
+        times[key] = rec
 
 
 def measure_sweeps(torch, cs, timer, copy_gbs, times, outs):
@@ -215,8 +303,8 @@ def measure_forms_kept(torch, timer, times, outs):
 
 
 def _wrappers(checkout):
-    """The orth_kernel and outer_kernel modules of gmres_tpu_torch in
-    ``checkout``.  Every module of the package imported before is dropped
+    """The orth_kernel, outer_kernel, spmv_kernel and halo_kernel modules of
+    gmres_tpu_torch in ``checkout``.  Every module of the package imported before is dropped
     from sys.modules first, so that two checkouts' wrappers can be held in
     one process: each keeps the modules (and the kernel library) it was
     made from."""
@@ -224,19 +312,59 @@ def _wrappers(checkout):
         del sys.modules[name]
     sys.path.insert(0, os.path.abspath(checkout))
     try:
-        from gmres_tpu_torch.ops.cuda import orth_kernel, outer_kernel
+        from gmres_tpu_torch.ops.cuda import halo_kernel, orth_kernel, outer_kernel, spmv_kernel
     finally:
         sys.path.pop(0)
-    return orth_kernel, outer_kernel
+    return orth_kernel, outer_kernel, spmv_kernel, halo_kernel
+
+
+def halo_pair_calls(torch, hk, inputs):
+    """name -> call of K12 through the wrappers of module ``hk`` on the
+    interior block of convdiff@1M over RANKS ranks, each mode and dtype."""
+    d64, offs, x64, l64, r64, b64 = inputs
+    calls = {}
+    for name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        data, x, left, right = (t.to(dt) for t in (d64, x64, l64, r64))
+        calls[f"halo_spmv {name} interior"] = (
+            lambda data=data, x=x, left=left, right=right:
+            hk.dia_spmv_halo_cuda(data, offs, x, left, right))
+        calls[f"halo_residual {name} interior"] = (
+            lambda dt=dt: hk.dia_residual_halo_cuda(d64, offs, b64, x64, l64, r64, dt))
+    return calls
+
+
+def halo_inputs(torch):
+    """The interior block of convdiff@1M over RANKS ranks (measure_halo's
+    draw): fp64 bands, offsets, x, the two edges and b on the card."""
+    from gmres_tpu_torch.io.synth import convection_diffusion_2d
+    from gmres_tpu_torch.parallel.halo import partition_halo
+
+    H = partition_halo(convection_diffusion_2d(1024, beta=2.0), RANKS)
+    rng = np.random.default_rng(10)
+    r, hl, hr = H.rows_per_shard, H.halo_left, H.halo_right
+    x, left, right, b = rng.random(r), rng.random(hl), rng.random(hr), rng.standard_normal(r)
+    return (torch.tensor(H.data[1], device="cuda"), H.offsets,
+            *(torch.tensor(a, device="cuda") for a in (x, left, right, b)))
 
 
 def measure_pairs(torch, timer, parent, pairs):
-    """K2x2 (31 rows) and K4 (30 coefficients) in each form on
-    measure_forms_kept's inputs, the wrappers of ``parent`` and of this
-    checkout timed in turns: ``pairs`` (parent, this) pairs of medians, and
-    the number of pairs this checkout's won."""
+    """K1 in each mode, dtype and lane count (measure_k1's inputs), K12 in
+    each mode and dtype (its interior block), K2x2 (31 rows) and K4 (30
+    coefficients) in each form on measure_forms_kept's inputs, the wrappers
+    of ``parent`` and of this checkout timed in turns: ``pairs`` (parent,
+    this) pairs of medians, and the number of pairs this checkout's won."""
     old, new = _wrappers(parent), _wrappers(ROOT)
     from gmres_tpu_torch.ops.cuda._build import AXPY_FORMS, GRAM2_FORMS
+
+    calls = {}
+    k1 = k1_inputs(torch)
+    for (key, (a, _, _)), (_, (b, _, _)) in zip(k1_calls(torch, old[2], k1).items(),
+                                                k1_calls(torch, new[2], k1).items()):
+        calls[key] = [a, b]
+    halo = halo_inputs(torch)
+    for (key, a), b in zip(halo_pair_calls(torch, old[3], halo).items(),
+                           halo_pair_calls(torch, new[3], halo).values()):
+        calls[key] = [a, b]
 
     rng = np.random.default_rng(0)
     rng.random(N)
@@ -245,19 +373,18 @@ def measure_pairs(torch, timer, parent, pairs):
     w_np = rng.standard_normal(N)
     u_np = rng.standard_normal(M1)
     x_np = np.random.default_rng(1).random(N)
-    calls = {}
     for (vt, wt), form in GRAM2_FORMS.items():
         V = torch.tensor(V_np, dtype=vt, device="cuda")
         w = torch.tensor(w_np, dtype=wt, device="cuda")
         vk = V[M1 - 1].to(wt)
         calls[f"gram2 {form}"] = [lambda ok=ok, V=V, w=w, vk=vk: ok.gram2_cuda(V, w, vk, M1)
-                                  for ok, _ in (old, new)]
+                                  for ok, *_ in (old, new)]
     for (vt, yt, xt), form in AXPY_FORMS.items():
         V = torch.tensor(V_np, dtype=vt, device="cuda")
         y = torch.tensor(u_np[:M1 - 1], dtype=yt, device="cuda")
         x = torch.tensor(x_np, dtype=xt, device="cuda")
         calls[f"axpy {form}"] = [lambda ou=ou, V=V, y=y, x=x: ou.basis_axpy_cuda(x, V, y)
-                                 for _, ou in (old, new)]  # x in place
+                                 for _, ou, *_ in (old, new)]  # x in place
     out = {}
     for key, (a, b) in calls.items():
         a(), b()  # built and launched once before the first timed pair
@@ -396,6 +523,7 @@ def main() -> int:
     measure_sweeps(torch, cs, timer, copy_gbs, times, outs)
     measure_halo(torch, cs, timer, copy_gbs, times, outs)
     measure_df64(torch, cs, timer, copy_gbs, times, outs)
+    measure_k1(torch, timer, copy_gbs, times, outs)
     measure_forms_kept(torch, timer, times, outs)
     if args.save:
         torch.save(outs, args.save)

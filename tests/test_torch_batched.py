@@ -384,11 +384,15 @@ def test_k1_lane_plain_versions_match_k1_and_jax(s):
 
 
 def test_lane_chunks_cover_every_lane_once():
+    # a launch takes up to 8 lanes, on the narrowest compiled width that
+    # holds them: s <= 8 lanes are one launch
     for s in range(1, 40):
         chunks = sk.lane_chunks(s)
         assert [j for j0, w in chunks for j in range(j0, j0 + w)] == list(range(s))
-        assert all(w in sk.LANE_CHUNKS for _, w in chunks)
-        assert len(chunks) == s // 8 + bin(s % 8).count("1")
+        assert all(1 <= w <= 8 for _, w in chunks)
+        assert all(sk.lane_width(w) in sk.LANE_WIDTHS and w <= sk.lane_width(w) < 2 * w
+                   for _, w in chunks)
+        assert len(chunks) == -(-s // 8)
 
 
 def test_batched_on_cuda_never_falls_back_to_cpu():

@@ -25,9 +25,11 @@ marker and skip elsewhere.  On the card:
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -213,6 +215,14 @@ def _one_call(name):
     forms)."""
     from gmres_tpu_torch.ops.cuda import halo_kernel as hk
 
+    if name.startswith("dia_residual_lanes:") or name == "dia_residual":
+        n, offs = 1 << 20, (-1024, -1, 0, 1, 1024)
+        s = int(name.split(":")[1]) if ":" in name else 1
+        data = torch.randn((5, n), dtype=torch.float64, device="cuda")
+        X, B = (torch.randn((s, n), dtype=torch.float64, device="cuda") for _ in range(2))
+        if ":" in name:
+            return lambda: sk.dia_residual_lanes_cuda(data, offs, B, X, torch.float32)
+        return lambda: sk.dia_residual_cuda(data, offs, B[0], X[0], torch.float32)
     if ":" in name:
         kernel, form = name.split(":")
         vt, wt = next(k for k, v in SWEEP_FORMS.items() if v == form)
@@ -1036,7 +1046,7 @@ def test_dia_halo_bit_equal_to_k1_rows(dt, r, offsets, hl, hr, P, s):
 
 def test_dia_halo_residual_is_one_device_kernel():
     names = _device_kernels("dia_residual_halo")
-    assert len(names) == 1 and "halo" in names[0], names
+    assert len(names) == 1 and "dia_spmv_kernel" in names[0], names  # K1's kernel
 
 
 def _df_pairs(n, m1, shift, seed):
@@ -1504,9 +1514,10 @@ def test_solve_cli_on_card_matches_cpu():
 @pytest.mark.parametrize("s", [1, 3, 7, 8])
 @pytest.mark.parametrize("nx", [7, 45, 1024])
 def test_dia_lanes_bit_equal_to_k1(dt, s, nx):
-    # K1's lane form (s = 7 runs the 4-, 2- and 1-lane launches, s = 8 the
-    # 8-lane one): lane j is K1 on lane j bit for bit, in plain mode on a
-    # strided view of the lanes (a basis row of every lane, V[:, k, :]) and
+    # K1's lane form (s = 3 and 7 run one launch of 4 and 8 lanes with a
+    # lane fewer, s = 8 a full one): lane j is K1 on lane j bit for bit, in
+    # plain mode on a strided view of the lanes (a basis row of every lane,
+    # V[:, k, :]) and
     # in residual mode with each lane's two sums; the lane plain versions are
     # K1's plain versions lane by lane, bit for bit; kernel against plain
     # within TOL (FMA against a multiply then an add)
@@ -1553,6 +1564,132 @@ def test_dia_lanes_wrappers_refuse_what_the_kernel_does_not_take():
         sk.dia_residual_lanes_cuda(data, dia.offsets, X[:1], X, torch.float32)
 
 
+def _round_to(q: Fraction, dt) -> float:
+    """The exact value q rounded once to dt, to nearest, ties to even (q in
+    dt's normal range or 0; Python's int division rounds so to fp64)."""
+    if dt == torch.float64 or q == 0:
+        return float(q)
+    a = abs(q)
+    e = a.numerator.bit_length() - a.denominator.bit_length()
+    while a >= Fraction(2) ** e:
+        e += 1
+    while a < Fraction(2) ** (e - 1):
+        e -= 1
+    scaled = a * Fraction(2) ** (24 - e)
+    m, rem = divmod(scaled.numerator, scaled.denominator)
+    if 2 * rem > scaled.denominator or (2 * rem == scaled.denominator and m % 2):
+        m += 1
+    return math.copysign(math.ldexp(m, e - 24), q)
+
+
+def _fma_chain(data, offsets, X, n_cols, dt):
+    """y of one fused multiply-add chain a row and lane, bands in ascending
+    order from 0, each step rounded once to dt (the bands past [0, n_cols)
+    add nothing): numpy (lanes, n) float64 holding dt's values."""
+    D, n = data.shape
+    dv = [[Fraction(float(v)) for v in row] for row in data]
+    out = np.zeros((X.shape[0], n))
+    for l in range(X.shape[0]):
+        xv = [Fraction(float(v)) for v in X[l]]
+        for i in range(n):
+            acc = Fraction(0)
+            for d, off in enumerate(offsets):
+                if 0 <= i + off < n_cols:
+                    acc = Fraction(_round_to(dv[d][i] * xv[i + off] + acc, dt))
+            out[l, i] = float(acc)
+    return out
+
+
+def _minus(B, Y, dt):
+    """b - y rounded once to dt, elementwise."""
+    return np.vectorize(lambda b, y: _round_to(Fraction(float(b)) - Fraction(float(y)), dt))(
+        B, Y)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+# (n, n_cols, offsets, lanes, layout): the general form of K1 -- odd n, n
+# not a multiple of the 16-byte chunk, lanes of a strided view whose lane
+# stride is off 16-byte alignment, x at an offset pointer, a rectangular
+# operator, ILU factor bands (offsets <= 0), a random band set; and the
+# aligned form
+K1_BIT_CASES = [
+    (2025, 2025, (-45, -1, 0, 1, 45), 3, "strided"),      # convdiff(45), x_ld = 3n
+    (4096, 4096, (-700, -3, 0, 2, 5, 9, 1100), 8, "shifted"),  # x at +1 value
+    (1025, 1025, (-32, -1, 0), 1, "shifted"),             # an ILU L factor
+    (1000, 1300, (-20, 0, 7, 900), 2, "strided"),         # n_cols != n (plain mode)
+    (4096, 4096, (-64, -1, 0, 1, 64), 4, "strided"),      # the aligned form
+]
+
+
+def _k1_lanes(case, dt, seed):
+    """The case's bands (dt, D x n, random also where a band reads past x),
+    X (s, n_cols) laid out as the case says and B (s, n) on the card."""
+    n, n_cols, offsets, s, layout = case
+    rng = np.random.default_rng(seed)
+    data = torch.tensor(rng.standard_normal((len(offsets), n)), dtype=dt, device="cuda")
+    if layout == "strided":
+        X = torch.tensor(rng.standard_normal((s, 3, n_cols)), dtype=dt, device="cuda")[:, 1]
+    else:
+        buf = torch.tensor(rng.standard_normal(s * n_cols + 1), dtype=dt, device="cuda")
+        X = buf[1:].view(s, n_cols)
+    B = torch.tensor(rng.standard_normal((s, n)), dtype=dt, device="cuda")
+    return data, offsets, X, B
+
+
+@DTYPES
+@pytest.mark.parametrize("case", K1_BIT_CASES,
+                         ids=[f"n{c[0]}-c{c[1]}-D{len(c[2])}-s{c[3]}-{c[4]}"
+                              for c in K1_BIT_CASES])
+def test_dia_bits_are_one_fma_chain_on_every_grid(dt, case):
+    # y (K1 and its lane form) and r (both residual forms) are the bits of
+    # one fused multiply-add chain a row, bands ascending from 0, on every
+    # grid and in the general form; the residual sums are the same bits on
+    # every grid and within the plain version's tolerance
+    n, n_cols, offsets, s, _ = case
+    data, offsets, X, B = _k1_lanes(case, dt, n + s)
+    y_np = _fma_chain(data.cpu().numpy(), offsets, X.cpu().numpy(), n_cols, dt)
+    want_y = torch.tensor(y_np, dtype=dt, device="cuda")
+    square = n == n_cols
+    if square:
+        want_r = torch.tensor(_minus(B.cpu().numpy(), y_np, dt), dtype=dt, device="cuda")
+    plan = sk.dia_plan(offsets, n, n_cols, data.element_size())
+    sums = []
+    for grid in (None, 1, 3, plan.n_blocks + 5):
+        Y = sk.dia_spmv_lanes_cuda(data, offsets, X, grid=grid)
+        assert torch.equal(_bits(Y), _bits(want_y)), grid
+        if s == 1:
+            y = sk.dia_spmv_cuda(data, offsets, X[0], grid=grid)
+            assert torch.equal(_bits(y), _bits(want_y[0]))
+        if not square:
+            continue
+        R, r_ss, x_ss = sk.dia_residual_lanes_cuda(data, offsets, B, X, torch.float32,
+                                                   grid=grid)
+        assert torch.equal(_bits(R), _bits(want_r)), grid
+        sums.append(torch.stack([r_ss, x_ss]))
+        if s == 1:
+            r, rs, xs = sk.dia_residual_cuda(data, offsets, B[0], X[0], torch.float32, grid=grid)
+            assert torch.equal(_bits(r), _bits(want_r[0]))
+            assert torch.equal(torch.stack([rs, xs]), sums[-1][:, 0])
+    if square:
+        assert all(torch.equal(t, sums[0]) for t in sums)
+        _, rp, xp = sk.dia_residual_lanes_plain(data, offsets, B, X, torch.float32)
+        # the plain version sums r' (fp32) in fp32
+        assert float(((sums[0][0] - rp).abs() / rp).max()) <= 1e-5
+        assert float(((sums[0][1] - xp).abs() / xp).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("lanes", [None, 1, 2, 3, 4, 8])
+def test_dia_residual_is_one_device_kernel(lanes):
+    # K1's residual mode, single and its lane form at s <= 8, is one device
+    # kernel a call: the launch adds its blocks' sums, no torch op follows
+    name = "dia_residual" if lanes is None else f"dia_residual_lanes:{lanes}"
+    names = _device_kernels(name)
+    assert len(names) == 1 and "dia_spmv_kernel" in names[0], names
+
+
 @pytest.mark.parametrize("mode", ["baseline", "mixed"])
 def test_solve_batched_on_card_matches_solve(mode):
     # each lane's counts are those of solve() on the card of its b, and the
@@ -1566,11 +1703,12 @@ def test_solve_batched_on_card_matches_solve(mode):
     reset_launch_counts()
     res = gmres_tpu_torch.solve_batched(A, B, cfg)
     counts, forms = launch_counts(), form_launch_counts()
+    # five lanes are one launch of the 8-lane form; fewer as lanes finish
     k1 = "f64" if mode == "baseline" else "f32"
-    assert f"{k1}_lanes4" in forms["dia_spmv"] and set(forms["dia_spmv"]) <= {
-        f"{k1}_lanes{w}" for w in (4, 2, 1)}, forms
-    assert "f64_lanes4" in forms["dia_residual"] and set(forms["dia_residual"]) <= {
-        f"f64_lanes{w}" for w in (4, 2, 1)}, forms
+    assert f"{k1}_lanes8" in forms["dia_spmv"] and set(forms["dia_spmv"]) <= {
+        f"{k1}_lanes{w}" for w in (8, 4, 2, 1)}, forms
+    assert "f64_lanes8" in forms["dia_residual"] and set(forms["dia_residual"]) <= {
+        f"f64_lanes{w}" for w in (8, 4, 2, 1)}, forms
     used = {"dia_spmv", "dia_residual", "basis_gram", "basis_update_gram",
             "basis_update_sumsq", "basis_axpy"}
     assert all(counts[k] > 0 for k in used) and all(counts[k] == 0 for k in counts

@@ -14,10 +14,15 @@ kernel runs here; the card tests hold the kernels themselves).
   column once, and every register tiling and grid-stride grid the kernel
   may take hands each group to exactly one block, so h has the same bits
   on every grid; the tags of its slots are new at every launch.
-- ``halo_plan`` (K12, ``csrc/dia_halo.cu``): every row of the shard lies in
-  one block, each block interior or on the window path; an interior row
-  reads only x for every band, and a block takes the window path only when
-  one of its rows reads past x.
+- ``dia_plan`` (K1, ``csrc/dia_spmv.cu``): every row lies in one block of
+  rows, and a launch of any grid sweeps every block once; a block is
+  interior exactly when none of its rows reads x outside [0, n_cols) for
+  any band, so the window path takes every row that does; the plan is the
+  same for every lane count, and s <= 8 lanes are one launch.
+- ``halo_plan`` (K12, K1's kernel with the halo edges): every row of the
+  shard lies in one block, each block interior or on the window path; an
+  interior row reads only x for every band, and a block takes the window
+  path only when one of its rows reads past x.
 - ``df_update_gram_plan`` (K10, ``csrc/df64_sweep.cu``): its two stages
   (each the tile's rows of Vh and Vl and w's pair) and u fit the per-block
   budget for every rows in 1..256, and its tiles cover every column exactly
@@ -42,6 +47,7 @@ from gmres_tpu_torch.ops.cuda import halo_kernel as hk
 from gmres_tpu_torch.ops.cuda import mgs_kernel as mk
 from gmres_tpu_torch.ops.cuda import orth_kernel as ok
 from gmres_tpu_torch.ops.cuda import outer_kernel as ou
+from gmres_tpu_torch.ops.cuda import spmv_kernel as sk
 from gmres_tpu_torch.ops.cuda._build import AXPY_FORMS
 
 
@@ -171,6 +177,88 @@ def test_mgs_slot_tags_are_new_at_every_launch(monkeypatch):
 
 
 CONVDIFF_1M = (-1024, -1, 0, 1, 1024)
+# K1's band sets: convdiff@1M's, its ILU factors' (strict L, L with the
+# diagonal: offsets <= 0; U) and a random set of 9 bands
+K1_OFFSETS = {
+    "convdiff": CONVDIFF_1M,
+    "ilu-L": (-1024, -1),
+    "ilu-L-diag": (-1024, -1, 0),
+    "ilu-U": (0, 1, 1024),
+    "random": tuple(sorted(np.random.default_rng(16).choice(np.arange(-3000, 3001), 9,
+                                                            replace=False).tolist())),
+}
+K1_ROWS = (1, 7, 8, 9, 1023, 1025, 4099, 262_144, 1_048_576)
+
+
+def _check_dia_plan(plan, offsets, n, n_cols, itemsize, rows=None):
+    assert plan.block_rows == 256 * (rows or 16 // itemsize)
+    assert plan.n_blocks == -(-n // plan.block_rows)
+    assert 0 <= plan.b0 <= plan.b1 <= plan.n_blocks
+    b = np.arange(plan.n_blocks)
+    starts = b * plan.block_rows
+    stops = np.minimum(starts + plan.block_rows, n)
+    # the blocks tile the rows: each row in exactly one block
+    assert starts[0] == 0 and stops[-1] == n and np.all(stops > starts)
+    assert np.all(starts[1:] == stops[:-1])
+    assert [len(plan.rows(k)) for k in (0, plan.n_blocks - 1)] == [stops[0], n - starts[-1]]
+    # interior exactly when no row of the block reads x outside [0, n_cols)
+    reads_past = (starts + min(offsets) < 0) | (stops - 1 + max(offsets) >= n_cols)
+    interior = np.array([plan.interior(k) for k in b])
+    np.testing.assert_array_equal(interior, ~reads_past)
+    assert np.all(interior[plan.b0:plan.b1]) and interior.sum() == plan.b1 - plan.b0
+
+
+@pytest.mark.parametrize("name", list(K1_OFFSETS))
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_dia_plan_covers_every_row_once_and_splits_interior_blocks(name, itemsize):
+    offsets = K1_OFFSETS[name]
+    for n in K1_ROWS:
+        plan = sk.dia_plan(offsets, n, n, itemsize)
+        _check_dia_plan(plan, offsets, n, n, itemsize)
+        # a launch of G blocks sweeps blocks g, g + G, ...: every block once
+        for grid in {1, 3, 132, plan.n_blocks}:
+            swept = np.sort(np.concatenate([np.arange(g, plan.n_blocks, grid)
+                                            for g in range(min(grid, plan.n_blocks))]))
+            np.testing.assert_array_equal(swept, np.arange(plan.n_blocks))
+    # a rectangular operator: the columns bound the interior
+    for n, n_cols in ((4099, 3000), (3000, 4099), (1_048_576, 1_040_000)):
+        _check_dia_plan(sk.dia_plan(offsets, n, n_cols, itemsize), offsets, n, n_cols,
+                        itemsize)
+
+
+@pytest.mark.parametrize("lanes", range(1, 9))
+def test_dia_plan_for_every_lane_count(lanes):
+    # s <= 8 lanes are one launch on the narrowest compiled width that holds
+    # them; residual mode sweeps K1's blocks whatever the lanes (so lane l's
+    # sums are K1's on x_l, block for block), and the plain lane form's own
+    # rows a thread cover every row once with the interior split right
+    assert sk.lane_chunks(lanes) == [(0, lanes)]
+    width = sk.lane_width(lanes)
+    assert width in sk.LANE_WIDTHS and lanes <= width < 2 * lanes
+    for name, offsets in K1_OFFSETS.items():
+        for itemsize in (4, 8):
+            assert sk.rows_per_thread(itemsize, width, residual=True) == 16 // itemsize
+            rows = sk.rows_per_thread(itemsize, width)
+            assert rows in (1, 2, 16 // itemsize) and (width > 1 or rows == 16 // itemsize)
+            for n in K1_ROWS:
+                one = sk.dia_plan(offsets, n, n, itemsize)
+                assert one == sk.dia_plan(offsets, n, n, itemsize,
+                                          sk.rows_per_thread(itemsize, width, residual=True))
+                assert one == hk.halo_plan(offsets, n, 0, 0, itemsize)
+                if name in ("convdiff", "random"):
+                    _check_dia_plan(sk.dia_plan(offsets, n, n, itemsize, rows), offsets, n, n,
+                                    itemsize, rows)
+
+
+def test_dia_plan_at_convdiff_1m():
+    # n = 1,048,576 with offsets +-1 and +-1024: the first and last 1024 rows
+    # read outside x (fp32: one 1024-row block a side; fp64: two of 512)
+    p32 = sk.dia_plan(CONVDIFF_1M, 1 << 20, 1 << 20, 4)
+    p64 = sk.dia_plan(CONVDIFF_1M, 1 << 20, 1 << 20, 8)
+    assert (p32.n_blocks, p32.b0, p32.b1) == (1024, 1, 1023)
+    assert (p64.n_blocks, p64.b0, p64.b1) == (2048, 2, 2046)
+    with pytest.raises(ValueError):
+        sk.dia_plan(CONVDIFF_1M, 0, 1, 4)
 
 
 @pytest.mark.parametrize("offsets,r,hl,hr", [

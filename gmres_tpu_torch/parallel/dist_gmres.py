@@ -113,6 +113,7 @@ from gmres_tpu_torch.solver.gmres import (
 )
 from gmres_tpu_torch.solver.policies import PolicyState
 from gmres_tpu_torch.sparse import CSRMatrix, RowBlockCSR, csr_from_arrays
+from gmres_tpu_torch.utils.profiling import span
 
 _f64 = torch.float64
 
@@ -555,68 +556,70 @@ def solve_distributed(A, b, cfg: GmresConfig | None = None, group=None, device=N
     b||`` are taken on the host from the unpartitioned operands
     (``gmres_tpu/parallel/dist_gmres.py:597-621``), so every rank has the
     same bits."""
-    cfg = cfg or GmresConfig()
-    _require_supported_dist(A, cfg)
-    comm = Comm(group)
-    dev = resolve_device("cuda" if device is None else device)
-    p = cfg.precision
-    n = A.n_rows
-    route = _route(A, cfg, comm, multihost, force_sell)
+    with span("solve", entry="solve_distributed", lanes=1):
+        cfg = cfg or GmresConfig()
+        _require_supported_dist(A, cfg)
+        comm = Comm(group)
+        dev = resolve_device("cuda" if device is None else device)
+        p = cfg.precision
+        n = A.n_rows
+        with span("solve.prepare"):
+            route = _route(A, cfg, comm, multihost, force_sell)
 
-    t0 = time.perf_counter()
-    if cfg.precond == Precond.BILU_JACOBI:
-        M = _PendingBILU(steps=cfg.jacobi_steps, dtype=p.precond_dtype)
-    elif isinstance(A, RowBlockCSR):
-        M = (build_jacobi_rowblock(A, p.precond_dtype, route.exchange)
-             if cfg.precond == Precond.JACOBI else IdentityPrec())
-    else:
-        M = build_preconditioner(A, cfg)
-    prec_seconds = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            if cfg.precond == Precond.BILU_JACOBI:
+                M = _PendingBILU(steps=cfg.jacobi_steps, dtype=p.precond_dtype)
+            elif isinstance(A, RowBlockCSR):
+                M = (build_jacobi_rowblock(A, p.precond_dtype, route.exchange)
+                     if cfg.precond == Precond.JACOBI else IdentityPrec())
+            else:
+                M = build_preconditioner(A, cfg)
+            prec_seconds = time.perf_counter() - t0
 
-    t1 = time.perf_counter()
-    b_np = _host_vector(b, p.outer_dtype)
-    b_host = torch.from_numpy(b_np)
-    b_norm = nrm2(b_host).to(_f64)
-    a_norm = _a_norm(A, cfg, route, comm)
-    A_out, A_in, M_loc, local_bytes = _stage(A, cfg, M, comm, dev, route)
-    r = route.rows_per
-    lo, hi = comm.rank * r, (comm.rank + 1) * r
-    b_loc = torch.from_numpy(pad_vector(b_np, comm.size, r)[lo:hi].copy()).to(dev)
-    if isinstance(M, _PendingBILU):
-        # the factors exist only partitioned: one sum over the ranks (padded
-        # rows add exact zeros)
-        w = typesafe_apply(M_loc, b_loc.to(p.inner_dtype)).to(_f64)
-        minvb_norm = torch.sqrt(comm.all_reduce_sum(torch.dot(w, w))).cpu()
-    else:
-        minvb_norm = nrm2(typesafe_apply(M, b_host.to(p.inner_dtype))).to(_f64)
-    if x0 is None:
-        x = torch.zeros_like(b_loc)
-    else:
-        x = torch.from_numpy(pad_vector(_host_vector(x0, p.outer_dtype), comm.size, r)[lo:hi]
-                             .copy()).to(dev)
-    b_norm, minvb_norm, a_norm = (t.to(dev) for t in (b_norm, minvb_norm, a_norm))
-    setup_seconds = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            b_np = _host_vector(b, p.outer_dtype)
+            b_host = torch.from_numpy(b_np)
+            b_norm = nrm2(b_host).to(_f64)
+            a_norm = _a_norm(A, cfg, route, comm)
+            A_out, A_in, M_loc, local_bytes = _stage(A, cfg, M, comm, dev, route)
+            r = route.rows_per
+            lo, hi = comm.rank * r, (comm.rank + 1) * r
+            b_loc = torch.from_numpy(pad_vector(b_np, comm.size, r)[lo:hi].copy()).to(dev)
+            if isinstance(M, _PendingBILU):
+                # the factors exist only partitioned: one sum over the ranks (padded
+                # rows add exact zeros)
+                w = typesafe_apply(M_loc, b_loc.to(p.inner_dtype)).to(_f64)
+                minvb_norm = torch.sqrt(comm.all_reduce_sum(torch.dot(w, w))).cpu()
+            else:
+                minvb_norm = nrm2(typesafe_apply(M, b_host.to(p.inner_dtype))).to(_f64)
+            if x0 is None:
+                x = torch.zeros_like(b_loc)
+            else:
+                x0_np = pad_vector(_host_vector(x0, p.outer_dtype), comm.size, r)
+                x = torch.from_numpy(x0_np[lo:hi].copy()).to(dev)
+            b_norm, minvb_norm, a_norm = (t.to(dev) for t in (b_norm, minvb_norm, a_norm))
+            setup_seconds = time.perf_counter() - t1
 
-    hooks = {}
-    if checkpoint is not None:
-        spec, consensus = _dist_ckpt_hooks(
-            checkpoint, comm.rank, route.owned or [comm.rank],
-            route.exchange or (lambda a: exchange_host_array(a, group)))
-        hooks = dict(checkpoint=spec, ckpt_consensus=consensus)
+            hooks = {}
+            if checkpoint is not None:
+                spec, consensus = _dist_ckpt_hooks(
+                    checkpoint, comm.rank, route.owned or [comm.rank],
+                    route.exchange or (lambda a: exchange_host_array(a, group)))
+                hooks = dict(checkpoint=spec, ckpt_consensus=consensus)
 
-    def cycle(x, pstate, pending):
-        return restart_cycle(cfg, A_out, A_in, M_loc, b_loc, x, b_norm, minvb_norm, a_norm,
-                             pstate, pending, comm)
+        def cycle(x, pstate, pending):
+            return restart_cycle(cfg, A_out, A_in, M_loc, b_loc, x, b_norm, minvb_norm, a_norm,
+                                 pstate, pending, comm)
 
-    result = drive_restarts(cycle, x, cfg, record_history, progress, **hooks)
-    result.x = comm.all_gather(result.x)[:n]
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    result.prec_seconds = prec_seconds
-    result.setup_seconds = setup_seconds
-    result.solve_seconds = time.perf_counter() - t1
-    result.partition_local_bytes = local_bytes
-    return result
+        result = drive_restarts(cycle, x, cfg, record_history, progress, **hooks)
+        result.x = comm.all_gather(result.x)[:n]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        result.prec_seconds = prec_seconds
+        result.setup_seconds = setup_seconds
+        result.solve_seconds = time.perf_counter() - t1
+        result.partition_local_bytes = local_bytes
+        return result
 
 
 def spmv_distributed(A: CSRMatrix, x, group=None, device=None):

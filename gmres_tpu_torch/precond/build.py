@@ -54,6 +54,7 @@ from gmres_tpu_torch.precond.ilu0 import (
     triangular_levels,
 )
 from gmres_tpu_torch.sparse import CSRMatrix, csr_from_arrays
+from gmres_tpu_torch.utils.profiling import span
 
 # Bytes of factor bands and vectors of the fused form; a larger working set
 # takes the segmented form (set when each K6 sweep re-read the working set
@@ -86,7 +87,8 @@ class JacobiPrec:
     inv_diag: torch.Tensor
 
     def to(self, device) -> "JacobiPrec":
-        return JacobiPrec(inv_diag=self.inv_diag.to(device))
+        with span("precond.upload"):
+            return JacobiPrec(inv_diag=self.inv_diag.to(device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,9 +110,10 @@ class ILUJacobiPrec:
     block_local: bool = False
 
     def to(self, device) -> "ILUJacobiPrec":
-        return dataclasses.replace(self, lower=self.lower.to(device),
-                                   upper=self.upper.to(device),
-                                   inv_diag=self.inv_diag.to(device))
+        with span("precond.upload"):
+            return dataclasses.replace(self, lower=self.lower.to(device),
+                                       upper=self.upper.to(device),
+                                       inv_diag=self.inv_diag.to(device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,23 +140,26 @@ class ExactILUDIAPrec:
     schedule: LevelSchedule | None = None
 
     def to(self, device) -> "ExactILUDIAPrec":
-        moved = dataclasses.replace(self, lower_bands=self.lower_bands.to(device),
-                                    upper_bands=self.upper_bands.to(device),
-                                    inv_diag=self.inv_diag.to(device))
-        if moved.inv_diag.is_cuda:
-            moved = dataclasses.replace(moved, schedule=self.with_schedule().schedule.to(device))
-        elif self.schedule is not None:
-            moved = dataclasses.replace(moved, schedule=self.schedule.to(device))
-        return moved
+        with span("precond.upload"):
+            moved = dataclasses.replace(self, lower_bands=self.lower_bands.to(device),
+                                        upper_bands=self.upper_bands.to(device),
+                                        inv_diag=self.inv_diag.to(device))
+            if moved.inv_diag.is_cuda:
+                schedule = self.with_schedule().schedule.to(device)
+                moved = dataclasses.replace(moved, schedule=schedule)
+            elif self.schedule is not None:
+                moved = dataclasses.replace(moved, schedule=self.schedule.to(device))
+            return moved
 
     def with_schedule(self) -> "ExactILUDIAPrec":
         """This preconditioner with its level schedule (built on the host
         from the bands, for segments of ``seg`` rows, where it has none)."""
         if self.schedule is not None:
             return self
-        return dataclasses.replace(self, schedule=level_schedule(
-            self.lower_bands, self.upper_bands, self.inv_diag, self.offs_l, self.offs_u,
-            self.seg))
+        with span("precond.levels"):
+            schedule = level_schedule(self.lower_bands, self.upper_bands, self.inv_diag,
+                                      self.offs_l, self.offs_u, self.seg)
+        return dataclasses.replace(self, schedule=schedule)
 
 
 def _rounded(values: np.ndarray, dtype: torch.dtype) -> np.ndarray:
@@ -263,11 +269,12 @@ def _factors(A: CSRMatrix, dtype: torch.dtype):
     through torch)."""
     if not isinstance(A, CSRMatrix):
         raise TypeError(f"ILU factors need the CSR matrix, got {type(A).__name__}")
-    rp, ci, v = A.numpy_arrays()
-    rp = rp.astype(np.int64)
-    ci = ci[: rp[-1]]
-    fvals, diag = ilu0_factorize(rp, ci, v, factor_dtype=dtype)
-    lower, upper, inv_diag = _split_triangles(rp, ci, fvals.double().numpy(), diag, dtype)
+    with span("precond.factor"):
+        rp, ci, v = A.numpy_arrays()
+        rp = rp.astype(np.int64)
+        ci = ci[: rp[-1]]
+        fvals, diag = ilu0_factorize(rp, ci, v, factor_dtype=dtype)
+        lower, upper, inv_diag = _split_triangles(rp, ci, fvals.double().numpy(), diag, dtype)
     return rp, ci, diag, lower, upper, inv_diag
 
 
@@ -340,7 +347,8 @@ def build_ilu_exact(A: CSRMatrix, dtype: torch.dtype, allow_fused: bool = True):
     with K1's lane form), or raises where its work is over the budget
     (``gmres_tpu/precond/build.py:278-330, 385-409``)."""
     rp, ci, diag, lower, upper, inv_diag = _factors(A, dtype)
-    nlev_l, nlev_u = triangular_level_counts(rp, ci, diag)
+    with span("precond.levels"):
+        nlev_l, nlev_u = triangular_level_counts(rp, ci, diag)
     steps = max(nlev_l, nlev_u)
     if steps <= _SHALLOW_LEVELS:
         return ILUJacobiPrec(lower=lower, upper=upper, inv_diag=inv_diag, steps=steps)
@@ -392,30 +400,31 @@ def sell_pack_factors(M):
 def build_preconditioner(A, cfg: GmresConfig):
     """Build the preconditioner in the configured dtype from the (fp64)
     assembled matrix; the result lies on the CPU."""
-    dtype = cfg.precision.precond_dtype
-    if cfg.precond == Precond.BILU_JACOBI:
-        # the JAX package's refusal, word for word (gmres_tpu/precond/build.py:487-493)
-        raise ValueError(
-            "precond='bilu_jacobi' is the distributed block-Jacobi ILU "
-            "(each shard factors its diagonal block — precond/bilu.py); "
-            "use solve_distributed, or precond='ilu_jacobi' for "
-            "single-device solves"
-        )
-    if cfg.precond == Precond.IDENTITY:
-        return IdentityPrec()
-    if cfg.precond == Precond.JACOBI:
-        if isinstance(A, CSRMatrix):
-            return build_jacobi(A, dtype)
-        if hasattr(A, "offsets"):
-            return build_jacobi_from_dia(A, dtype)
-        raise TypeError(f"jacobi preconditioner for {type(A).__name__}")
-    if not isinstance(A, CSRMatrix):
-        raise TypeError(
-            f"{cfg.precond.value} preconditioner needs the CSR matrix; pass the CSR "
-            "form to solve() or prebuild M with build_preconditioner(csr, cfg) and "
-            "pass it as M=")
-    if cfg.precond == Precond.ILU_JACOBI:
-        return build_ilu_jacobi(A, dtype, cfg.jacobi_steps)
-    if cfg.precond == Precond.ILU:
-        return build_ilu_exact(A, dtype)
-    raise ValueError(f"unknown preconditioner {cfg.precond}")
+    with span("precond.build"):
+        dtype = cfg.precision.precond_dtype
+        if cfg.precond == Precond.BILU_JACOBI:
+            # the JAX package's refusal, word for word (gmres_tpu/precond/build.py:487-493)
+            raise ValueError(
+                "precond='bilu_jacobi' is the distributed block-Jacobi ILU "
+                "(each shard factors its diagonal block — precond/bilu.py); "
+                "use solve_distributed, or precond='ilu_jacobi' for "
+                "single-device solves"
+            )
+        if cfg.precond == Precond.IDENTITY:
+            return IdentityPrec()
+        if cfg.precond == Precond.JACOBI:
+            if isinstance(A, CSRMatrix):
+                return build_jacobi(A, dtype)
+            if hasattr(A, "offsets"):
+                return build_jacobi_from_dia(A, dtype)
+            raise TypeError(f"jacobi preconditioner for {type(A).__name__}")
+        if not isinstance(A, CSRMatrix):
+            raise TypeError(
+                f"{cfg.precond.value} preconditioner needs the CSR matrix; pass the CSR "
+                "form to solve() or prebuild M with build_preconditioner(csr, cfg) and "
+                "pass it as M=")
+        if cfg.precond == Precond.ILU_JACOBI:
+            return build_ilu_jacobi(A, dtype, cfg.jacobi_steps)
+        if cfg.precond == Precond.ILU:
+            return build_ilu_exact(A, dtype)
+        raise ValueError(f"unknown preconditioner {cfg.precond}")

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from gmres_tpu_torch.sparse import CSRMatrix
+from gmres_tpu_torch.utils.profiling import span
 
 
 def _level_chunks(lev: np.ndarray, rows_target: int) -> list[np.ndarray]:
@@ -132,10 +133,11 @@ class LevelILUPrec:
     n: int
 
     def to(self, device) -> "LevelILUPrec":
-        moved = {f.name: getattr(self, f.name).to(device)
-                 for f in dataclasses.fields(self)
-                 if isinstance(getattr(self, f.name), torch.Tensor)}
-        return dataclasses.replace(self, **moved)
+        with span("precond.upload"):
+            moved = {f.name: getattr(self, f.name).to(device)
+                     for f in dataclasses.fields(self)
+                     if isinstance(getattr(self, f.name), torch.Tensor)}
+            return dataclasses.replace(self, **moved)
 
 
 def build_level_ilu(lower: CSRMatrix, upper: CSRMatrix, inv_diag,

@@ -73,6 +73,7 @@ from gmres_tpu_torch.solver.policies import (
     residual_policy,
     with_first_length,
 )
+from gmres_tpu_torch.utils.profiling import span
 
 _f64 = torch.float64
 
@@ -96,10 +97,14 @@ class _LaneBasis:
     def step(self, k: int, Q: torch.Tensor):
         """Every lane's step k, its column under its own rotations Q[j]; a
         lane past its own length gets a zero column."""
-        W = typesafe_apply_lanes(self.M, spmv_lanes(self.A_in, self.V[:, k]))
+        with span("step.spmv"):
+            AV = spmv_lanes(self.A_in, self.V[:, k])
+        with span("step.precond"):
+            W = typesafe_apply_lanes(self.M, AV)
         cols = [lane.orthonormalize(k, W[j], Q[j]) if k < self.steps[j]
                 else (self.zero_col, self.zero_col[0]) for j, lane in enumerate(self.lanes)]
-        return torch.stack([c for c, _ in cols]), torch.stack([h for _, h in cols])
+        with span("step.givens"):
+            return torch.stack([c for c, _ in cols]), torch.stack([h for _, h in cols])
 
     def orthloss(self, S: torch.Tensor, k: int, loss_sq: torch.Tensor) -> torch.Tensor:
         for j, lane in enumerate(self.lanes):
@@ -144,115 +149,126 @@ def solve_batched(A, B, cfg: GmresConfig | None = None, M=None, record_history: 
         raise ValueError("solve_batched does not support the df64 inner "
                          "tier (its kernels are unbatched); use solve()")
     dev = resolve_device(device)
-    out_dt, in_dt = cfg.precision.outer_dtype, cfg.precision.inner_dtype
-    B = _right_hand_sides(B, A.n_rows, out_dt, dev)
-    s = B.shape[0]
+    with span("solve", entry="solve_batched", lanes=len(B)):
+        with span("solve.prepare"):
+            out_dt, in_dt = cfg.precision.outer_dtype, cfg.precision.inner_dtype
+            B = _right_hand_sides(B, A.n_rows, out_dt, dev)
+            s = B.shape[0]
 
-    t0 = time.perf_counter()
-    if M is None:
-        M = (build_ilu_exact(A, cfg.precision.precond_dtype, allow_fused=False)
-             if cfg.precond == Precond.ILU else build_preconditioner(A, cfg))
-    if cfg.auto_format:
-        M = sell_pack_factors(optimize_precond_format(M))
-    A_out, A_in = prepare_operators(A, cfg, dev)
-    M = M.to(dev)
-    prec_seconds = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            if M is None:
+                M = (build_ilu_exact(A, cfg.precision.precond_dtype, allow_fused=False)
+                     if cfg.precond == Precond.ILU else build_preconditioner(A, cfg))
+            if cfg.auto_format:
+                M = sell_pack_factors(optimize_precond_format(M))
+            A_out, A_in = prepare_operators(A, cfg, dev)
+            M = M.to(dev)
+            prec_seconds = time.perf_counter() - t0
 
-    t1 = time.perf_counter()
-    b_norms = torch.stack([nrm2(b).to(_f64) for b in B])
-    minvb_norms = torch.stack([nrm2(w).to(_f64) for w in typesafe_apply_lanes(M, B.to(in_dt))])
-    a_norm = nrm2(A_in.vals).to(_f64)
-    setup_seconds = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            b_norms = torch.stack([nrm2(b).to(_f64) for b in B])
+            minvb_norms = torch.stack([nrm2(w).to(_f64)
+                                       for w in typesafe_apply_lanes(M, B.to(in_dt))])
+            a_norm = nrm2(A_in.vals).to(_f64)
+            setup_seconds = time.perf_counter() - t0
 
-    X_out = torch.zeros_like(B)
-    live = list(range(s))          # the lanes still iterating, in order
-    B_live, X_live, b_live, mv_live = B, X_out.clone(), b_norms, minvb_norms
-    ps = [initial_policy_state() for _ in range(s)]
-    restarts = [0] * s
-    total_iters = [0] * s
-    converged = [False] * s
-    diverged = [False] * s
-    rel_prec = [float("nan")] * s
-    history = [[] for _ in range(s)] if record_history else None
-    pending = None                 # (l, 2) tails of the live lanes' last cycle
-    last = None                    # per live lane, (i, rel_initial, prec_rel0) of that cycle
-    i = 0
+        X_out = torch.zeros_like(B)
+        live = list(range(s))          # the lanes still iterating, in order
+        B_live, X_live, b_live, mv_live = B, X_out.clone(), b_norms, minvb_norms
+        ps = [initial_policy_state() for _ in range(s)]
+        restarts = [0] * s
+        total_iters = [0] * s
+        converged = [False] * s
+        diverged = [False] * s
+        rel_prec = [float("nan")] * s
+        history = [[] for _ in range(s)] if record_history else None
+        pending = None                 # (l, 2) tails of the live lanes' last cycle
+        last = None                    # per live lane, (i, rel_initial, prec_rel0) of its cycle
+        i = 0
 
-    def settle(rows):
-        for lane, (i_prev, rel0, prec0), (k, arn) in zip(live, last, rows):
-            total_iters[lane] += int(k)
-            if record_history:
-                history[lane].append(dict(i=i_prev, k=int(k), rel_initial=rel0,
-                                          prec_rel0=prec0, arnoldi_final=arn))
-
-    while live:
-        if i + 1 > cfg.max_restarts:
-            break
-        R, r_ss, x_ss = outer_residual_lanes(A_out, B_live, X_live, in_dt)
-        W0 = typesafe_apply_lanes(M, R.to(in_dt))
-        beta = torch.stack([nrm2(w) for w in W0])
-        r_norm = torch.sqrt(r_ss)
-        rel = r_norm / (b_live + a_norm * torch.sqrt(x_ss))
-        prec = beta.to(_f64) / mv_live
-        read = torch.stack([rel, prec, beta.to(_f64)], dim=1)
-        if pending is not None:
-            read = torch.cat([read, pending], dim=1)
-        rows = read.tolist()       # the cycle's one host read, for every lane
-        if pending is not None:
-            settle([row[3:] for row in rows])
-            ps = [with_first_length(p, int(row[3])) for p, row in zip(ps, rows)]
-            pending = last = None
-        keep = []
-        for idx, (lane, (rel0, prec0, beta0, *_)) in enumerate(zip(live, rows)):
-            restarts[lane] = i
-            if not all(v == v and abs(v) != float("inf") for v in (rel0, beta0)):
-                diverged[lane] = True
-            elif rel0 <= cfg.tol:
-                converged[lane] = True
-                rel_prec[lane] = prec0
+        def settle(rows):
+            for lane, (i_prev, rel0, prec0), (k, arn) in zip(live, last, rows):
+                total_iters[lane] += int(k)
                 if record_history:
-                    history[lane].append(dict(i=i, k=0, rel_initial=rel0, prec_rel0=prec0))
-            else:
-                keep.append(idx)
-                continue
-            X_out[lane] = X_live[idx]
-        if not keep:
-            live = []
-            break
-        if len(keep) < len(live):
-            idx = torch.tensor(keep, device=dev)
-            live = [live[j] for j in keep]
-            B_live, X_live, W0, beta = B_live[idx], X_live[idx], W0[idx], beta[idx]
-            b_live, mv_live = b_live[idx], mv_live[idx]
-            rows = [rows[j] for j in keep]
-            ps = [ps[j] for j in keep]
-        restart_tol = [cycle_threshold(cfg, p, row[1]) for p, row in zip(ps, rows)]
-        steps = [cycle_steps(cfg, p) for p in ps]
-        # the residual trigger's threshold, -inf (never reached) in a lane
-        # whose policy has none this cycle
-        on = [residual_policy(cfg, p) for p in ps]
-        trigger_tol = (torch.tensor([t if o else -float("inf") for t, o in zip(restart_tol, on)],
-                                    dtype=_f64, device=dev) if any(on) else None)
-        basis = _LaneBasis(cfg, A_in, M, W0, beta, steps)
-        y, pending = _inner_cycle(cfg, basis, beta, steps, trigger_tol, mv_live)
-        basis.update(X_live, y)
-        last = [(i, row[0], row[1]) for row in rows]
-        ps = [next_state(p, t) for p, t in zip(ps, restart_tol)]
-        i += 1
-    if pending is not None:
-        # the lanes aborted at max_restarts: their last cycle's lengths
-        settle(pending.tolist())
-    for j, lane in enumerate(live):
-        restarts[lane] = i
-        X_out[lane] = X_live[j]
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    solve_seconds = time.perf_counter() - t1
-    return [GmresResult(x=X_out[lane], converged=converged[lane],
-                        aborted=diverged[lane] or not converged[lane],
-                        total_iters=total_iters[lane], restarts=restarts[lane], final_k=0,
-                        rel_prec_res=rel_prec[lane], prec_seconds=prec_seconds,
-                        solve_seconds=solve_seconds, setup_seconds=setup_seconds,
-                        history=history[lane] if record_history else None,
-                        diverged=diverged[lane])
-            for lane in range(s)]
+                    history[lane].append(dict(i=i_prev, k=int(k), rel_initial=rel0,
+                                              prec_rel0=prec0, arnoldi_final=arn))
+
+        while live:
+            if i + 1 > cfg.max_restarts:
+                break
+            with span("cycle", i=i):
+                with span("cycle.residual"):
+                    R, r_ss, x_ss = outer_residual_lanes(A_out, B_live, X_live, in_dt)
+                    W0 = typesafe_apply_lanes(M, R.to(in_dt))
+                    beta = torch.stack([nrm2(w) for w in W0])
+                    r_norm = torch.sqrt(r_ss)
+                    rel = r_norm / (b_live + a_norm * torch.sqrt(x_ss))
+                    prec = beta.to(_f64) / mv_live
+                    read = torch.stack([rel, prec, beta.to(_f64)], dim=1)
+                    if pending is not None:
+                        read = torch.cat([read, pending], dim=1)
+                with span("cycle.read"):
+                    rows = read.tolist()   # the cycle's one host read, for every lane
+                if pending is not None:
+                    settle([row[3:] for row in rows])
+                    ps = [with_first_length(p, int(row[3])) for p, row in zip(ps, rows)]
+                    pending = last = None
+                keep = []
+                for idx, (lane, (rel0, prec0, beta0, *_)) in enumerate(zip(live, rows)):
+                    restarts[lane] = i
+                    if not all(v == v and abs(v) != float("inf") for v in (rel0, beta0)):
+                        diverged[lane] = True
+                    elif rel0 <= cfg.tol:
+                        converged[lane] = True
+                        rel_prec[lane] = prec0
+                        if record_history:
+                            history[lane].append(dict(i=i, k=0, rel_initial=rel0,
+                                                      prec_rel0=prec0))
+                    else:
+                        keep.append(idx)
+                        continue
+                    X_out[lane] = X_live[idx]
+                if not keep:
+                    live = []
+                    break
+                if len(keep) < len(live):
+                    idx = torch.tensor(keep, device=dev)
+                    live = [live[j] for j in keep]
+                    B_live, X_live, W0, beta = B_live[idx], X_live[idx], W0[idx], beta[idx]
+                    b_live, mv_live = b_live[idx], mv_live[idx]
+                    rows = [rows[j] for j in keep]
+                    ps = [ps[j] for j in keep]
+                restart_tol = [cycle_threshold(cfg, p, row[1]) for p, row in zip(ps, rows)]
+                steps = [cycle_steps(cfg, p) for p in ps]
+                # the residual trigger's threshold, -inf (never reached) in a lane
+                # whose policy has none this cycle
+                on = [residual_policy(cfg, p) for p in ps]
+                trigger_tol = (torch.tensor([t if o else -float("inf")
+                                             for t, o in zip(restart_tol, on)],
+                                            dtype=_f64, device=dev) if any(on) else None)
+                basis = _LaneBasis(cfg, A_in, M, W0, beta, steps)
+                y, pending = _inner_cycle(cfg, basis, beta, steps, trigger_tol, mv_live)
+                with span("cycle.update"):
+                    basis.update(X_live, y)
+                last = [(i, row[0], row[1]) for row in rows]
+                ps = [next_state(p, t) for p, t in zip(ps, restart_tol)]
+                i += 1
+        if pending is not None:
+            # the lanes aborted at max_restarts: their last cycle's lengths
+            with span("cycle.read"):
+                tails = pending.tolist()
+            settle(tails)
+        for j, lane in enumerate(live):
+            restarts[lane] = i
+            X_out[lane] = X_live[j]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        solve_seconds = time.perf_counter() - t1
+        return [GmresResult(x=X_out[lane], converged=converged[lane],
+                            aborted=diverged[lane] or not converged[lane],
+                            total_iters=total_iters[lane], restarts=restarts[lane], final_k=0,
+                            rel_prec_res=rel_prec[lane], prec_seconds=prec_seconds,
+                            solve_seconds=solve_seconds, setup_seconds=setup_seconds,
+                            history=history[lane] if record_history else None,
+                            diverged=diverged[lane])
+                for lane in range(s)]

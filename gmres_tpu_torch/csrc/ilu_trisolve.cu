@@ -22,8 +22,13 @@
 // (__fmul_rn/__fadd_rn, as the plain version's torch ops round), and terms
 // whose column falls outside [0, n) left out.  At its level a row's inputs
 // are final, so it gets exactly the value the last sweep of the old design
-// (and of the plain version) leaves in it; a band's stored zero multiplies
-// a finite value (w, b' or a result) and adds nothing.
+// (and of the plain version) leaves in it.  A band's stored zero times a
+// finite value (w, b' or a result) adds nothing to the sum, so the kernel
+// skips it: the bits are the sweeps' wherever the values are finite (where a
+// value read through a zero band is not, the sweeps give NaN in that row).
+// Skipping matters: at a grid's edges the DIA bands' stored zeros point at
+// rows of later levels, outside the ring, so every level would otherwise
+// wait on a device-memory read (PERF.md, section 6).
 //
 // What bounds it: latency.  An apply is a chain of dependent levels (2 x 2047
 // at convdiff@1M); the bytes (bands + 3 values a row) are 32 MB in fp32.
@@ -158,6 +163,7 @@ __device__ __forceinline__ void solve_row(const Triangle<T>& tr, T* xs, T* xo, T
     const int q = staged ? dep[d * stride] : __ldg(tr.dep + (size_t)d * n + p);
     if (q < 0) continue;
     const T b = staged ? band[d * stride] : __ldg(tr.bands + (size_t)d * n + p);
+    if (b == T(0)) continue;  // a stored zero band: no neighbour (see the note above)
     T v;
     if (kMode == kBlockSync && q >= ring_lo && q < lo)
       v = ring[q & (kRing - 1)];

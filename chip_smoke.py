@@ -4,6 +4,8 @@
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k6 [--parent DIR]   # K6's section alone, and
+                                                # K6 beside DIR's K6
 
 It builds the port's CUDA kernels (and the host helper of the ILU
 preconditioners) from the sources in the checkout and drives eight paths,
@@ -152,7 +154,8 @@ bits on each, and its residual mode and residual lane form (s = 1, 2, 4, 8)
 one device kernel a call (counted in a fresh process); K6
 is held bit for bit to its plain version, fused and segmented to each
 other, and timed on one block and on cooperative grids beside the empty
-barrier of each sync candidate (clusters too) and the old design's floor.
+barrier of each sync candidate (clusters too) and the old design's floor,
+and at convdiff(2048) (widest level 2048) on each of its forms.
 Each path's launch counts are reset just
 before its solves and read just after: the path's own kernels must launch,
 the other paths' SpMV kernels, (without ILU) K6, (without MGS, a policy
@@ -297,6 +300,11 @@ DF_UG_BLOCKS_PER_SM = (1, 2, 3)          # K10 grids measured, at each tile
 # forms (one block, a cooperative grid; the kernel has no cluster form)
 LEVEL_SYNCS = (("block", 1), ("cluster", 2), ("cluster", 4), ("cluster", 8), ("grid", 8),
                ("grid", 132))
+# K6's form table: convdiff(NX_WIDE) (widest level 2048 rows) fused on each
+# form; and the turns of K6 timed beside another checkout's (--parent)
+NX_WIDE = 2048
+K6_FORMS = (("block", 1), ("grid", 2), ("grid", 4), ("grid", 8), ("grid", 132))
+K6_BESIDE_PAIRS = 4
 # Kernel vs plain tolerance, relative to the same computation on absolute
 # values (the scale of the standard summation error bound): the two sum in
 # different orders (per-block partials, FMA contraction) over up to n terms.
@@ -1331,6 +1339,91 @@ def check_trisolve_kernels(torch, A_csr, record):
                 f"{ms:.4f} ms; bits equal")
         del M, outs
     record.require_ok()
+    k6_form_table(torch, timer, NX_WIDE)
+
+
+def k6_form_table(torch, timer, nx):
+    """K6 fused on convdiff(nx) (widest level nx rows) in fp32 and fp64 on
+    each of its forms (one block, cooperative grids): the same bits as the
+    level twin on each, and the time of each."""
+    from gmres_tpu_torch.io.synth import convection_diffusion_2d
+    from gmres_tpu_torch.ops.cuda import trisolve_kernel as tk
+
+    A = convection_diffusion_2d(nx, beta=2.0)
+    w_np = np.random.default_rng(3).standard_normal(A.n_rows)
+    for dt_name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        M = exact_ilu(A, dt).to("cuda")
+        S = M.schedule
+        w = torch.tensor(w_np, dtype=dt, device="cuda")
+        args = (M.lower_bands, M.upper_bands, M.inv_diag, w, M.offs_l, M.offs_u, M.steps_l,
+                M.steps_u)
+        want = tk.ilu_trisolve_levels_plain(S, w)
+        picked = tk.level_grid(max(S.width_l, S.width_u))
+        levels = S.nlev_l + S.nlev_u
+        for form in K6_FORMS:
+            out = tk.ilu_trisolve_fused_cuda(*args, schedule=S, sync=form)
+            require(torch.equal(out, want), f"K6 {dt_name} at convdiff({nx}) on {form}: "
+                    f"the level twin's bits")
+            ms = timer(lambda: tk.ilu_trisolve_fused_cuda(*args, schedule=S, sync=form),
+                       TRISOLVE_REPS)
+            log(f"  K6 form table convdiff({nx}) {dt_name} (widest {max(S.width_l, S.width_u)}, "
+                f"{levels} levels) on {form[0]} x {tk.ilu_trisolve_fused_cuda.grid[1]}"
+                f"{' (picked)' if form == picked else ''}: {ms:.4f} ms, "
+                f"{1e3 * ms / levels:.3f} us a level; bits equal")
+        del M, S, w, want
+
+
+def k6_beside_checkout(torch, A_csr, checkout):
+    """K6 of this checkout beside K6 of another (``checkout``: its kernel
+    library built there by its own build, its wrappers and level schedule
+    loaded from its source) on the same factors and w: fused and segmented
+    (2 segments), fp32 and fp64, the same bits, and the device times in
+    alternating turns under one Timer (pairs of TRISOLVE_REPS launches)."""
+    import importlib.util
+    from pathlib import Path
+
+    from gmres_tpu_torch.ops.cuda import _build
+    from gmres_tpu_torch.ops.cuda import trisolve_kernel as tk
+
+    root = Path(checkout).resolve()
+    t0 = time.perf_counter()
+    built = subprocess.run(
+        [sys.executable, "-c", "from gmres_tpu_torch.ops.cuda._build import library; "
+         "print(library().path)"], cwd=root, capture_output=True, text=True, check=True)
+    other_lib = _build.KernelLibrary(Path(built.stdout.strip().splitlines()[-1]), "", 0.0)
+    spec = importlib.util.spec_from_file_location(
+        "k6_other_checkout", root / "gmres_tpu_torch" / "ops" / "cuda" / "trisolve_kernel.py")
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    other.library = lambda: other_lib
+    log(f"K6 beside {root}: its library {other_lib.path} built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    timer = Timer(torch)
+    w_np = np.random.default_rng(2).standard_normal(A_csr.n_rows)
+    for dt_name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        w = torch.tensor(w_np, dtype=dt, device="cuda")
+        for kname, n_seg in (("ilu_trisolve_fused", None), ("ilu_trisolve_segmented", 2)):
+            M = exact_ilu(A_csr, dt, n_seg).to("cuda")
+            steps = ((M.steps_l_segs, M.steps_u_segs, M.seg) if M.seg
+                     else (M.steps_l, M.steps_u))
+            args = (M.lower_bands, M.upper_bands, M.inv_diag, w, M.offs_l, M.offs_u, *steps)
+            S_other = other.level_schedule(M.lower_bands, M.upper_bands, M.inv_diag, M.offs_l,
+                                           M.offs_u, M.seg).to("cuda")
+            fns = {"this": lambda: getattr(tk, kname + "_cuda")(*args, schedule=M.schedule),
+                   "other": lambda: getattr(other, kname + "_cuda")(*args, schedule=S_other)}
+            require(torch.equal(fns["this"](), fns["other"]()),
+                    f"K6 {kname} {dt_name}: the same bits as {root}'s")
+            times = {"this": [], "other": []}
+            for turn in range(K6_BESIDE_PAIRS):
+                for side in (("this", "other") if turn % 2 == 0 else ("other", "this")):
+                    times[side].append(timer(fns[side], TRISOLVE_REPS))
+            med = {k: statistics.median(v) for k, v in times.items()}
+            faster = sum(a < b for a, b in zip(times["this"], times["other"]))
+            log(f"  K6 {kname} {dt_name}: this {med['this']:.4f} ms, {root.name} "
+                f"{med['other']:.4f} ms (medians of {K6_BESIDE_PAIRS} turns; this faster in "
+                f"{faster} of {K6_BESIDE_PAIRS}; this/other {med['this'] / med['other']:.4f}); "
+                f"bits equal")
+            del M, S_other
 
 
 def convdiff_ilu_path(torch, record, A, A_dev):
@@ -3721,9 +3814,42 @@ def batched_path(torch, record, A, A_dev, sweep_rows):
     return {k: counts[k] for k in launch_counts()}, lane_launches
 
 
-def main() -> int:
+def k6_main(torch, parent) -> int:
+    """K6's section alone (``--k6``): its checks and tables at convdiff@1M
+    and the form table at convdiff(2048), then, with ``--parent DIR``, K6
+    beside that checkout's."""
+    from gmres_tpu_torch.io.synth import convection_diffusion_2d
+    from gmres_tpu_torch.ops.cuda._build import library
+
+    t0 = time.perf_counter()
+    library()
+    log(f"kernel build+load: {time.perf_counter() - t0:.3f} s")
+    record = Records(copy_bandwidth(torch)[1])
+    A = convection_diffusion_2d(NX, beta=2.0)
+    t0 = time.perf_counter()
+    check_trisolve_kernels(torch, A, record)
+    log(f"K6 section: {time.perf_counter() - t0:.1f} s")
+    if parent:
+        t0 = time.perf_counter()
+        k6_beside_checkout(torch, A, parent)
+        log(f"K6 beside {parent}: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"ok": True, "device": {"kind": torch.cuda.get_device_name(0)}}),
+          flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="On-card smoke run of gmres_tpu_torch.")
+    ap.add_argument("--k6", action="store_true", help="run K6's section alone")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="with --k6: time K6 beside the K6 of the checkout at DIR")
+    args = ap.parse_args(argv)
+    if args.parent and not args.k6:
+        ap.error("--parent goes with --k6")
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -3738,6 +3864,8 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} "
         f"nvcc: {nvcc_version()}")
+    if args.k6:
+        return k6_main(torch, args.parent)
 
     t0 = time.perf_counter()
     lib = library()

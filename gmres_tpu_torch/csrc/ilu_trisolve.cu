@@ -23,12 +23,13 @@
 // whose column falls outside [0, n) left out.  At its level a row's inputs
 // are final, so it gets exactly the value the last sweep of the old design
 // (and of the plain version) leaves in it.  A band's stored zero times a
-// finite value (w, b' or a result) adds nothing to the sum, so the kernel
-// skips it: the bits are the sweeps' wherever the values are finite (where a
-// value read through a zero band is not, the sweeps give NaN in that row).
-// Skipping matters: at a grid's edges the DIA bands' stored zeros point at
-// rows of later levels, outside the ring, so every level would otherwise
-// wait on a device-memory read (PERF.md, section 6).
+// finite value (w, b' or a result) adds nothing to the sum, so the schedule
+// gives it no neighbour (dep -1) and the kernel skips it: the bits are the
+// sweeps' wherever the values are finite (where a value read through a zero
+// band is not, the sweeps give NaN in that row).  At a grid's edges the DIA
+// bands' stored zeros point at rows of later levels, outside the ring, which
+// the kernel would otherwise read from device memory on each level holding
+// such an edge row (half of them at convdiff@1M).
 //
 // What bounds it: latency.  An apply is a chain of dependent levels (2 x 2047
 // at convdiff@1M); the bytes (bands + 3 values a row) are 32 MB in fp32.
@@ -83,7 +84,7 @@ template <typename T>
 struct Triangle {
   const int* ptr;    // (nlev + 1,) level pointers
   const T* bands;    // (nd, n) band values
-  const int* dep;    // (nd, n) position of each band's row, -1 outside [0, n)
+  const int* dep;    // (nd, n) position of each band's row, -1 outside [0, n) or zero band
   const int* out;    // (n,) where the result goes: L the row's U position, U the row
   const T* invd;     // (n,) D^-1 (U only)
   int nlev, nd;
@@ -163,7 +164,6 @@ __device__ __forceinline__ void solve_row(const Triangle<T>& tr, T* xs, T* xo, T
     const int q = staged ? dep[d * stride] : __ldg(tr.dep + (size_t)d * n + p);
     if (q < 0) continue;
     const T b = staged ? band[d * stride] : __ldg(tr.bands + (size_t)d * n + p);
-    if (b == T(0)) continue;  // a stored zero band: no neighbour (see the note above)
     T v;
     if (kMode == kBlockSync && q >= ring_lo && q < lo)
       v = ring[q & (kRing - 1)];

@@ -113,7 +113,8 @@ class LevelSchedule:
     its level pointers (``ptr_*``, int32, levels + 1), its bands repacked in
     that order (``bands_*[d, p] = bands[d, rows_*[p]]``) and the level-order
     position of each band's row (``dep_*[d, p]``, int32; -1 where that row
-    is outside the width); ``upos_l`` is the U position of the row at each L
+    is outside the width or the band's value there is a stored zero);
+    ``upos_l`` is the U position of the row at each L
     position and ``invd_u`` D^-1 in the U order.  ``nlev_*`` and ``width_*``
     (the widest level) are host ints, which size the kernel's grid; with
     ``seg`` > 0, ``seg_levels_*`` are the level counts within each segment of
@@ -189,10 +190,13 @@ def level_schedule(ld, ud, invd, offs_l, offs_u, seg: int = 0) -> LevelSchedule:
         rows, ptr, widest = _level_order(lev, count)
         pos = np.empty(width, dtype=np.int64)
         pos[rows] = np.arange(width)
+        # a band's stored zero is no neighbour: 0 times a finite value adds
+        # nothing to the sum, and at a grid's edges such a band points at a
+        # row of a later level, which the kernel would read from device memory
         dep = np.full((len(offs), width), -1, dtype=np.int32)
         for d, off in enumerate(offs):
             j = rows + off
-            live = (j >= 0) & (j < width)
+            live = (j >= 0) & (j < width) & (b[d, rows] != 0)
             dep[d, live] = pos[j[live]]
         out[f"pos_{tag}"] = pos
         out[f"rows_{tag}"] = torch.from_numpy(rows.astype(np.int32))
@@ -213,7 +217,10 @@ def ilu_trisolve_levels_plain(S: LevelSchedule, w: torch.Tensor) -> torch.Tensor
     xl = w in L order; each L level r = xl[p] - sum_d bands_l[d, p] xl[dep_l[d,
     p]] into xl[p] and xu[upos_l[p]]; each U level r = invd_u[p] (xu[p] - sum_d
     bands_u[d, p] xu[dep_u[d, p]]) into xu[p] and x[rows_u[p]]; terms with no
-    neighbour (-1) left out.  The same bits as the sweeps."""
+    neighbour (-1: outside the width, or a stored zero band) left out.  The
+    same bits as the sweeps wherever the values are finite (a stored zero
+    times a finite value adds nothing); where a value read through a zero
+    band is not, the sweeps give NaN in that row and this does not."""
     width = S.invd_u.shape[0]
     n_in = w.shape[0]
     xl = _padded(w, width)[S.rows_l.long()]
@@ -253,6 +260,12 @@ def _launch(name, ld, ud, invd, w, offs_l, offs_u, S, sync, steps_l, steps_u, se
     grid it ran on.  The step counts (one a segment of ``seg`` rows, or one
     for the whole triangle) must reach the schedule's level counts: the
     kernel computes the exact solve, and fewer sweeps are not that solve."""
+    if sync is not None and not (
+            isinstance(sync, tuple) and len(sync) == 2 and sync[0] in SYNC_MODES
+            and isinstance(sync[1], int) and sync[1] >= 1
+            and (sync[0] != "block" or sync[1] == 1)):
+        raise ValueError(f"{name}: sync {sync!r} is neither ('block', 1) nor "
+                         "('grid', blocks >= 1)")
     sfx = kernel_dtype(name, invd)
     width = invd.shape[0] if invd.dim() == 1 else 0
     dev = invd.device
@@ -285,8 +298,6 @@ def _launch(name, ld, ud, invd, w, offs_l, offs_u, S, sync, steps_l, steps_u, se
     check("invd_u", S.invd_u, invd.dtype, (width,), dev)
     check("upos_l", S.upos_l, torch.int32, (width,), dev)
     mode, blocks = sync or level_grid(max(S.width_l if offs_l else 0, S.width_u))
-    if mode not in SYNC_MODES:
-        raise ValueError(f"{name}: sync mode {mode!r} not in {tuple(SYNC_MODES)}")
     lib = library()
     # w in L order (the kernel's own values), scratch for the U order, x
     xl = _padded(w, width).index_select(0, S.rows_l)

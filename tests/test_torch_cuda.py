@@ -661,6 +661,52 @@ def test_ilu_trisolve_random_bands(dt, n, d):
 
 
 @DTYPES
+@pytest.mark.parametrize("widest", [1, 100, 1025, 2048])
+def test_ilu_trisolve_widest_levels_every_form(dt, widest):
+    # levels of exactly `widest` rows (L offsets -widest, -widest - 1, U
+    # the mirror, no stored zero): the picked form and every forced one
+    # give the sweeps' bits and the level twin's
+    n = 3 * widest + (widest + 1) // 2
+    rng = np.random.default_rng(widest)
+    ld, ud = (torch.tensor(0.2 * rng.standard_normal((2, n)) + 0.3, dtype=dt, device="cuda")
+              for _ in range(2))
+    invd = torch.tensor(1.0 / (2.0 + rng.random(n)), dtype=dt, device="cuda")
+    offs_l, offs_u = (-widest, -widest - 1), (widest, widest + 1)
+    S = tk.level_schedule(ld, ud, invd, offs_l, offs_u).to("cuda")
+    assert (S.width_l, S.width_u) == (widest, widest)
+    w = torch.tensor(rng.standard_normal(n), dtype=dt, device="cuda")
+    args = (ld, ud, invd, w, offs_l, offs_u, S.nlev_l, S.nlev_u)
+    want = tk.ilu_trisolve_fused_plain(*args)
+    assert torch.equal(tk.ilu_trisolve_levels_plain(S, w), want)
+    assert torch.equal(tk.ilu_trisolve_fused_cuda(*args, schedule=S), want)
+    assert tk.ilu_trisolve_fused_cuda.grid == tk.level_grid(widest)
+    for sync in (("block", 1), ("grid", 2), ("grid", 3), ("grid", 10_000)):
+        assert torch.equal(tk.ilu_trisolve_fused_cuda(*args, schedule=S, sync=sync), want), sync
+        assert tk.ilu_trisolve_fused_cuda.grid[0] == sync[0]
+
+
+@DTYPES
+def test_ilu_trisolve_skips_a_stored_zero_band_as_its_twin(dt):
+    # an inf read only through stored zero bands (convdiff's L band at -1 in
+    # each grid row's first column): the kernel leaves those terms out, as
+    # the level twin does, on one block and on a grid
+    # (L alone: U's band at +1 would carry the inf over every row)
+    nx = 64
+    M = _exact(nx, dt)
+    empty = torch.zeros((0, nx * nx), dtype=dt, device="cuda")
+    ones = torch.ones(nx * nx, dtype=dt, device="cuda")
+    S = tk.level_schedule(M.lower_bands, empty, ones, M.offs_l, ()).to("cuda")
+    w = torch.tensor(np.random.default_rng(6).standard_normal(nx * nx), dtype=dt, device="cuda")
+    w[nx - 1] = float("inf")
+    args = (M.lower_bands, empty, ones, w, M.offs_l, (), M.steps_l, 1)
+    want = tk.ilu_trisolve_levels_plain(S, w).view(nx, nx)
+    assert torch.isfinite(want[:, :-1]).all() and not torch.isfinite(want[:, -1]).any()
+    for sync in (None, ("grid", 3)):
+        got = tk.ilu_trisolve_fused_cuda(*args, schedule=S, sync=sync).view(nx, nx)
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@DTYPES
 @pytest.mark.parametrize("upper", [True, False], ids=["no_lower_bands", "no_upper_bands"])
 def test_ilu_trisolve_one_sided(dt, upper):
     n, rng = 1000, np.random.default_rng(5)

@@ -8,9 +8,11 @@ level-ordered twin, and K2's tile and grid plan.
   dependency of a row lies at a lower level, the level counts equal
   ``steps_l``/``steps_u`` (per segment ``steps_*_segs``) and the levels
   those of ``triangular_levels`` on the CSR pattern; the neighbour
-  positions, U positions and repacked bands are the arrays the kernel
-  reads.  A preconditioner gets its schedule when it moves to the card,
-  not on the CPU.
+  positions (none for a stored zero band), U positions and repacked bands
+  are the arrays the kernel reads.  A preconditioner gets its schedule
+  when it moves to the card, not on the CPU.  ``level_grid`` picks one
+  block while the widest level fits it, else a grid; the fused wrapper
+  refuses a ``sync=`` that is neither before anything is built.
 - ``ilu_trisolve_levels_plain``, the kernel's data path in torch, equals the
   plain sweeps (``ilu_trisolve_fused_plain``, ``ilu_trisolve_segmented_plain``)
   bit for bit in fp32 and fp64, and is held to the JAX package's
@@ -83,7 +85,8 @@ def _check_schedule(S, ld, ud, invd, offs_l, offs_u):
             live = (j >= 0) & (j < width)
             nz = live & (b[d] != 0)
             assert np.all(lev[j[nz]] < lev[i[nz]])  # every dependency lower
-            want = np.where(live[rows], pos[np.clip(j[rows], 0, width - 1)], -1)
+            # a stored zero band is no neighbour, as a column outside the width
+            want = np.where(nz[rows], pos[np.clip(j[rows], 0, width - 1)], -1)
             assert np.array_equal(dep[d], want)
         levs.append(lev)
     assert np.array_equal(S.rows_u.numpy()[S.upos_l.numpy()], S.rows_l.numpy())
@@ -291,6 +294,69 @@ def test_level_grid_follows_the_widest_level():
     assert tk.level_grid(1025) == ("grid", 2)
     assert tk.level_grid(8 * 1024) == ("grid", 8)
     assert tk.level_grid(8 * 1024 + 1) == ("grid", 9)
+
+
+def _blocked_levels(widest, dt=torch.float64):
+    """Factors whose levels are blocks of ``widest`` rows: L offsets
+    (-widest, -widest - 1), U offsets (widest, widest + 1), every stored
+    value nonzero, 3 * widest + (widest + 1) // 2 rows (four levels a
+    triangle, the last one short but where widest is 1)."""
+    n = 3 * widest + (widest + 1) // 2
+    rng = np.random.default_rng(widest)
+    ld, ud = (torch.tensor(0.2 * rng.standard_normal((2, n)) + 0.3, dtype=dt) for _ in range(2))
+    invd = torch.tensor(1.0 / (2.0 + rng.random(n)), dtype=dt)
+    return ld, ud, invd, (-widest, -widest - 1), (widest, widest + 1)
+
+
+@pytest.mark.parametrize("widest,form", [
+    (1, ("block", 1)), (100, ("block", 1)), (1024, ("block", 1)), (1025, ("grid", 2)),
+    (2048, ("grid", 2)), (8193, ("grid", 9))])
+def test_level_grid_of_a_schedule(widest, form):
+    # one block while the widest level fits its 1024 threads, else a grid of
+    # a block per 1024 rows of it; the twin keeps the sweeps' bits at each
+    ld, ud, invd, offs_l, offs_u = _blocked_levels(widest)
+    S = tk.level_schedule(ld, ud, invd, offs_l, offs_u)
+    assert (S.width_l, S.width_u, S.nlev_l, S.nlev_u) == (widest, widest, 4, 4)
+    assert tk.level_grid(max(S.width_l, S.width_u)) == form
+    w = torch.from_numpy(np.random.default_rng(widest + 1).standard_normal(invd.shape[0]))
+    want = tk.ilu_trisolve_fused_plain(ld, ud, invd, w, offs_l, offs_u, 4, 4)
+    assert torch.equal(tk.ilu_trisolve_levels_plain(S, w), want)
+
+
+@pytest.mark.parametrize("sync", [("cluster", 2), ("block", 2), ("grid", 0), ("warp", 1)])
+def test_fused_wrapper_refuses_a_bad_sync(sync):
+    # refused before a tensor is looked at or anything is built
+    ld, ud, invd, offs_l, offs_u = _blocked_levels(4)
+    S = tk.level_schedule(ld, ud, invd, offs_l, offs_u)
+    with pytest.raises(ValueError, match="sync"):
+        tk.ilu_trisolve_fused_cuda(ld, ud, invd, invd, offs_l, offs_u, 4, 4, schedule=S,
+                                   sync=sync)
+
+
+def test_a_stored_zero_band_is_no_neighbour():
+    # convdiff's L band at offset -1 stores a zero in each grid row's first
+    # column, pointing at the previous grid row's last column (a later
+    # level): the schedule gives it no neighbour.  With every value finite
+    # the twin keeps the sweeps' bits; an inf there reaches in the twin only
+    # the rows that depend on it, and in the sweeps (0 x inf) each row after
+    nx = 16
+    M = port_build.build_ilu_exact(convection_diffusion_2d(nx, beta=2.0), torch.float64)
+    d = M.offs_l.index(-1)
+    first = np.arange(1, nx) * nx
+    assert np.all(M.lower_bands[d, first].numpy() == 0)
+    empty = torch.zeros((0, nx * nx), dtype=torch.float64)
+    ones = torch.ones(nx * nx, dtype=torch.float64)
+    S = tk.level_schedule(M.lower_bands, empty, ones, M.offs_l, ())
+    assert np.all(S.dep_l[d, S.rows_l.argsort()[first]].numpy() == -1)
+    w = torch.from_numpy(np.random.default_rng(4).standard_normal(nx * nx))
+    args = (M.lower_bands, empty, ones, w, M.offs_l, (), S.nlev_l, 1)
+    assert torch.equal(tk.ilu_trisolve_levels_plain(S, w), tk.ilu_trisolve_fused_plain(*args))
+    w[nx - 1] = float("inf")
+    got = tk.ilu_trisolve_levels_plain(S, w).view(nx, nx)
+    sweeps = tk.ilu_trisolve_fused_plain(*args).view(nx, nx)
+    assert torch.isfinite(got[:, :-1]).all() and not torch.isfinite(got[:, -1]).any()
+    assert torch.isnan(sweeps[1:]).all()
+    assert torch.equal(got[0], sweeps[0])
 
 
 @pytest.mark.parametrize("n", [1, 3, 1023, 1025, 2048, 70_001, 2 ** 20 + 3])

@@ -1394,6 +1394,7 @@ def k6_beside_checkout(torch, A_csr, checkout):
     spec = importlib.util.spec_from_file_location(
         "k6_other_checkout", root / "gmres_tpu_torch" / "ops" / "cuda" / "trisolve_kernel.py")
     other = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = other  # its dataclasses look their module up there
     spec.loader.exec_module(other)
     other.library = lambda: other_lib
     log(f"K6 beside {root}: its library {other_lib.path} built and loaded in "
